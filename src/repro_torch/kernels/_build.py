@@ -1,0 +1,185 @@
+"""Build, load and launch the package's CUDA kernels (no JAX counterpart).
+
+The sources under ``csrc/`` have a plain C interface.  At first use they are
+compiled for Hopper with ``nvcc`` -- one process per source, all started
+together -- and linked into one shared library under ``build/<hash>/``
+beside this module, keyed by a hash of the sources and flags, then loaded
+with :mod:`ctypes`.  Pointers and the stream pass as ``c_void_p``.  Every
+entry point returns ``cudaGetLastError()`` after its launch and
+:func:`check` raises when that is not 0: a refused launch never runs, and a
+later synchronise would not report it.
+
+Nothing here falls back: no ``nvcc``, a failed build or a failed launch
+raises.  The CPU path of each wrapper is taken only for CPU tensors.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Sequence
+
+import torch
+
+CSRC = Path(__file__).with_name("csrc")
+BUILD_ROOT = Path(__file__).with_name("build")
+LIB_NAME = "libbwma_kernels.so"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+)
+SUPPORTED_BLOCKS = (8, 16, 32, 64, 128)
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_SIGNATURES = {
+    # a, b, out, lead0, lead1, a_s0, a_s1, b_s0, b_s1, gm, gn, gk, bm, bn, bk, stream
+    "bwma_gemm_f32": ([_P, _P, _P] + [_I] * 2 + [_L] * 4 + [_I] * 6 + [_P], _I),
+    # a, b, bias, out, then as bwma_gemm_f32
+    "bwma_fused_ffn_f32": ([_P] * 4 + [_I] * 2 + [_L] * 4 + [_I] * 6 + [_P], _I),
+    # x, gamma, beta, out, lead0, lead1, x_s0, x_s1, gm, gn, bm, bn, n_logical, eps, stream
+    "bwma_layernorm_f32": ([_P] * 4 + [_I] * 2 + [_L] * 2 + [_I] * 5 + [_F, _P], _I),
+    # q, k, v, out, lead0, lead1, 6 strides, gs, gd, bm, bd, rq, s_logical, scale, stream
+    "bwma_attention_f32": ([_P] * 4 + [_I] * 2 + [_L] * 6 + [_I] * 6 + [_F, _P], _I),
+    "bwma_attention_smem_bytes": ([_I] * 4, _L),
+    "bwma_error_string": ([_I], ctypes.c_char_p),
+}
+
+
+def sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _source_key() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources():
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
+
+
+def _run_all(cmds: Sequence[Sequence[str]], what: Sequence[str]) -> None:
+    """Run ``cmds`` in parallel; raise with the compiler output of any failure."""
+    procs = []
+    try:
+        for cmd in cmds:
+            procs.append(subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            ))
+        failures = []
+        for p, name in zip(procs, what):
+            out, _ = p.communicate()
+            if p.returncode:
+                failures.append(f"{name} (exit {p.returncode}):\n{out}")
+        if failures:
+            raise RuntimeError("nvcc failed on " + "\n".join(failures))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` into one shared library, once per source hash."""
+    key = _source_key()
+    lib = BUILD_ROOT / key / LIB_NAME
+    if lib.exists():
+        return lib
+    nvcc = _nvcc()
+    BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix=f"{key}.", dir=BUILD_ROOT))
+    try:
+        srcs = sources()
+        objs = [tmp / f"{s.stem}.o" for s in srcs]
+        _run_all(
+            [[nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)] for s, o in zip(srcs, objs)],
+            [s.name for s in srcs],
+        )
+        _run_all(
+            [[nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), "-o", str(tmp / LIB_NAME)]],
+            ["link"],
+        )
+        try:
+            tmp.rename(lib.parent)
+        except OSError:  # another process finished the same build first
+            if not lib.exists():
+                raise
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return lib
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built first if needed)."""
+    lib = ctypes.CDLL(str(build()))
+    for name, (argtypes, restype) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib
+
+
+def check(code: int, kernel: str) -> None:
+    """Raise if a kernel entry point returned a CUDA error code."""
+    if code:
+        msg = library().bwma_error_string(code).decode()
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {code} ({msg})")
+
+
+def on_cuda(kernel: str, *tensors: torch.Tensor) -> bool:
+    """True when every tensor is on one CUDA device, False when all are on
+    the CPU; raise on a mix or on any other device."""
+    devices = {t.device for t in tensors}
+    if devices == {torch.device("cpu")}:
+        return False
+    if len(devices) == 1 and next(iter(devices)).type == "cuda":
+        return True
+    raise ValueError(f"{kernel}: operands must all be on one CUDA device or all "
+                     f"on the CPU, got {sorted(map(str, devices))}")
+
+
+def check_operands(kernel: str, *tensors: torch.Tensor) -> None:
+    """The kernels take contiguous fp32 tensors; raise on anything else."""
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{kernel}: the kernels are fp32 only, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: operand of shape {tuple(t.shape)} is not contiguous")
+
+
+def check_block(kernel: str, *dims: int) -> None:
+    for d in dims:
+        if d not in SUPPORTED_BLOCKS:
+            raise ValueError(f"{kernel}: block dim {d} not in {SUPPORTED_BLOCKS}")
+
+
+def launch_args(*tensors: torch.Tensor) -> list:
+    """Device pointers of ``tensors``, after checking the 16-byte alignment
+    the kernels' vector loads need."""
+    ptrs = []
+    for t in tensors:
+        ptr = t.data_ptr()
+        if ptr % 16:
+            raise ValueError(f"operand of shape {tuple(t.shape)} is not 16-byte aligned")
+        ptrs.append(ptr)
+    return ptrs
+
+
+def stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream

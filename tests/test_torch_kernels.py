@@ -1,0 +1,244 @@
+"""The PyTorch port's kernel modules against the JAX Pallas kernels.
+
+On the CPU each wrapper takes its kernel's plain version (the tensors lie on
+the CPU), which is held here against the JAX Pallas kernel in interpret
+mode at 2e-5, the op-level tolerance of tests/test_backend.py.  The cases
+marked ``cuda`` hold the compiled CUDA kernel against its plain version and
+skip unless a card of compute capability 9.0 or more is present.
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import importlib
+
+import numpy as np
+
+import repro_torch.kernels as tk
+from repro_torch.kernels import _build
+from repro_torch.kernels.batching import lead_grid
+from repro_torch.kernels.bwma_attention import attention_plain
+from repro_torch.kernels.bwma_gemm import gemm_plain
+from repro_torch.kernels.bwma_layernorm import layernorm_plain
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+def _rand(seed, *shape, scale=1.0):
+    return (np.random.default_rng(seed).standard_normal(shape) * scale).astype(np.float32)
+
+
+def _t(x):
+    return torch.from_numpy(x)
+
+
+@pytest.fixture
+def jax_kernel():
+    """The JAX package's Pallas kernel of a module, imported only by the CPU
+    parity tests, so the ``cuda`` cases also run where JAX is absent
+    (``pytest --noconftest -m cuda``)."""
+    pytest.importorskip("jax")
+
+    def get(module):
+        return getattr(importlib.import_module(f"repro.kernels.{module}"), module)
+
+    return get
+
+
+@pytest.fixture
+def cuda_card():
+    """Skip unless a Hopper-class card (capability >= 9.0) is present."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; this machine has none")
+    if torch.cuda.get_device_capability(0) < (9, 0):
+        pytest.skip("the kernels are built for sm_90a")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.fixture(autouse=True)
+def _fresh_counts():
+    tk.reset_launch_counts()
+    yield
+    tk.reset_launch_counts()
+
+
+GEMM_CASES = [
+    # (a lead, b lead, gm, gk, gn, block): plain, head broadcast (1,) vs (h,),
+    # batch x head, shared weights under a batch lead, blocks 8 and 16
+    ((), (), 3, 4, 2, 16),
+    ((1,), (3,), 2, 3, 2, 8),
+    ((2, 1), (3,), 2, 2, 3, 16),
+    ((2,), (), 3, 5, 2, 8),
+]
+
+
+@pytest.mark.parametrize("la,lb,gm,gk,gn,block", GEMM_CASES)
+def test_gemm_plain_matches_pallas(jax_kernel, la, lb, gm, gk, gn, block):
+    a = _rand(0, *la, gm, gk, block, block)
+    b = _rand(1, *lb, gk, gn, block, block, scale=0.1)
+    want = np.asarray(jax_kernel("bwma_gemm")(a, b, interpret=True))
+    got = tk.bwma_gemm(_t(a), _t(b))
+    assert tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    assert tk.launch_counts()["bwma_gemm"] == 0  # no launch on the CPU
+
+
+@pytest.mark.parametrize("la,gm,gk,gn,block", [((), 2, 3, 4, 16), ((2,), 3, 2, 5, 8),
+                                                ((2, 2), 1, 4, 2, 8)])
+def test_fused_ffn_plain_matches_pallas(jax_kernel, la, gm, gk, gn, block):
+    a = _rand(2, *la, gm, gk, block, block)
+    w = _rand(3, gk, gn, block, block, scale=0.2)
+    bias = _rand(4, gn, block, scale=0.5)
+    want = np.asarray(jax_kernel("bwma_fused_ffn")(a, w, bias, interpret=True))
+    got = tk.bwma_fused_ffn(_t(a), _t(w), _t(bias))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    assert tk.launch_counts()["bwma_fused_ffn"] == 0
+
+
+@pytest.mark.parametrize("lead,gm,gn,block,n_logical", [
+    ((), 3, 5, 16, 72),   # ragged: the last column block is partly padding
+    ((2,), 2, 3, 8, 17),
+    ((2, 3), 2, 2, 16, 32),
+    ((), 4, 6, 8, 48),
+])
+def test_layernorm_plain_matches_pallas(jax_kernel, lead, gm, gn, block, n_logical):
+    x = _rand(5, *lead, gm, gn, block, block, scale=3.0) + 1.0
+    gamma = _rand(6, gn, block)
+    beta = _rand(7, gn, block)
+    want = np.asarray(jax_kernel("bwma_layernorm")(x, gamma, beta, n_logical, interpret=True))
+    got = tk.bwma_layernorm(_t(x), _t(gamma), _t(beta), n_logical)
+    # padded columns are written as exactly 0 by both: compare every element
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    assert tk.launch_counts()["bwma_layernorm"] == 0
+
+
+ATTN_CASES = [
+    # (q lead, kv lead, gs, gd, block, s_logical)
+    ((2, 3), (2, 3), 3, 2, 16, 45),  # ragged keys, batch x heads
+    ((3,), (3,), 4, 2, 8, 30),
+    ((3,), (1,), 2, 3, 8, 16),  # K/V broadcast over the query heads
+    ((), (), 2, 4, 16, 32),
+]
+
+
+@pytest.mark.parametrize("lq,lkv,gs,gd,block,s_logical", ATTN_CASES)
+def test_attention_plain_matches_pallas(jax_kernel, lq, lkv, gs, gd, block, s_logical):
+    q = _rand(8, *lq, gs, gd, block, block)
+    k = _rand(9, *lkv, gs, gd, block, block)
+    v = _rand(10, *lkv, gs, gd, block, block)
+    want = np.asarray(jax_kernel("bwma_attention")(q, k, v, scale=0.3, s_logical=s_logical,
+                                                   interpret=True))
+    got = tk.bwma_attention(_t(q), _t(k), _t(v), scale=0.3, s_logical=s_logical).numpy()
+    assert got.shape == want.shape
+    # padded query rows are garbage by design: compare the logical rows
+    rows = (np.arange(gs * block).reshape(gs, 1, block, 1) < s_logical)
+    np.testing.assert_allclose(np.where(rows, got, 0), np.where(rows, want, 0), **TOL)
+    assert tk.launch_counts()["bwma_attention"] == 0
+
+
+def test_lead_grid_strides_are_zero_where_an_operand_broadcasts():
+    a = torch.zeros(2, 1, 3, 4, 8, 8)  # activation with a broadcasting head axis
+    w = torch.zeros(5, 4, 2, 8, 8)  # per-head weights
+    g = lead_grid((a, w), (4, 4))
+    assert g.shape == (2, 5) and g.dims == (2, 5) and g.size == 10
+    assert g.strides == ((a.stride(0), 0), (0, w.stride(0)))
+    shared = lead_grid((torch.zeros(3, 2, 2, 8, 8), torch.zeros(2, 2, 8, 8)), (4, 4))
+    assert shared.dims == (1, 3) and shared.strides[1] == (0, 0)  # weights never copied
+    assert lead_grid((torch.zeros(2, 2, 8, 8),), (4,)).dims == (1, 1)
+    with pytest.raises(ValueError, match="leading"):
+        lead_grid((torch.zeros(2, 2, 2, 1, 1, 8, 8),), (4,))
+    with pytest.raises(ValueError, match="contiguous"):
+        lead_grid((torch.zeros(2, 1, 1, 8, 8).transpose(-1, -2),), (4,))
+
+
+def test_wrappers_check_their_operands():
+    a = torch.zeros(2, 2, 16, 16)
+    with pytest.raises(TypeError, match="fp32"):
+        tk.bwma_gemm(a.double(), a.double())
+    with pytest.raises(ValueError, match="block dim"):
+        tk.bwma_gemm(torch.zeros(1, 1, 12, 12), torch.zeros(1, 1, 12, 12))
+    with pytest.raises(ValueError, match="inner blocks"):
+        tk.bwma_gemm(torch.zeros(1, 2, 16, 16), torch.zeros(3, 1, 16, 16))
+    with pytest.raises(ValueError, match="bias"):
+        tk.bwma_fused_ffn(a, a, torch.zeros(3, 16))
+    with pytest.raises(ValueError, match="n_logical"):
+        tk.bwma_layernorm(a, torch.zeros(2, 16), torch.zeros(2, 16), 33)
+    with pytest.raises(ValueError, match="s_logical"):
+        tk.bwma_attention(a, a, a, scale=1.0, s_logical=40)
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.bwma_layernorm(a.transpose(-1, -2), torch.zeros(2, 16), torch.zeros(2, 16), 16)
+    assert tk.launch_counts() == dict.fromkeys(tk.launch_counts(), 0)
+
+
+def test_build_finds_all_sources_and_raises_without_nvcc(monkeypatch, tmp_path):
+    names = {p.name for p in _build.sources()}
+    assert {"bwma_gemm.cu", "bwma_layernorm.cu", "bwma_attention.cu"} <= names
+    assert len(_build._source_key()) == 16
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build._nvcc()
+
+
+# -- on the card: the compiled kernel against its plain version -------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("la,lb,gm,gk,gn,block", GEMM_CASES)
+def test_cuda_gemm_matches_plain(cuda_card, la, lb, gm, gk, gn, block):
+    a = _t(_rand(0, *la, gm, gk, block, block)).to(cuda_card)
+    b = _t(_rand(1, *lb, gk, gn, block, block, scale=0.1)).to(cuda_card)
+    bias = _t(_rand(2, gn, block)).to(cuda_card)
+    torch.testing.assert_close(tk.bwma_gemm(a, b), gemm_plain(a, b), **TOL)
+    torch.testing.assert_close(tk.bwma_fused_ffn(a, b, bias), gemm_plain(a, b, bias), **TOL)
+    assert tk.launch_counts()["bwma_gemm"] == 1 and tk.launch_counts()["bwma_fused_ffn"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [8, 16, 32, 64, 128])
+def test_cuda_layernorm_matches_plain(cuda_card, block):
+    x = _t(_rand(5, 2, 2, 3, block, block, scale=3.0)).to(cuda_card)
+    gamma, beta = (_t(_rand(s, 3, block)).to(cuda_card) for s in (6, 7))
+    n = 3 * block - 5
+    torch.testing.assert_close(tk.bwma_layernorm(x, gamma, beta, n),
+                               layernorm_plain(x, gamma, beta, n), **TOL)
+    assert tk.launch_counts()["bwma_layernorm"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq,lkv,gs,gd,block,s_logical",
+                         ATTN_CASES + [((2,), (2,), 4, 1, 128, 500)])
+def test_cuda_attention_matches_plain(cuda_card, lq, lkv, gs, gd, block, s_logical):
+    q = _t(_rand(8, *lq, gs, gd, block, block)).to(cuda_card)
+    k = _t(_rand(9, *lkv, gs, gd, block, block)).to(cuda_card)
+    v = _t(_rand(10, *lkv, gs, gd, block, block)).to(cuda_card)
+    got = tk.bwma_attention(q, k, v, scale=0.3, s_logical=s_logical)
+    want = attention_plain(q, k, v, scale=0.3, s_logical=s_logical)
+    rows = torch.arange(gs * block, device=cuda_card).reshape(gs, 1, block, 1) < s_logical
+    torch.testing.assert_close(torch.where(rows, got, 0.0), torch.where(rows, want, 0.0), **TOL)
+    assert tk.launch_counts()["bwma_attention"] == 1
+
+
+@pytest.mark.parametrize("plain", ["gemm", "attention"])
+def test_plain_versions_run_without_tf32(monkeypatch, plain):
+    """The plain versions are fp32 oracles: they turn TF32 off around their
+    products whatever the caller set, and restore the caller's setting."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    seen = []
+    for name in ("matmul", "einsum"):
+        real = getattr(torch, name)
+
+        def spy(*args, _real=real, **kw):
+            seen.append((torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32))
+            return _real(*args, **kw)
+
+        monkeypatch.setattr(torch, name, spy)
+    x = torch.ones(1, 2, 8, 8)
+    if plain == "gemm":
+        gemm_plain(x, torch.ones(2, 1, 8, 8))
+    else:
+        attention_plain(x, x, x, scale=1.0, s_logical=8)
+    assert seen and set(seen) == {(False, False)}
+    assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
