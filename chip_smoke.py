@@ -20,6 +20,28 @@ Phases, each printing one JSON line:
    ``encoder_rwma``; the kernels' launch counts per forward must be exactly
    60 bwma_gemm, 12 bwma_fused_ffn, 24 bwma_layernorm, 12 bwma_attention;
    the forward is timed and profiled (device time by kernel, idle share).
+5. serving kernels -- rwma_gemm at BERT-base projection shapes (blocks 16
+   and 128, beside bwma_gemm at equal tiling: the paper's comparison) and
+   at the starcoder2-7b products of the rwma serving run (tiles 128 and 16,
+   and tile 24 for the general-tile path), paged_attention_decode at starcoder2-7b decode shapes (fp32 and bf16
+   pools, ragged positions, a scattered page table with unmapped entries on
+   the null page) and paged_copy (bit-exact), each against its plain
+   version, timed beside its bound and one library call.
+6. serve -- starcoder2-7b at full width (32 layers, d_model 4608, 36 heads
+   over 4 kv heads, vocab 49152; random weights drawn on the card from a
+   seed) through the continuous-batching ``Engine`` with the ``"cuda"``
+   backend: 8 requests of 100-1500 prompt tokens, one the 700-token prefix
+   of another (its tail page is shared, so copy-on-write fires), 64 new
+   tokens each, 4 slots, pages and chunks of 128.  Gates, in fp32: greedy
+   tokens equal the single-request ``Server.generate`` except where the
+   baseline's top-2 logit margin is below 1e-3 at the first divergence;
+   paged_attention_decode launches == 32 x decode steps; paged_copy launches
+   == 2 x COW copies >= 2; a clean pool audit; a ``"reference"`` engine run
+   launches no paged kernel; a 4-layer ``gemm_backend="rwma"`` run launches
+   rwma_gemm and agrees with the xla route under the same margin rule.
+   Timed in bf16 (the config's type): decode step ms (median, p90), decode
+   tokens/s, TTFT, the device time by kernel of one profiled decode step and
+   the device's idle share.
 
 Then the per-kernel summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is then
@@ -55,18 +77,37 @@ E2E_VS_REFERENCE = 1e-4
 E2E_VS_RWMA = 5e-4
 LAUNCHES_PER_FORWARD = {"bwma_gemm": 60, "bwma_fused_ffn": 12,
                         "bwma_layernorm": 24, "bwma_attention": 12}
+SERVING_KERNELS = ("rwma_gemm", "paged_attention_decode", "paged_copy")
 REPLACES = {
     "bwma_gemm": "src/repro/kernels/bwma_gemm.py:26",
     "bwma_fused_ffn": "src/repro/kernels/bwma_fused_ffn.py:21",
     "bwma_layernorm": "src/repro/kernels/bwma_layernorm.py:18",
     "bwma_attention": "src/repro/kernels/bwma_attention.py:36",
+    "rwma_gemm": "src/repro/kernels/rwma_gemm.py:17",
+    "paged_attention_decode": "src/repro/kernels/paged_attention.py:65",
+    "paged_copy": "src/repro/kernels/paged_attention.py:262",
 }
 SOURCES = {
     "bwma_gemm": "src/repro_torch/kernels/csrc/bwma_gemm.cu",
     "bwma_fused_ffn": "src/repro_torch/kernels/csrc/bwma_gemm.cu",
     "bwma_layernorm": "src/repro_torch/kernels/csrc/bwma_layernorm.cu",
     "bwma_attention": "src/repro_torch/kernels/csrc/bwma_attention.cu",
+    "rwma_gemm": "src/repro_torch/kernels/csrc/rwma_gemm.cu",
+    "paged_attention_decode": "src/repro_torch/kernels/csrc/paged_attention.cu",
+    "paged_copy": "src/repro_torch/kernels/csrc/paged_attention.cu",
 }
+# NVIDIA H100 SXM data sheet (spec): dense bf16 on the tensor cores, for the
+# bound of an operation on bf16 inputs.
+PEAK_BF16_FLOPS = 989e12
+# Paged decode vs its plain version: fp32 pools within the JAX suite's TOL
+# (tests/test_paged_kernels.py: online-softmax reassociation); bf16 pools
+# within one bf16 rounding of the plain output (2^-7 of its magnitude; both
+# compute in fp32 and round once) plus that same 1e-6.
+PAGED_TOL = 1e-6
+BF16_ROUNDING = 2.0 ** -7
+# Greedy tokens against the single-request baseline: a divergence must fall
+# at a step where the baseline's top-2 logit margin is below this.
+MARGIN = 1e-3
 
 
 def emit(obj) -> None:
@@ -102,9 +143,9 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound_ms(n_bytes: float, flops: float) -> tuple:
+def bound_ms(n_bytes: float, flops: float, peak: float = PEAK_FP32_FLOPS) -> tuple:
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -283,10 +324,27 @@ def kernel_phase(torch, gen):
     return summary
 
 
+def kernel_of(name: str) -> str:
+    """The port's kernel a profiler event belongs to, or "other"."""
+    if "gemm_kernel<" in name:  # gemm_tile.cuh: <BM, BN, KS, FUSED, RWMA>
+        if "true, false>" in name:
+            return "bwma_fused_ffn"
+        return "rwma_gemm" if "false, true>" in name else "bwma_gemm"
+    for key, pattern in (("rwma_gemm", "rwma_any_tile_kernel"),
+                         ("bwma_layernorm", "bwma_layernorm_kernel"),
+                         ("bwma_attention", "bwma_attention_kernel"),
+                         ("paged_attention_decode", "paged_decode_kernel"),
+                         ("paged_copy", "paged_copy_kernel")):
+        if pattern in name:
+            return key
+    return "other"
+
+
 def profile_forward(torch, forward) -> dict:
-    """One forward under torch.profiler: the device time by kernel, the
-    device window (first kernel start to last kernel end) and the share of
-    it in which no kernel ran."""
+    """One call under torch.profiler: the device time by kernel (the port's
+    kernels by name, the rest under "other", with its five largest names),
+    the device window (first kernel start to last kernel end) and the share
+    of it in which no kernel ran."""
     from torch.profiler import ProfilerActivity, profile
 
     forward()
@@ -294,23 +352,24 @@ def profile_forward(torch, forward) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         forward()
         torch.cuda.synchronize()
-    by_kernel, spans = {}, []
+    by_kernel, other, spans = {}, {}, []
     for evt in prof.events():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
         spans.append((evt.time_range.start, evt.time_range.end))
-        name = evt.name
-        if "bwma_gemm_kernel" in name:
-            key = "bwma_fused_ffn" if "true>" in name else "bwma_gemm"
-        else:
-            key = next((k for k in LAUNCHES_PER_FORWARD if f"{k}_kernel" in name), "other")
-        by_kernel[key] = by_kernel.get(key, 0.0) + (evt.time_range.end - evt.time_range.start) / 1e3
+        ms = (evt.time_range.end - evt.time_range.start) / 1e3
+        key = kernel_of(evt.name)
+        by_kernel[key] = by_kernel.get(key, 0.0) + ms
+        if key == "other":
+            other[evt.name[:80]] = other.get(evt.name[:80], 0.0) + ms
     if not spans:
         return {"profile": "no device events recorded"}
     window = (max(e for _, e in spans) - min(s for s, _ in spans)) / 1e3
     busy = sum(by_kernel.values())
+    top = sorted(other.items(), key=lambda kv: -kv[1])[:5]
     return {"device_window_ms": window, "device_busy_ms": busy,
-            "device_idle_share": 1.0 - busy / window, "device_ms_by_kernel": by_kernel}
+            "device_idle_share": 1.0 - busy / window, "device_ms_by_kernel": by_kernel,
+            "top_other_ms": dict(top)}
 
 
 def encoder_phase(torch, gen, kernels):
@@ -329,6 +388,9 @@ def encoder_phase(torch, gen, kernels):
             y = enc.encoder_bwma(bp, x, cfg, backend="cuda")
             torch.cuda.synchronize()
             counts = kernels.launch_counts()
+            if any(counts[k] for k in SERVING_KERNELS):
+                raise AssertionError(f"the encoder launched a serving kernel: {counts}")
+            counts = {k: counts[k] for k in LAUNCHES_PER_FORWARD}
             if counts != LAUNCHES_PER_FORWARD:
                 raise AssertionError(f"block {block} batch {batch}: launches {counts} "
                                      f"!= {LAUNCHES_PER_FORWARD} per forward")
@@ -361,6 +423,387 @@ def encoder_phase(torch, gen, kernels):
         del params, bp
         torch.cuda.empty_cache()
     return counted
+
+
+def serving_kernel_phase(torch, gen):
+    """rwma_gemm, paged_attention_decode and paged_copy against their plain
+    versions at this slice's full-width shapes, timed.  Returns {kernel:
+    summary row}; the rows' times are for the timed configuration named in
+    their ``work`` key."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.bwma_gemm import bwma_gemm
+    from repro_torch.kernels.paged_attention import (
+        copy_plain,
+        decode_plain,
+        paged_attention_decode,
+        paged_copy,
+    )
+    from repro_torch.kernels.rwma_gemm import rwma_gemm, rwma_plain
+    from repro_torch.core.layout import BlockLayout, to_blockwise
+
+    out = {}
+    # -- rwma_gemm: one BERT-base encoder layer's six projections at batch 4
+    # (M = 4 x 512), beside bwma_gemm at the same tiling
+    d, f, M = 768, 3072, 4 * 512
+    products = {"wq": (d, d), "wk": (d, d), "wv": (d, d), "wo": (d, d), "w1": (d, f),
+                "w2": (f, d)}
+    for block in (16, 128):
+        lo = BlockLayout(block, block)
+        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+               "bwma_ms": 0.0}
+        worst = bytes_ms = ops_ms = 0.0
+        for name, (k, n) in products.items():
+            a = torch.randn(M, k, generator=gen, device=gen.device).to("cuda")
+            w = (torch.randn(k, n, generator=gen, device=gen.device) * k ** -0.5).to("cuda")
+            got = rwma_gemm(a, w, bm=block, bk=block, bn=block)
+            want = rwma_plain(a, w, bm=block, bk=block, bn=block)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            rel = err / want.abs().max().item()
+            if not rel <= KERNEL_RTOL:
+                raise AssertionError(f"rwma_gemm block {block} {name}: rel err {rel}")
+            worst = max(worst, err)
+            ab, wb = to_blockwise(a, lo), to_blockwise(w, lo)
+            b, _ = bound_ms(nbytes(a, w, got), 2.0 * M * k * n)
+            bytes_ms += nbytes(a, w, got) / PEAK_BYTES_PER_S * 1e3
+            ops_ms += 2.0 * M * k * n / PEAK_FP32_FLOPS * 1e3
+            tot["ms"] += time_ms(lambda: rwma_gemm(a, w, bm=block, bk=block, bn=block))
+            tot["plain_ms"] += time_ms(lambda: rwma_plain(a, w, bm=block, bk=block, bn=block))
+            tot["library_ms"] += time_ms(lambda: torch.matmul(a, w))
+            tot["bwma_ms"] += time_ms(lambda: bwma_gemm(ab, wb))
+            tot["bound_ms"] += b
+            del a, w, got, want, ab, wb
+        row = {"phase": "serving_kernels", "kernel": "rwma_gemm", "block": block,
+               "max_abs_err": worst,
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+               "work": f"one BERT-base layer's six projections, M = 2048, block {block}",
+               **tot}
+        emit(row)
+        if block == 16:
+            out["rwma_gemm"] = row
+    # -- rwma_gemm at the products the rwma serving run gives it (starcoder2-7b
+    # widths): 128-token prefill chunks at tile 128, the 16-token tail chunk at
+    # tile 16; and 24 tokens at tile 24, the general-tile path that dense
+    # takes for a token count outside the powers of two
+    d, kv, f = 4608, 512, 18432
+    for M, block, products in ((128, 128, ((d, d), (d, kv), (d, f), (f, d))),
+                               (16, 16, ((d, d), (d, kv), (d, f), (f, d))),
+                               (24, 24, ((d, d), (d, f), (f, d)))):
+        for k, n in products:
+            a = torch.randn(M, k, generator=gen, device=gen.device).to("cuda")
+            w = (torch.randn(k, n, generator=gen, device=gen.device) * k ** -0.5).to("cuda")
+            got = rwma_gemm(a, w, bm=block, bk=block, bn=block)
+            want = rwma_plain(a, w, bm=block, bk=block, bn=block)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            rel = err / want.abs().max().item()
+            row = {"phase": "serving_kernels", "kernel": "rwma_gemm", "block": block,
+                   "shape": [M, k, n], "max_abs_err": err, "rel_err": rel}
+            if not rel <= KERNEL_RTOL:
+                emit(row)
+                raise AssertionError(f"rwma_gemm ({M},{k})@({k},{n}) block {block}: "
+                                     f"rel err {rel}")
+            b, kind = bound_ms(nbytes(a, w, got), 2.0 * M * k * n)
+            row.update(ms=time_ms(lambda: rwma_gemm(a, w, bm=block, bk=block, bn=block),
+                                  samples=5, inner=2),
+                       plain_ms=time_ms(lambda: rwma_plain(a, w, bm=block, bk=block,
+                                                           bn=block), samples=5, inner=2),
+                       library_ms=time_ms(lambda: torch.matmul(a, w), samples=5, inner=2),
+                       bound_ms=b, bound_by=kind,
+                       work="a starcoder2-7b projection of the rwma serving run")
+            emit(row)
+            del a, w, got, want
+    # -- paged_attention_decode at starcoder2-7b decode shapes
+    B, H, hkv, dh, page, maxp = 4, 36, 4, 128, 128, 16
+    seq = [0, 127, 1000, 1900]
+    num_pages = B * maxp + 1
+    rng = np.random.default_rng(0)
+    table = np.zeros((B, maxp), np.int32)
+    phys = rng.permutation(np.arange(1, num_pages))
+    for b, pos in enumerate(seq):
+        used = pos // page + 1
+        table[b, :used] = phys[b * maxp:b * maxp + used]  # unmapped: the null page
+    table_t = torch.from_numpy(table).to("cuda")
+    seq_t = torch.tensor(seq, dtype=torch.int32, device="cuda")
+    n_keys = sum(p + 1 for p in seq)
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn(B, 1, H, dh, generator=gen, device=gen.device).to("cuda", dtype)
+        kp = torch.randn(num_pages, page, hkv, dh, generator=gen, device=gen.device).to(
+            "cuda", dtype)
+        vp = torch.randn(num_pages, page, hkv, dh, generator=gen, device=gen.device).to(
+            "cuda", dtype)
+        args = (q, kp, vp, table_t, seq_t)
+        got = paged_attention_decode(*args).float()
+        want = decode_plain(*args).float()
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        tol = PAGED_TOL if dtype == torch.float32 else None
+        ok = (err <= tol) if tol is not None else bool(
+            torch.all((got - want).abs() <= BF16_ROUNDING * want.abs() + PAGED_TOL))
+        if not ok:
+            raise AssertionError(f"paged_attention_decode {dtype}: max err {err}")
+        # the library yardstick: SDPA over the keys gathered per slot
+        kg = kp[table_t.long()].reshape(B, maxp * page, hkv, dh).transpose(1, 2)
+        vg = vp[table_t.long()].reshape(B, maxp * page, hkv, dh).transpose(1, 2)
+        mask = (torch.arange(maxp * page, device="cuda")[None] <= seq_t[:, None].long())
+        mask = mask[:, None, None, :]
+        qs = q.transpose(1, 2)
+
+        def library():
+            return F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask, enable_gqa=True)
+
+        esz = q.element_size()
+        moved = (nbytes(q, table_t, seq_t) + 2 * n_keys * hkv * dh * esz + nbytes(q))
+        peak = PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+        b, kind = bound_ms(moved, 4.0 * H * dh * n_keys, peak=peak)
+        row = {"phase": "serving_kernels", "kernel": "paged_attention_decode",
+               "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
+               "ms": time_ms(lambda: paged_attention_decode(*args)),
+               "plain_ms": time_ms(lambda: decode_plain(*args)),
+               "library_ms": time_ms(library), "bound_ms": b, "bound_by": kind,
+               "work": f"one layer's decode, B={B} H={H} Hkv={hkv} dh={dh} page={page} "
+                       f"seq_pos={seq} ({str(dtype).split('.')[-1]} pools)"}
+        emit(row)
+        out.setdefault("paged_attention_decode", row)
+        del q, kp, vp, kg, vg
+    # -- paged_copy: one COW event's copy of one pool, all 32 layers
+    for dtype in (torch.float32, torch.bfloat16):
+        pool = torch.randn(32, num_pages, page, hkv, dh, generator=gen,
+                           device=gen.device).to("cuda", dtype)
+        want = pool.clone()
+        ptr = pool.data_ptr()
+        paged_copy(pool, 3, 17)
+        copy_plain(want, 3, 17)
+        torch.cuda.synchronize()
+        if not (torch.equal(pool, want) and pool.data_ptr() == ptr):
+            raise AssertionError(f"paged_copy {dtype}: not bit-exact in place")
+        page_bytes = pool[0, 0].numel() * pool.element_size()
+        b, kind = bound_ms(2 * 32 * page_bytes, 0.0)
+        row = {"phase": "serving_kernels", "kernel": "paged_copy",
+               "dtype": str(dtype).split(".")[-1], "max_abs_err": 0.0,
+               "ms": time_ms(lambda: paged_copy(pool, 5, 9)),
+               "plain_ms": time_ms(lambda: copy_plain(pool, 5, 9)),
+               "library_ms": time_ms(lambda: pool[:, 9].copy_(pool[:, 5])),
+               "bound_ms": b, "bound_by": kind,
+               "work": f"one pool of one COW event: 32 layers x one {page}-token page "
+                       f"({str(dtype).split('.')[-1]})"}
+        emit(row)
+        out.setdefault("paged_copy", row)
+        del pool, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_traffic(vocab: int):
+    """8 prompts of 100-1500 tokens from a numpy seed; prompt 2 is the first
+    700 tokens of prompt 0 (a partial tail page: copy-on-write on its first
+    decode write).  Arrivals every 4 engine steps."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    lens = rng.integers(100, 1501, size=8)
+    lens[0] = 1200  # long enough that its full pages cover prompt 2's 700 tokens
+    prompts = [rng.integers(0, vocab, size=(int(n),)).astype(np.int32) for n in lens]
+    prompts[2] = prompts[0][:700].copy()
+    return prompts, [4 * i for i in range(len(prompts))]
+
+
+def margin_at(cfg, params, server, prompt, want, i, device="cuda"):
+    """The baseline's top-2 logit margin at generated step ``i``, from
+    stepping the port's ``model.prefill`` and ``model.decode_step`` along the
+    baseline's own tokens, as ``Server.generate`` does."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import bucket_tokens
+
+    S = len(prompt)
+    Sp = min(bucket_tokens(S, cfg.block), server.sc.max_len)
+    padded = np.zeros((1, Sp), np.int32)
+    padded[0, :S] = prompt
+    logits, caches = M.prefill(cfg, params, {"tokens": torch.from_numpy(padded).to(device)},
+                               S - 1)
+    caches = server._grow_cache(caches, 1, S)
+    for j in range(i):
+        tok = torch.tensor([[int(want[j])]], device=device)
+        logits, caches = M.decode_step(cfg, params, caches, tok, S + j)
+    top2 = torch.topk(logits[0, -1].float(), 2).values
+    return (top2[0] - top2[1]).item()
+
+
+def agree(cfg, params, prompts, got, max_new, label, device="cuda"):
+    """Greedy tokens ``got`` against the single-request ``Server.generate``
+    under the margin rule.  Returns the agreed prefix lengths."""
+    import numpy as np
+
+    from repro_torch.serve import ServeConfig, Server
+
+    server = Server(cfg, params, ServeConfig(max_len=2048), device=device)
+    agreed = []
+    for rid, prompt in enumerate(prompts):
+        want = server.generate({"tokens": prompt[None]}, max_new)[0]
+        mine = np.asarray(got[rid])
+        if np.array_equal(mine, want):
+            agreed.append(len(want))
+            continue
+        i = int(np.argmax(mine != want))
+        margin = margin_at(cfg, params, server, prompt, want, i, device)
+        agreed.append(i)
+        if not margin < MARGIN:
+            raise AssertionError(f"{label}: request {rid} diverges at step {i} where the "
+                                 f"baseline's top-2 margin is {margin} >= {MARGIN}")
+    return agreed
+
+
+def run_engine(cfg, params, prompts, arrivals, max_new, device="cuda", **ec_kw):
+    from repro_torch.serve import Engine, EngineConfig
+
+    eng = Engine(cfg, params, EngineConfig(max_seqs=4, max_len=2048, page_size=128,
+                                           prefill_chunk=128, **ec_kw), device=device)
+    for rid, (p, t) in enumerate(zip(prompts, arrivals)):
+        eng.submit(p, max_new, rid=rid, arrival_step=t)
+    return eng
+
+
+def drained_audit(eng):
+    stats = eng.kv.audit()
+    if stats.slot_held or eng.kv._pages:
+        raise AssertionError(f"drained pool still has slot pages: {stats}")
+    return stats
+
+
+def serve_phase(torch, kernels):
+    """starcoder2-7b at full width through the continuous engine."""
+    import dataclasses
+
+    import repro_torch.configs as C
+    from repro_torch.models import model as M
+
+    max_new = 64
+    cfg = C.get_config("starcoder2-7b", dtype=torch.float32)
+    prompts, arrivals = serve_traffic(cfg.vocab_size)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = M.init_params(cfg, gen, device="cuda")
+    result = {}
+
+    # -- the main path, fp32: the gates
+    eng = run_engine(cfg, params, prompts, arrivals, max_new, backend="cuda")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    reqs = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    got = [r.out_tokens for r in reqs]
+    audit = drained_audit(eng)
+    row = {"phase": "serve", "run": "fp32 gates, backend cuda", "layers": cfg.n_layers,
+           "requests": len(reqs), "prompt_lens": [len(p) for p in prompts],
+           "decode_steps": eng.decode_steps, "prefill_chunks": eng.prefill_chunks,
+           "cow_copies": eng.kv.cow_copies,
+           "cached_prompt_tokens": [r.stats.cached_prompt_tokens for r in reqs],
+           "launches": counts, "audit": dataclasses.asdict(audit), "wall_s": wall}
+    emit(row)
+    if counts["paged_attention_decode"] != cfg.n_layers * eng.decode_steps:
+        raise AssertionError(f"paged_attention_decode launched "
+                             f"{counts['paged_attention_decode']} times, not "
+                             f"{cfg.n_layers} x {eng.decode_steps} decode steps")
+    if eng.kv.cow_copies < 1 or counts["paged_copy"] != 2 * eng.kv.cow_copies:
+        raise AssertionError(f"COW: {eng.kv.cow_copies} copies, paged_copy launched "
+                             f"{counts['paged_copy']} times (want 2 per copy, >= 1 copy)")
+    if any(counts[k] for k in LAUNCHES_PER_FORWARD) or counts["rwma_gemm"]:
+        raise AssertionError(f"the xla route launched a GEMM kernel: {counts}")
+    agreed = agree(cfg, params, prompts, got, max_new, "fp32 engine vs Server.generate")
+    emit({"phase": "serve", "check": "tokens vs Server.generate (fp32)",
+          "agreed_prefix": agreed, "of": max_new})
+    result["launches"] = counts
+
+    # -- the reference backend launches no paged kernel
+    sub = [prompts[0], prompts[2], prompts[1]]
+    eng = run_engine(cfg, params, sub, [0, 4, 8], 8, backend="reference")
+    kernels.reset_launch_counts()
+    eng.run()
+    torch.cuda.synchronize()
+    ref_counts = kernels.launch_counts()
+    drained_audit(eng)
+    emit({"phase": "serve", "run": "fp32, backend reference", "requests": len(sub),
+          "cow_copies": eng.kv.cow_copies, "launches": ref_counts})
+    if any(ref_counts.values()) or eng.kv.cow_copies < 1:
+        raise AssertionError(f"reference backend: launches {ref_counts}, "
+                             f"cow {eng.kv.cow_copies}")
+
+    # -- the rwma route: 4 layers at full width, fp32
+    cfg4 = dataclasses.replace(cfg, n_layers=4)
+    params4 = dict(params, seg0={k: {n: t[:4] for n, t in v.items()}
+                                 for k, v in params["seg0"].items()})
+    short = [p[:400] for p in prompts[:3]]
+    eng = run_engine(dataclasses.replace(cfg4, gemm_backend="rwma"), params4, short,
+                     [0, 0, 0], 16)
+    kernels.reset_launch_counts()
+    reqs = eng.run()
+    torch.cuda.synchronize()
+    rwma_counts = kernels.launch_counts()
+    drained_audit(eng)
+    agreed = agree(cfg4, params4, short, [r.out_tokens for r in reqs], 16,
+                   "rwma engine vs the xla route")
+    emit({"phase": "serve", "run": "fp32, 4 layers, gemm_backend rwma",
+          "launches": rwma_counts, "agreed_prefix": agreed, "of": 16})
+    if not rwma_counts["rwma_gemm"]:
+        raise AssertionError("the rwma route launched no rwma_gemm")
+    result["rwma_launches"] = rwma_counts["rwma_gemm"]
+    del params, params4, eng
+    torch.cuda.empty_cache()
+
+    # -- timed, bf16 (the config's type)
+    cfg16 = C.get_config("starcoder2-7b")
+    params = M.init_params(cfg16, gen, device="cuda")
+    eng = run_engine(cfg16, params, prompts, arrivals, max_new)  # deferred sync, as served
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    useful = sum(len(r.out_tokens) for r in reqs)
+    drained_audit(eng)
+    eng = run_engine(cfg16, params, prompts, arrivals, max_new)  # one sync per step
+    decode_ms, decode_tokens = [], 0
+    while eng.sched.has_work():
+        chunks, steps = eng.prefill_chunks, eng.decode_steps
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t) * 1e3
+        if eng.prefill_chunks == chunks and eng.decode_steps == steps + 1:
+            decode_ms.append(dt)
+            decode_tokens += eng.obs.registry.gauge("decode_batch_occupancy").value
+    eng._flush_pending()
+    reqs = [eng.sched.finished[r] for r in sorted(eng.sched.finished)]
+    drained_audit(eng)
+    decode_ms.sort()
+    ttft_steps = [r.stats.ttft_steps for r in reqs]
+    ttft_ms = [r.stats.ttft_s * 1e3 for r in reqs]
+    # one profiled decode step: 4 slots decoding, no admission pending
+    eng = run_engine(cfg16, params, prompts[3:7], [0, 0, 0, 0], max_new)
+    while len(eng.sched.decoding) < 4:
+        eng.step()
+    prof = profile_forward(torch, eng.step)
+    row = {"phase": "serve", "run": "bf16 timed, backend cuda", "layers": cfg16.n_layers,
+           "wall_s": wall, "generated_tokens": useful, "tok_s": useful / wall,
+           "decode_step_ms_median": statistics.median(decode_ms),
+           "decode_step_ms_p90": decode_ms[int(0.9 * (len(decode_ms) - 1))],
+           "decode_steps_timed": len(decode_ms),
+           "decode_tok_s": decode_tokens / (sum(decode_ms) / 1e3),
+           "ttft_steps": ttft_steps, "ttft_ms": ttft_ms,
+           "ttft_ms_median": statistics.median(ttft_ms),
+           "profiled_decode_step": prof}
+    emit(row)
+    del params, eng
+    torch.cuda.empty_cache()
+    return result
 
 
 def main() -> int:
@@ -403,8 +846,19 @@ def main() -> int:
     emit({"phase": "kernels", "names": list(LAUNCHES_PER_FORWARD),
           "launches_during_checks": kernels.launch_counts()})
 
-    # 4. the main path end to end
+    # 4. the encoder path end to end
     counted = encoder_phase(torch, gen, kernels)
+
+    # 5. the serving kernels against their plain versions
+    serving = serving_kernel_phase(torch, gen)
+    emit({"phase": "serving_kernels", "names": list(SERVING_KERNELS),
+          "launches_during_checks": kernels.launch_counts()})
+
+    # 6. the serving path end to end
+    served = serve_phase(torch, kernels)
+    counted.update(paged_attention_decode=served["launches"]["paged_attention_decode"],
+                   paged_copy=served["launches"]["paged_copy"],
+                   rwma_gemm=served["rwma_launches"])
 
     line = []
     for kernel in LAUNCHES_PER_FORWARD:
@@ -419,6 +873,17 @@ def main() -> int:
             "work": "one encoder layer's launches, BERT-base block 16, batch 4",
         })
         if not all(math.isfinite(per[k]) for k in ("ms", "plain_ms", "bound_ms")):
+            raise AssertionError(f"{kernel}: timing not finite")
+    for kernel in SERVING_KERNELS:
+        row = serving[kernel]
+        line.append({
+            "name": kernel, "route": "cuda", "source": SOURCES[kernel],
+            "replaces": REPLACES[kernel], "launches": counted[kernel],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"], "work": row["work"],
+        })
+        if not all(math.isfinite(row[k]) for k in ("ms", "plain_ms", "bound_ms")):
             raise AssertionError(f"{kernel}: timing not finite")
     emit({"kernels": line})
     print(smi, flush=True)

@@ -1,17 +1,22 @@
-"""Selectable execution backends for the blocked (BWMA) encoder.
+"""Selectable execution backends for the blocked (BWMA) encoder and the
+serving engine's paged decode.
 
 Counterpart of ``repro.core.backend``.  :class:`Backend` is the set of
 compute operators the encoder needs, all closed over
-:class:`~repro_torch.core.blockwise.Blocked` values, with two
-implementations in this package's own registry:
+:class:`~repro_torch.core.blockwise.Blocked` values, plus the paged-decode
+operators of the serving engine, with two implementations in this
+package's own registry:
 
 * ``"cuda"`` -- the hand-written CUDA kernels of :mod:`repro_torch.kernels`:
   blocked GEMM, the fused GEMM + bias + GELU feed-forward, blocked
-  LayerNorm and the fused streaming attention.  Each wrapper launches its
-  kernel for CUDA tensors and takes its plain version for CPU tensors.
-  This is the default: ``None`` resolves to ``"cuda"``.
+  LayerNorm, the fused streaming attention, the paged one-token decode and
+  the paged copy-on-write.  Each wrapper launches its kernel for CUDA
+  tensors and takes its plain version for CPU tensors.  This is the
+  default: ``None`` resolves to ``"cuda"``.
 * ``"reference"`` -- the plain blockwise operators of
-  :mod:`repro_torch.core.blockwise`, the oracle path.
+  :mod:`repro_torch.core.blockwise`, the gather->attend paged-decode oracle
+  and the sliced page copy of :mod:`repro_torch.models.attention`: the
+  oracle path.
 
 Layout-neutral element-wise ops (add, bias, scale, map) are plain PyTorch
 in both, as in the JAX package.  ``interpret=`` has no counterpart here: no
@@ -27,6 +32,7 @@ from repro_torch.kernels.bwma_attention import bwma_attention
 from repro_torch.kernels.bwma_fused_ffn import bwma_fused_ffn
 from repro_torch.kernels.bwma_gemm import bwma_gemm
 from repro_torch.kernels.bwma_layernorm import bwma_layernorm
+from repro_torch.kernels.paged_attention import paged_attention_decode, paged_copy
 
 
 @runtime_checkable
@@ -88,19 +94,11 @@ class _ElementwiseMixin:
     def map(self, a: Blocked, fn: Callable) -> Blocked:
         return bw.bw_map(a, fn)
 
-    # The serving engine's paged-decode operators belong to the serving
-    # slice: the gather oracles (models/attention.py) and their kernels.
-    def paged_attention_decode(self, q, k_pages, v_pages, page_table, seq_pos):
-        _not_ported(f"{self.name} paged_attention_decode",
-                    "queue 1 item 10, queue 2 item 6")
-
+    # MLA's latent-page decode belongs to the MLA slice.
     def mla_paged_attention_decode(self, q_lat, q_rope, ckv_pages, krope_pages,
                                    page_table, seq_pos, *, scale):
         _not_ported(f"{self.name} mla_paged_attention_decode",
                     "queue 1 item 18, queue 2 item 8")
-
-    def paged_copy_page(self, pools: Dict, src, dst) -> Dict:
-        _not_ported(f"{self.name} paged_copy_page", "queue 1 item 10, queue 2 item 7")
 
 
 class ReferenceBackend(_ElementwiseMixin):
@@ -126,6 +124,20 @@ class ReferenceBackend(_ElementwiseMixin):
     def transpose(self, a: Blocked) -> Blocked:
         return bw.bw_transpose(a)
 
+    # -- paged-decode operators: the gather->attend oracle and the sliced
+    # page copy.  Lazy imports: models sits above core in the layering, and
+    # the reference math lives next to the cache layouts it reads.
+
+    def paged_attention_decode(self, q, k_pages, v_pages, page_table, seq_pos):
+        from repro_torch.models import attention as attn
+
+        return attn.paged_gather_attend(q, k_pages, v_pages, page_table, seq_pos)
+
+    def paged_copy_page(self, pools: Dict, src, dst) -> Dict:
+        from repro_torch.models import attention as attn
+
+        return attn.paged_copy_page(pools, src, dst)
+
 
 class CudaBackend(_ElementwiseMixin):
     """The hand-written CUDA BWMA kernels -- the execution path the paper
@@ -150,6 +162,13 @@ class CudaBackend(_ElementwiseMixin):
 
     def transpose(self, a: Blocked) -> Blocked:
         _not_ported("cuda transpose (bwma_transpose kernel)", "queue 2 item 10")
+
+    def paged_attention_decode(self, q, k_pages, v_pages, page_table, seq_pos):
+        return paged_attention_decode(q, k_pages, v_pages, page_table, seq_pos)
+
+    def paged_copy_page(self, pools: Dict, src, dst) -> Dict:
+        # one paged_copy launch per stacked pool (k_pages, v_pages), in place
+        return {name: paged_copy(pool, src, dst) for name, pool in pools.items()}
 
 
 BACKENDS: Dict[str, Callable[[], Backend]] = {

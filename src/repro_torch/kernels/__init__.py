@@ -8,8 +8,11 @@ from repro_torch.kernels.bwma_attention import bwma_attention
 from repro_torch.kernels.bwma_fused_ffn import bwma_fused_ffn
 from repro_torch.kernels.bwma_gemm import bwma_gemm
 from repro_torch.kernels.bwma_layernorm import bwma_layernorm
+from repro_torch.kernels.paged_attention import paged_attention_decode, paged_copy
+from repro_torch.kernels.rwma_gemm import rwma_gemm
 
-KERNELS = (bwma_gemm, bwma_fused_ffn, bwma_layernorm, bwma_attention)
+KERNELS = (bwma_gemm, bwma_fused_ffn, bwma_layernorm, bwma_attention,
+           rwma_gemm, paged_attention_decode, paged_copy)
 
 
 def launch_counts() -> dict:

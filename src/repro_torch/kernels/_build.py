@@ -46,17 +46,25 @@ _SIGNATURES = {
     # q, k, v, out, lead0, lead1, 6 strides, gs, gd, bm, bd, rq, s_logical, scale, stream
     "bwma_attention_f32": ([_P] * 4 + [_I] * 2 + [_L] * 6 + [_I] * 6 + [_F, _P], _I),
     "bwma_attention_smem_bytes": ([_I] * 4, _L),
+    # a, b, out, gm, gn, gk, bm, bn, bk, stream
+    "rwma_gemm_f32": ([_P] * 3 + [_I] * 6 + [_P], _I),
+    # q, k_pages, v_pages, table, seq_pos, out, B, H, hkv, dh, page, maxp, scale, stream
+    "paged_attention_decode_f32": ([_P] * 6 + [_I] * 6 + [_F, _P], _I),
+    "paged_attention_decode_bf16": ([_P] * 6 + [_I] * 6 + [_F, _P], _I),
+    # pool, layers, layer_bytes, page_bytes, src, dst, stream
+    "paged_copy": ([_P, _I, _L, _L, _I, _I, _P], _I),
     "bwma_error_string": ([_I], ctypes.c_char_p),
 }
 
 
 def sources() -> list:
+    """The translation units: every ``csrc/*.cu`` (headers are included)."""
     return sorted(CSRC.glob("*.cu"))
 
 
 def _source_key() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sources():
+    for path in sorted(CSRC.glob("*.cu*")):  # sources and their headers
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]

@@ -9,8 +9,8 @@ Dtype contract, as in the JAX package: the element-wise-shaped ops
 (``blocked_matmul``, ``blocked_ffn``) return the **f32 accumulator** unless
 ``out_dtype`` says otherwise.
 
-``blocked_softmax`` and ``matmul_rwma`` wait for their kernels
-(``bwma_softmax``, ``rwma_gemm``: ROADMAP.md queue 2).
+``blocked_softmax`` waits for its kernel (``bwma_softmax``: ROADMAP.md
+queue 2 item 9).
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ from repro_torch.core.blockwise import Blocked
 from repro_torch.core.layout import BlockLayout, from_blockwise, to_blockwise
 from repro_torch.kernels.bwma_fused_ffn import bwma_fused_ffn
 from repro_torch.kernels.bwma_gemm import bwma_gemm
+from repro_torch.kernels.rwma_gemm import rwma_gemm
 
 
 def blocked_matmul(a: Blocked, b: Blocked, out_dtype: Optional[torch.dtype] = None) -> Blocked:
@@ -49,6 +50,12 @@ def blocked_ffn(a: Blocked, w: Blocked, bias_blocked,
 def blocked_attention(q: Blocked, k: Blocked, v: Blocked, *, scale: float) -> Blocked:
     """Fused softmax(q @ k^T * scale) @ v without leaving BWMA order."""
     return resolve_backend("cuda").attention(q, k, v, scale=scale)
+
+
+def matmul_rwma(a: torch.Tensor, b: torch.Tensor, bm: int = 128, bk: int = 128,
+                bn: int = 128) -> torch.Tensor:
+    """Row-major tiled GEMM -- the RWMA baseline kernel; f32 result."""
+    return rwma_gemm(a, b, bm=bm, bk=bk, bn=bn)
 
 
 def matmul_bwma_2d(a: torch.Tensor, b: torch.Tensor,

@@ -71,6 +71,39 @@ def test_entry_points_default_to_the_card():
         enc.block_params(p, cfg)
 
 
+def test_port_files_include_the_serving_slice():
+    names = {str(p.relative_to(PORT)) for p in _port_files() if PORT in p.parents}
+    for mod in ("configs/base.py", "models/model.py", "models/adapters.py",
+                "serve/engine.py", "serve/kvcache.py", "serve/obs.py", "serve/scheduler.py",
+                "launch/serve.py", "kernels/paged_attention.py", "kernels/rwma_gemm.py"):
+        assert mod in names, mod
+
+
+def test_serving_entry_points_default_to_the_card():
+    import repro_torch.configs as C
+    from repro_torch.models import model as M
+    from repro_torch.serve import Engine, EngineConfig, ServeConfig, Server
+
+    cfg = C.get_config("minicpm-2b", smoke=True, dtype=torch.float32)
+    if torch.cuda.is_available():
+        assert M.init_params(cfg)["embed"].device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        M.init_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        M.params_from_numpy({"embed": [[1.0]]})
+    params = M.init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine(cfg, params, EngineConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Server(cfg, params, ServeConfig())
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+                        "minicpm-2b", "--smoke"], env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode != 0 and "CUDA is not available" in r.stderr
+
+
 def test_chip_smoke_fails_alone_and_without_a_card(tmp_path):
     alone = tmp_path / "chip_smoke.py"
     shutil.copy(REPO / "chip_smoke.py", alone)

@@ -20,6 +20,8 @@ from repro_torch.kernels.batching import lead_grid
 from repro_torch.kernels.bwma_attention import attention_plain
 from repro_torch.kernels.bwma_gemm import gemm_plain
 from repro_torch.kernels.bwma_layernorm import layernorm_plain
+from repro_torch.kernels.paged_attention import copy_plain, decode_plain
+from repro_torch.kernels.rwma_gemm import rwma_plain
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 
@@ -220,7 +222,65 @@ def test_cuda_attention_matches_plain(cuda_card, lq, lkv, gs, gd, block, s_logic
     assert tk.launch_counts()["bwma_attention"] == 1
 
 
-@pytest.mark.parametrize("plain", ["gemm", "attention"])
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,block", [(64, 48, 32, 8), (96, 64, 48, 16), (64, 96, 128, 32),
+                                         (128, 64, 192, 64), (256, 384, 256, 128),
+                                         (48, 72, 96, 24), (27, 45, 18, 9),
+                                         (192, 384, 576, 192)])
+def test_cuda_rwma_matches_plain(cuda_card, M, K, N, block):
+    a = _t(_rand(11, M, K)).to(cuda_card)
+    b = _t(_rand(12, K, N, scale=0.1)).to(cuda_card)
+    got = tk.rwma_gemm(a, b, bm=block, bk=block, bn=block)
+    torch.testing.assert_close(got, rwma_plain(a, b, bm=block, bk=block, bn=block), **TOL)
+    assert tk.launch_counts()["rwma_gemm"] == 1
+
+
+def _paged_case(dev, B, H, hkv, dh, page, maxp, seq_pos, dtype):
+    rng = np.random.default_rng(13)
+    num_pages = B * maxp + 1
+    table = np.zeros((B, maxp), np.int32)
+    phys = rng.permutation(np.arange(1, num_pages))
+    for b, pos in enumerate(seq_pos):
+        used = pos // page + 1
+        table[b, :used] = phys[b * maxp:b * maxp + used]  # the rest: null page
+    q, k, v = (_t(_rand(s, *shape)).to(dev, dtype) for s, shape in (
+        (14, (B, 1, H, dh)), (15, (num_pages, page, hkv, dh)), (16, (num_pages, page, hkv, dh))))
+    return q, k, v, _t(table).to(dev), torch.tensor(seq_pos, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,hkv,dh,page,maxp,seq_pos", [
+    (2, 4, 2, 16, 8, 4, [0, 31]),
+    (3, 6, 6, 64, 16, 5, [5, 16, 79]),
+    (4, 36, 4, 128, 128, 16, [0, 127, 1000, 1900]),  # starcoder2-7b decode shapes
+])
+def test_cuda_paged_decode_matches_plain(cuda_card, dtype, B, H, hkv, dh, page, maxp, seq_pos):
+    """fp32 within 1e-6 (the JAX suite's TOL); bf16 within one bf16 rounding
+    of the plain output (both compute in fp32 and round once)."""
+    args = _paged_case(cuda_card, B, H, hkv, dh, page, maxp, seq_pos, dtype)
+    got, want = tk.paged_attention_decode(*args).float(), decode_plain(*args).float()
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 1e-6
+    else:
+        assert torch.all((got - want).abs() <= 2.0 ** -7 * want.abs() + 1e-6)
+    assert tk.launch_counts()["paged_attention_decode"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.uint8])
+def test_cuda_paged_copy_bit_exact(cuda_card, dtype):
+    pool = (_t(_rand(17, 4, 9, 8, 2, 6)) * 50).to(cuda_card, dtype)
+    want = pool.clone()
+    ptr = pool.data_ptr()
+    assert tk.paged_copy(pool, 2, 7) is pool and pool.data_ptr() == ptr
+    copy_plain(want, 2, 7)
+    assert torch.equal(pool, want)
+    tk.paged_copy(pool, 3, 3)
+    assert torch.equal(pool, want) and tk.launch_counts()["paged_copy"] == 2
+
+
+@pytest.mark.parametrize("plain", ["gemm", "attention", "rwma", "paged_decode"])
 def test_plain_versions_run_without_tf32(monkeypatch, plain):
     """The plain versions are fp32 oracles: they turn TF32 off around their
     products whatever the caller set, and restore the caller's setting."""
@@ -238,7 +298,13 @@ def test_plain_versions_run_without_tf32(monkeypatch, plain):
     x = torch.ones(1, 2, 8, 8)
     if plain == "gemm":
         gemm_plain(x, torch.ones(2, 1, 8, 8))
-    else:
+    elif plain == "attention":
         attention_plain(x, x, x, scale=1.0, s_logical=8)
+    elif plain == "rwma":
+        rwma_plain(torch.ones(16, 16), torch.ones(16, 8), bm=8, bk=8, bn=8)
+    else:
+        pool = torch.ones(3, 8, 1, 8)
+        decode_plain(torch.ones(2, 1, 2, 8), pool, pool, torch.ones(2, 2, dtype=torch.int32),
+                     torch.ones(2, dtype=torch.int32))
     assert seen and set(seen) == {(False, False)}
     assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
