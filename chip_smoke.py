@@ -42,6 +42,27 @@ Phases, each printing one JSON line:
    Timed in bf16 (the config's type): decode step ms (median, p90), decode
    tokens/s, TTFT, the device time by kernel of one profiled decode step and
    the device's idle share.
+7. mla kernels -- mla_paged_attention_decode at DeepSeek-V3 decode shapes
+   (B=4, 128 heads, latent 512, rope 64, pages of 128, seq_pos
+   0/127/1000/1900, a scattered page table with unmapped entries on the null
+   page; fp32 and bf16 pools), bwma_softmax at BERT-base attention-score
+   shapes (4 x 12 heads of 512 x 512, blocks 16 and 128, a full and a ragged
+   logical width) and bwma_transpose at BERT-base K shapes (512 x 64 per
+   head, blocks 16 and 128, bit-exact), each against its plain version,
+   timed beside its bound and one library call.  Then the blocked-ops path:
+   the paper's unfused attention through the ``"cuda"`` Backend protocol
+   (``transpose``, ``matmul``, ``scale``, ``ops.blocked_softmax``) at
+   BERT-base, block 16, batch 4, held against the fused kernel and the
+   reference backend; it must launch bwma_transpose and bwma_softmax once.
+8. mla serve -- DeepSeek-V3's dense prefix at full width (3 layers,
+   d_model 7168, 128 heads, MLA q_lora 1536 / kv_lora 512 / nope 128 / rope
+   64 / v 128, SwiGLU d_ff 18432, vocab 129280; random weights drawn on the
+   card from a seed) through the continuous engine with the ``"cuda"``
+   backend, on the traffic of phase 6.  Gates, in fp32: greedy tokens equal
+   ``Server.generate`` under the same margin rule; mla_paged_attention_decode
+   launches == 3 x decode steps; paged_copy launches == 2 x COW copies >= 2;
+   a clean pool audit; a ``"reference"`` engine run launches no kernel.
+   Timed in bf16 as in phase 6.
 
 Then the per-kernel summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is then
@@ -78,6 +99,7 @@ E2E_VS_RWMA = 5e-4
 LAUNCHES_PER_FORWARD = {"bwma_gemm": 60, "bwma_fused_ffn": 12,
                         "bwma_layernorm": 24, "bwma_attention": 12}
 SERVING_KERNELS = ("rwma_gemm", "paged_attention_decode", "paged_copy")
+MLA_KERNELS = ("mla_paged_attention_decode", "bwma_softmax", "bwma_transpose")
 REPLACES = {
     "bwma_gemm": "src/repro/kernels/bwma_gemm.py:26",
     "bwma_fused_ffn": "src/repro/kernels/bwma_fused_ffn.py:21",
@@ -86,6 +108,9 @@ REPLACES = {
     "rwma_gemm": "src/repro/kernels/rwma_gemm.py:17",
     "paged_attention_decode": "src/repro/kernels/paged_attention.py:65",
     "paged_copy": "src/repro/kernels/paged_attention.py:262",
+    "mla_paged_attention_decode": "src/repro/kernels/paged_attention.py:165",
+    "bwma_softmax": "src/repro/kernels/bwma_softmax.py:20",
+    "bwma_transpose": "src/repro/kernels/bwma_transpose.py:21",
 }
 SOURCES = {
     "bwma_gemm": "src/repro_torch/kernels/csrc/bwma_gemm.cu",
@@ -95,6 +120,9 @@ SOURCES = {
     "rwma_gemm": "src/repro_torch/kernels/csrc/rwma_gemm.cu",
     "paged_attention_decode": "src/repro_torch/kernels/csrc/paged_attention.cu",
     "paged_copy": "src/repro_torch/kernels/csrc/paged_attention.cu",
+    "mla_paged_attention_decode": "src/repro_torch/kernels/csrc/paged_attention.cu",
+    "bwma_softmax": "src/repro_torch/kernels/csrc/bwma_softmax.cu",
+    "bwma_transpose": "src/repro_torch/kernels/csrc/bwma_transpose.cu",
 }
 # NVIDIA H100 SXM data sheet (spec): dense bf16 on the tensor cores, for the
 # bound of an operation on bf16 inputs.
@@ -334,7 +362,10 @@ def kernel_of(name: str) -> str:
                          ("bwma_layernorm", "bwma_layernorm_kernel"),
                          ("bwma_attention", "bwma_attention_kernel"),
                          ("paged_attention_decode", "paged_decode_kernel"),
-                         ("paged_copy", "paged_copy_kernel")):
+                         ("paged_copy", "paged_copy_kernel"),
+                         ("mla_paged_attention_decode", "mla_decode_kernel"),
+                         ("bwma_softmax", "bwma_softmax_kernel"),
+                         ("bwma_transpose", "bwma_transpose_kernel")):
         if pattern in name:
             return key
     return "other"
@@ -388,7 +419,7 @@ def encoder_phase(torch, gen, kernels):
             y = enc.encoder_bwma(bp, x, cfg, backend="cuda")
             torch.cuda.synchronize()
             counts = kernels.launch_counts()
-            if any(counts[k] for k in SERVING_KERNELS):
+            if any(counts[k] for k in SERVING_KERNELS + MLA_KERNELS):
                 raise AssertionError(f"the encoder launched a serving kernel: {counts}")
             counts = {k: counts[k] for k in LAUNCHES_PER_FORWARD}
             if counts != LAUNCHES_PER_FORWARD:
@@ -621,7 +652,9 @@ def margin_at(cfg, params, server, prompt, want, i, device="cuda"):
     from repro_torch.serve.engine import bucket_tokens
 
     S = len(prompt)
-    Sp = min(bucket_tokens(S, cfg.block), server.sc.max_len)
+    # the prompt shape Server.generate runs: bucketed where the family allows
+    Sp = min(bucket_tokens(S, cfg.block), server.sc.max_len) \
+        if M.supports_padded_prefill(cfg) else S
     padded = np.zeros((1, Sp), np.int32)
     padded[0, :S] = prompt
     logits, caches = M.prefill(cfg, params, {"tokens": torch.from_numpy(padded).to(device)},
@@ -675,21 +708,16 @@ def drained_audit(eng):
     return stats
 
 
-def serve_phase(torch, kernels):
-    """starcoder2-7b at full width through the continuous engine."""
+def gated_serve(torch, kernels, cfg, params, prompts, arrivals, max_new, decode_kernel):
+    """The fp32 gates of one model through the continuous engine with the
+    ``"cuda"`` backend, counts set to 0 just before the run and read just
+    after: ``decode_kernel`` launched once per layer and decode step,
+    paged_copy twice per COW copy (>= 1 copy), no other kernel, a clean
+    audit, and greedy tokens equal to ``Server.generate`` under the margin
+    rule; then a ``"reference"`` run on three of the prompts launches no
+    kernel.  Returns the launch counts of the gated run."""
     import dataclasses
 
-    import repro_torch.configs as C
-    from repro_torch.models import model as M
-
-    max_new = 64
-    cfg = C.get_config("starcoder2-7b", dtype=torch.float32)
-    prompts, arrivals = serve_traffic(cfg.vocab_size)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    params = M.init_params(cfg, gen, device="cuda")
-    result = {}
-
-    # -- the main path, fp32: the gates
     eng = run_engine(cfg, params, prompts, arrivals, max_new, backend="cuda")
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
@@ -700,28 +728,26 @@ def serve_phase(torch, kernels):
     counts = kernels.launch_counts()
     got = [r.out_tokens for r in reqs]
     audit = drained_audit(eng)
-    row = {"phase": "serve", "run": "fp32 gates, backend cuda", "layers": cfg.n_layers,
-           "requests": len(reqs), "prompt_lens": [len(p) for p in prompts],
-           "decode_steps": eng.decode_steps, "prefill_chunks": eng.prefill_chunks,
-           "cow_copies": eng.kv.cow_copies,
-           "cached_prompt_tokens": [r.stats.cached_prompt_tokens for r in reqs],
-           "launches": counts, "audit": dataclasses.asdict(audit), "wall_s": wall}
-    emit(row)
-    if counts["paged_attention_decode"] != cfg.n_layers * eng.decode_steps:
-        raise AssertionError(f"paged_attention_decode launched "
-                             f"{counts['paged_attention_decode']} times, not "
+    emit({"phase": "serve", "model": cfg.name, "run": "fp32 gates, backend cuda",
+          "layers": cfg.n_layers, "requests": len(reqs),
+          "prompt_lens": [len(p) for p in prompts], "decode_steps": eng.decode_steps,
+          "prefill_chunks": eng.prefill_chunks, "cow_copies": eng.kv.cow_copies,
+          "cached_prompt_tokens": [r.stats.cached_prompt_tokens for r in reqs],
+          "launches": counts, "audit": dataclasses.asdict(audit), "wall_s": wall})
+    if counts[decode_kernel] != cfg.n_layers * eng.decode_steps:
+        raise AssertionError(f"{decode_kernel} launched {counts[decode_kernel]} times, not "
                              f"{cfg.n_layers} x {eng.decode_steps} decode steps")
     if eng.kv.cow_copies < 1 or counts["paged_copy"] != 2 * eng.kv.cow_copies:
         raise AssertionError(f"COW: {eng.kv.cow_copies} copies, paged_copy launched "
                              f"{counts['paged_copy']} times (want 2 per copy, >= 1 copy)")
-    if any(counts[k] for k in LAUNCHES_PER_FORWARD) or counts["rwma_gemm"]:
-        raise AssertionError(f"the xla route launched a GEMM kernel: {counts}")
-    agreed = agree(cfg, params, prompts, got, max_new, "fp32 engine vs Server.generate")
-    emit({"phase": "serve", "check": "tokens vs Server.generate (fp32)",
+    others = {k: n for k, n in counts.items() if n and k not in (decode_kernel, "paged_copy")}
+    if others:
+        raise AssertionError(f"the xla route launched other kernels: {others}")
+    agreed = agree(cfg, params, prompts, got, max_new,
+                   f"{cfg.name} fp32 engine vs Server.generate")
+    emit({"phase": "serve", "model": cfg.name, "check": "tokens vs Server.generate (fp32)",
           "agreed_prefix": agreed, "of": max_new})
-    result["launches"] = counts
 
-    # -- the reference backend launches no paged kernel
     sub = [prompts[0], prompts[2], prompts[1]]
     eng = run_engine(cfg, params, sub, [0, 4, 8], 8, backend="reference")
     kernels.reset_launch_counts()
@@ -729,37 +755,18 @@ def serve_phase(torch, kernels):
     torch.cuda.synchronize()
     ref_counts = kernels.launch_counts()
     drained_audit(eng)
-    emit({"phase": "serve", "run": "fp32, backend reference", "requests": len(sub),
-          "cow_copies": eng.kv.cow_copies, "launches": ref_counts})
+    emit({"phase": "serve", "model": cfg.name, "run": "fp32, backend reference",
+          "requests": len(sub), "cow_copies": eng.kv.cow_copies, "launches": ref_counts})
     if any(ref_counts.values()) or eng.kv.cow_copies < 1:
         raise AssertionError(f"reference backend: launches {ref_counts}, "
                              f"cow {eng.kv.cow_copies}")
+    return counts
 
-    # -- the rwma route: 4 layers at full width, fp32
-    cfg4 = dataclasses.replace(cfg, n_layers=4)
-    params4 = dict(params, seg0={k: {n: t[:4] for n, t in v.items()}
-                                 for k, v in params["seg0"].items()})
-    short = [p[:400] for p in prompts[:3]]
-    eng = run_engine(dataclasses.replace(cfg4, gemm_backend="rwma"), params4, short,
-                     [0, 0, 0], 16)
-    kernels.reset_launch_counts()
-    reqs = eng.run()
-    torch.cuda.synchronize()
-    rwma_counts = kernels.launch_counts()
-    drained_audit(eng)
-    agreed = agree(cfg4, params4, short, [r.out_tokens for r in reqs], 16,
-                   "rwma engine vs the xla route")
-    emit({"phase": "serve", "run": "fp32, 4 layers, gemm_backend rwma",
-          "launches": rwma_counts, "agreed_prefix": agreed, "of": 16})
-    if not rwma_counts["rwma_gemm"]:
-        raise AssertionError("the rwma route launched no rwma_gemm")
-    result["rwma_launches"] = rwma_counts["rwma_gemm"]
-    del params, params4, eng
-    torch.cuda.empty_cache()
 
-    # -- timed, bf16 (the config's type)
-    cfg16 = C.get_config("starcoder2-7b")
-    params = M.init_params(cfg16, gen, device="cuda")
+def timed_serve(torch, cfg16, params, prompts, arrivals, max_new) -> dict:
+    """The bf16 serving numbers: the run's wall time with the deferred sync
+    (as served), decode step times with one sync per step, TTFT, and one
+    profiled decode step with 4 slots decoding."""
     eng = run_engine(cfg16, params, prompts, arrivals, max_new)  # deferred sync, as served
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -791,19 +798,267 @@ def serve_phase(torch, kernels):
     while len(eng.sched.decoding) < 4:
         eng.step()
     prof = profile_forward(torch, eng.step)
-    row = {"phase": "serve", "run": "bf16 timed, backend cuda", "layers": cfg16.n_layers,
-           "wall_s": wall, "generated_tokens": useful, "tok_s": useful / wall,
-           "decode_step_ms_median": statistics.median(decode_ms),
-           "decode_step_ms_p90": decode_ms[int(0.9 * (len(decode_ms) - 1))],
-           "decode_steps_timed": len(decode_ms),
-           "decode_tok_s": decode_tokens / (sum(decode_ms) / 1e3),
-           "ttft_steps": ttft_steps, "ttft_ms": ttft_ms,
-           "ttft_ms_median": statistics.median(ttft_ms),
-           "profiled_decode_step": prof}
-    emit(row)
-    del params, eng
+    return {"phase": "serve", "model": cfg16.name, "run": "bf16 timed, backend cuda",
+            "layers": cfg16.n_layers, "wall_s": wall, "generated_tokens": useful,
+            "tok_s": useful / wall, "decode_step_ms_median": statistics.median(decode_ms),
+            "decode_step_ms_p90": decode_ms[int(0.9 * (len(decode_ms) - 1))],
+            "decode_steps_timed": len(decode_ms),
+            "decode_tok_s": decode_tokens / (sum(decode_ms) / 1e3),
+            "ttft_steps": ttft_steps, "ttft_ms": ttft_ms,
+            "ttft_ms_median": statistics.median(ttft_ms), "profiled_decode_step": prof}
+
+
+def serve_phase(torch, kernels):
+    """starcoder2-7b at full width through the continuous engine."""
+    import dataclasses
+
+    import repro_torch.configs as C
+    from repro_torch.models import model as M
+
+    max_new = 64
+    cfg = C.get_config("starcoder2-7b", dtype=torch.float32)
+    prompts, arrivals = serve_traffic(cfg.vocab_size)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = M.init_params(cfg, gen, device="cuda")
+    result = {"launches": gated_serve(torch, kernels, cfg, params, prompts, arrivals,
+                                      max_new, "paged_attention_decode")}
+
+    # -- the rwma route: 4 layers at full width, fp32
+    cfg4 = dataclasses.replace(cfg, n_layers=4)
+    params4 = dict(params, seg0={k: {n: t[:4] for n, t in v.items()}
+                                 for k, v in params["seg0"].items()})
+    short = [p[:400] for p in prompts[:3]]
+    eng = run_engine(dataclasses.replace(cfg4, gemm_backend="rwma"), params4, short,
+                     [0, 0, 0], 16)
+    kernels.reset_launch_counts()
+    reqs = eng.run()
+    torch.cuda.synchronize()
+    rwma_counts = kernels.launch_counts()
+    drained_audit(eng)
+    agreed = agree(cfg4, params4, short, [r.out_tokens for r in reqs], 16,
+                   "rwma engine vs the xla route")
+    emit({"phase": "serve", "run": "fp32, 4 layers, gemm_backend rwma",
+          "launches": rwma_counts, "agreed_prefix": agreed, "of": 16})
+    if not rwma_counts["rwma_gemm"]:
+        raise AssertionError("the rwma route launched no rwma_gemm")
+    result["rwma_launches"] = rwma_counts["rwma_gemm"]
+    del params, params4, eng
+    torch.cuda.empty_cache()
+
+    # -- timed, bf16 (the config's type)
+    cfg16 = C.get_config("starcoder2-7b")
+    params = M.init_params(cfg16, gen, device="cuda")
+    emit(timed_serve(torch, cfg16, params, prompts, arrivals, max_new))
+    del params
     torch.cuda.empty_cache()
     return result
+
+
+def mla_kernel_phase(torch, gen):
+    """mla_paged_attention_decode, bwma_softmax and bwma_transpose against
+    their plain versions at this slice's shapes, timed.  Returns {kernel:
+    summary row}, each row's times for the configuration in its ``work``."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.core.layout import BlockLayout, to_blockwise
+    from repro_torch.kernels.bwma_softmax import bwma_softmax, softmax_plain
+    from repro_torch.kernels.bwma_transpose import bwma_transpose, transpose_plain
+    from repro_torch.kernels.paged_attention import mla_decode_plain, mla_paged_attention_decode
+
+    out = {}
+    # -- mla_paged_attention_decode at DeepSeek-V3 decode shapes
+    B, H, r, dr, page, maxp = 4, 128, 512, 64, 128, 16
+    scale = (128 + dr) ** -0.5  # (qk_nope + qk_rope) ** -0.5
+    seq = [0, 127, 1000, 1900]
+    num_pages = B * maxp + 1
+    rng = np.random.default_rng(1)
+    table = np.zeros((B, maxp), np.int32)
+    phys = rng.permutation(np.arange(1, num_pages))
+    for b, pos in enumerate(seq):
+        used = pos // page + 1
+        table[b, :used] = phys[b * maxp:b * maxp + used]  # unmapped: the null page
+    table_t = torch.from_numpy(table).to("cuda")
+    seq_t = torch.tensor(seq, dtype=torch.int32, device="cuda")
+    n_keys = sum(p + 1 for p in seq)
+    for dtype in (torch.float32, torch.bfloat16):
+        q_lat, q_rope = (torch.randn(B, 1, H, n, generator=gen, device=gen.device).to(
+            "cuda", dtype) for n in (r, dr))
+        ckv, krope = (torch.randn(num_pages, page, n, generator=gen, device=gen.device).to(
+            "cuda", dtype) for n in (r, dr))
+        args = (q_lat, q_rope, ckv, krope, table_t, seq_t)
+        got = mla_paged_attention_decode(*args, scale=scale).float()
+        want = mla_decode_plain(*args, scale=scale).float()
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        ok = err <= PAGED_TOL if dtype == torch.float32 else bool(
+            torch.all((got - want).abs() <= BF16_ROUNDING * want.abs() + PAGED_TOL))
+        name = str(dtype).split(".")[-1]
+        if not ok:
+            raise AssertionError(f"mla_paged_attention_decode {name}: max err {err}")
+        # the library yardstick: SDPA over the latents gathered per slot, the
+        # latent and rope parts concatenated, one shared kv head
+        cg = ckv[table_t.long()].reshape(B, 1, maxp * page, r)
+        kg = torch.cat([cg, krope[table_t.long()].reshape(B, 1, maxp * page, dr)], -1)
+        qs = torch.cat([q_lat, q_rope], -1).transpose(1, 2)  # (B, H, 1, r + dr)
+        mask = (torch.arange(maxp * page, device="cuda")[None] <= seq_t[:, None].long())
+        mask = mask[:, None, None, :]
+
+        def library():
+            return F.scaled_dot_product_attention(qs, kg, cg, attn_mask=mask, scale=scale,
+                                                  enable_gqa=True)
+
+        esz = ckv.element_size()
+        moved = nbytes(q_lat, q_rope, table_t, seq_t) + n_keys * (r + dr) * esz + nbytes(q_lat)
+        peak = PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+        # per head and key: 2 (r + dr) for the score, 2 r for p @ c_kv
+        b_ms, kind = bound_ms(moved, 2.0 * H * n_keys * (2 * r + dr), peak=peak)
+        row = {"phase": "mla_kernels", "kernel": "mla_paged_attention_decode", "dtype": name,
+               "max_abs_err": err,
+               "ms": time_ms(lambda: mla_paged_attention_decode(*args, scale=scale)),
+               "plain_ms": time_ms(lambda: mla_decode_plain(*args, scale=scale)),
+               "library_ms": time_ms(library), "bound_ms": b_ms, "bound_by": kind,
+               "work": f"one layer's decode, B={B} H={H} r={r} dr={dr} page={page} "
+                       f"seq_pos={seq} ({name} pools)"}
+        emit(row)
+        out.setdefault("mla_paged_attention_decode", row)
+        del q_lat, q_rope, ckv, krope, cg, kg, qs
+    # -- bwma_softmax at BERT-base attention-score shapes: 4 x 12 heads of 512 x 512
+    S = 512
+    scores = torch.randn(4, 12, S, S, generator=gen, device=gen.device).to("cuda") * 3
+    for block in (16, 128):
+        xb = to_blockwise(scores, BlockLayout(block, block)).contiguous()
+        for n_logical in (S, 500):
+            for dtype in (torch.float32, torch.bfloat16):
+                x = xb.to(dtype)
+                got = bwma_softmax(x, n_logical)
+                want = softmax_plain(x, n_logical)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                ok = (err <= KERNEL_RTOL * want.float().abs().max().item()
+                      if dtype == torch.float32 else bool(torch.all(
+                          (got.float() - want.float()).abs()
+                          <= BF16_ROUNDING * want.float().abs() + PAGED_TOL)))
+                name = str(dtype).split(".")[-1]
+                row = {"phase": "mla_kernels", "kernel": "bwma_softmax", "block": block,
+                       "n_logical": n_logical, "dtype": name, "max_abs_err": err}
+                if not ok:
+                    emit(row)
+                    raise AssertionError(f"bwma_softmax block {block} n {n_logical} {name}: "
+                                         f"max err {err}")
+                if dtype == torch.float32 and n_logical == S:
+                    # bytes: the blocked input read once, the output written once
+                    b_ms, kind = bound_ms(2 * nbytes(x), 5.0 * x.numel())
+                    row.update(ms=time_ms(lambda: bwma_softmax(x, n_logical)),
+                               plain_ms=time_ms(lambda: softmax_plain(x, n_logical)),
+                               library_ms=time_ms(lambda: torch.softmax(scores, -1)),
+                               bound_ms=b_ms, bound_by=kind,
+                               work=f"BERT-base scores, 4 x 12 heads of {S} x {S}, "
+                                    f"block {block}, fp32")
+                    if block == 16:
+                        out["bwma_softmax"] = row
+                emit(row)
+                del x, got, want
+        del xb
+    del scores
+    # -- bwma_transpose at BERT-base K shapes: 512 x 64 per head
+    k_rw = torch.randn(4, 12, S, 64, generator=gen, device=gen.device).to("cuda")
+    for block in (16, 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = to_blockwise(k_rw, BlockLayout(block, block)).to(dtype).contiguous()
+            got = bwma_transpose(x)
+            want = transpose_plain(x)
+            torch.cuda.synchronize()
+            name = str(dtype).split(".")[-1]
+            row = {"phase": "mla_kernels", "kernel": "bwma_transpose", "block": block,
+                   "dtype": name, "shape": list(x.shape), "max_abs_err": 0.0}
+            if not torch.equal(got, want):
+                emit(row)
+                raise AssertionError(f"bwma_transpose block {block} {name}: not bit-exact")
+            if dtype == torch.float32:
+                b_ms, kind = bound_ms(2 * nbytes(x), 0.0)
+                row.update(ms=time_ms(lambda: bwma_transpose(x)),
+                           plain_ms=time_ms(lambda: transpose_plain(x)),
+                           library_ms=time_ms(lambda: k_rw.transpose(-1, -2).contiguous()),
+                           bound_ms=b_ms, bound_by=kind,
+                           work=f"BERT-base K, 4 x 12 heads of {S} x 64, block {block}, fp32")
+                if block == 16:
+                    out["bwma_transpose"] = row
+            emit(row)
+            del x, got, want
+    del k_rw
+    torch.cuda.empty_cache()
+    return out
+
+
+def blocked_ops_path(torch, gen, kernels) -> dict:
+    """The paper's unfused attention through the ``"cuda"`` Backend protocol
+    -- softmax(q @ transpose(k) * scale) @ v with each step a backend op and
+    the softmax through ``ops.blocked_softmax`` -- at BERT-base, block 16,
+    batch 4, counts set to 0 just before and read just after.  Held against
+    the fused attention kernel and the reference backend."""
+    from repro_torch.core import blockwise as bw
+    from repro_torch.core.backend import resolve_backend
+    from repro_torch.core.layout import BlockLayout
+    from repro_torch.kernels import ops
+
+    be, ref = resolve_backend("cuda"), resolve_backend("reference")
+    lo = BlockLayout(16, 16)
+    q, k, v = (bw.block(torch.randn(4, 12, 512, 64, generator=gen, device=gen.device)
+                        .to("cuda"), lo) for _ in range(3))
+    scale = 64 ** -0.5
+
+    def unfused(b, softmax):
+        return b.matmul(softmax(b.scale(b.matmul(q, b.transpose(k)), scale)), v)
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    got = unfused(be, ops.blocked_softmax)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = unfused(ref, ref.softmax).unblock()
+    fused = be.attention(q, k, v, scale=scale).unblock()
+    got = got.unblock()
+    err_ref = (got - want).abs().max().item() / want.abs().max().item()
+    err_fused = (got - fused).abs().max().item() / fused.abs().max().item()
+    row = {"phase": "blocked_ops", "work": "unfused attention, BERT-base, block 16, batch 4",
+           "launches": counts, "rel_err_vs_reference": err_ref, "rel_err_vs_fused": err_fused,
+           "ms": time_ms(lambda: unfused(be, ops.blocked_softmax), samples=10, inner=2)}
+    emit(row)
+    want_counts = {"bwma_transpose": 1, "bwma_softmax": 1, "bwma_gemm": 2}
+    if {k: n for k, n in counts.items() if n} != want_counts:
+        raise AssertionError(f"blocked-ops path launches {counts}, want {want_counts}")
+    if not (err_ref <= KERNEL_RTOL and err_fused <= KERNEL_RTOL):
+        raise AssertionError(f"blocked-ops path disagrees: {err_ref}, {err_fused}")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return counts
+
+
+def mla_serve_phase(torch, kernels):
+    """DeepSeek-V3's dense prefix at full width through the continuous engine."""
+    import dataclasses
+
+    import repro_torch.configs as C
+    from repro_torch.models import model as M
+
+    max_new = 64
+    dense = dict(n_layers=3, family="dense", n_experts=0, n_shared_experts=0, top_k=0,
+                 moe_d_ff=0, first_k_dense=0, mtp_depth=0)
+    cfg = dataclasses.replace(C.get_config("deepseek-v3-671b", dtype=torch.float32), **dense)
+    prompts, arrivals = serve_traffic(cfg.vocab_size)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = M.init_params(cfg, gen, device="cuda")
+    counts = gated_serve(torch, kernels, cfg, params, prompts, arrivals, max_new,
+                         "mla_paged_attention_decode")
+    del params
+    torch.cuda.empty_cache()
+    cfg16 = dataclasses.replace(C.get_config("deepseek-v3-671b"), **dense)
+    params = M.init_params(cfg16, gen, device="cuda")
+    emit(timed_serve(torch, cfg16, params, prompts, arrivals, max_new))
+    del params
+    torch.cuda.empty_cache()
+    return counts
 
 
 def main() -> int:
@@ -860,6 +1115,19 @@ def main() -> int:
                    paged_copy=served["launches"]["paged_copy"],
                    rwma_gemm=served["rwma_launches"])
 
+    # 7. the MLA decode, softmax and transpose kernels, and the blocked-ops path
+    mla = mla_kernel_phase(torch, gen)
+    emit({"phase": "mla_kernels", "names": list(MLA_KERNELS),
+          "launches_during_checks": kernels.launch_counts()})
+    blocked = blocked_ops_path(torch, gen, kernels)
+    counted.update(bwma_softmax=blocked["bwma_softmax"],
+                   bwma_transpose=blocked["bwma_transpose"])
+
+    # 8. MLA serving end to end
+    mla_counts = mla_serve_phase(torch, kernels)
+    counted["mla_paged_attention_decode"] = mla_counts["mla_paged_attention_decode"]
+    serving.update(mla)
+
     line = []
     for kernel in LAUNCHES_PER_FORWARD:
         row = summary[kernel]["bert-base block 16"]
@@ -874,7 +1142,7 @@ def main() -> int:
         })
         if not all(math.isfinite(per[k]) for k in ("ms", "plain_ms", "bound_ms")):
             raise AssertionError(f"{kernel}: timing not finite")
-    for kernel in SERVING_KERNELS:
+    for kernel in SERVING_KERNELS + MLA_KERNELS:
         row = serving[kernel]
         line.append({
             "name": kernel, "route": "cuda", "source": SOURCES[kernel],

@@ -8,13 +8,13 @@ operators of the serving engine, with two implementations in this
 package's own registry:
 
 * ``"cuda"`` -- the hand-written CUDA kernels of :mod:`repro_torch.kernels`:
-  blocked GEMM, the fused GEMM + bias + GELU feed-forward, blocked
-  LayerNorm, the fused streaming attention, the paged one-token decode and
-  the paged copy-on-write.  Each wrapper launches its kernel for CUDA
-  tensors and takes its plain version for CPU tensors.  This is the
-  default: ``None`` resolves to ``"cuda"``.
+  blocked GEMM, blocked softmax, the fused GEMM + bias + GELU feed-forward,
+  blocked LayerNorm, the fused streaming attention, blocked transpose, the
+  paged one-token GQA and MLA decodes and the paged copy-on-write.  Each
+  wrapper launches its kernel for CUDA tensors and takes its plain version
+  for CPU tensors.  This is the default: ``None`` resolves to ``"cuda"``.
 * ``"reference"`` -- the plain blockwise operators of
-  :mod:`repro_torch.core.blockwise`, the gather->attend paged-decode oracle
+  :mod:`repro_torch.core.blockwise`, the gather->attend paged-decode oracles
   and the sliced page copy of :mod:`repro_torch.models.attention`: the
   oracle path.
 
@@ -32,7 +32,13 @@ from repro_torch.kernels.bwma_attention import bwma_attention
 from repro_torch.kernels.bwma_fused_ffn import bwma_fused_ffn
 from repro_torch.kernels.bwma_gemm import bwma_gemm
 from repro_torch.kernels.bwma_layernorm import bwma_layernorm
-from repro_torch.kernels.paged_attention import paged_attention_decode, paged_copy
+from repro_torch.kernels.bwma_softmax import bwma_softmax
+from repro_torch.kernels.bwma_transpose import bwma_transpose
+from repro_torch.kernels.paged_attention import (
+    mla_paged_attention_decode,
+    paged_attention_decode,
+    paged_copy,
+)
 
 
 @runtime_checkable
@@ -75,10 +81,6 @@ class Backend(Protocol):
     def map(self, a: Blocked, fn: Callable) -> Blocked: ...
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
-
-
 class _ElementwiseMixin:
     """The arrangement-independent ops, shared by every backend."""
 
@@ -93,12 +95,6 @@ class _ElementwiseMixin:
 
     def map(self, a: Blocked, fn: Callable) -> Blocked:
         return bw.bw_map(a, fn)
-
-    # MLA's latent-page decode belongs to the MLA slice.
-    def mla_paged_attention_decode(self, q_lat, q_rope, ckv_pages, krope_pages,
-                                   page_table, seq_pos, *, scale):
-        _not_ported(f"{self.name} mla_paged_attention_decode",
-                    "queue 1 item 18, queue 2 item 8")
 
 
 class ReferenceBackend(_ElementwiseMixin):
@@ -124,7 +120,7 @@ class ReferenceBackend(_ElementwiseMixin):
     def transpose(self, a: Blocked) -> Blocked:
         return bw.bw_transpose(a)
 
-    # -- paged-decode operators: the gather->attend oracle and the sliced
+    # -- paged-decode operators: the gather->attend oracles and the sliced
     # page copy.  Lazy imports: models sits above core in the layering, and
     # the reference math lives next to the cache layouts it reads.
 
@@ -132,6 +128,13 @@ class ReferenceBackend(_ElementwiseMixin):
         from repro_torch.models import attention as attn
 
         return attn.paged_gather_attend(q, k_pages, v_pages, page_table, seq_pos)
+
+    def mla_paged_attention_decode(self, q_lat, q_rope, ckv_pages, krope_pages,
+                                   page_table, seq_pos, *, scale):
+        from repro_torch.models import attention as attn
+
+        return attn.mla_paged_gather_attend(q_lat, q_rope, ckv_pages, krope_pages,
+                                            page_table, seq_pos, scale=scale)
 
     def paged_copy_page(self, pools: Dict, src, dst) -> Dict:
         from repro_torch.models import attention as attn
@@ -141,7 +144,7 @@ class ReferenceBackend(_ElementwiseMixin):
 
 class CudaBackend(_ElementwiseMixin):
     """The hand-written CUDA BWMA kernels -- the execution path the paper
-    describes.  Operators whose kernels are not ported yet raise."""
+    describes."""
 
     name = "cuda"
 
@@ -149,7 +152,7 @@ class CudaBackend(_ElementwiseMixin):
         return bwma_gemm(a, b)
 
     def softmax(self, a: Blocked) -> Blocked:
-        _not_ported("cuda softmax (bwma_softmax kernel)", "queue 2 item 9")
+        return bwma_softmax(a)
 
     def layernorm(self, a: Blocked, gamma_b, beta_b) -> Blocked:
         return bwma_layernorm(a, gamma_b, beta_b)
@@ -161,13 +164,19 @@ class CudaBackend(_ElementwiseMixin):
         return bwma_attention(q, k, v, scale=scale)
 
     def transpose(self, a: Blocked) -> Blocked:
-        _not_ported("cuda transpose (bwma_transpose kernel)", "queue 2 item 10")
+        return bwma_transpose(a)
 
     def paged_attention_decode(self, q, k_pages, v_pages, page_table, seq_pos):
         return paged_attention_decode(q, k_pages, v_pages, page_table, seq_pos)
 
+    def mla_paged_attention_decode(self, q_lat, q_rope, ckv_pages, krope_pages,
+                                   page_table, seq_pos, *, scale):
+        return mla_paged_attention_decode(q_lat, q_rope, ckv_pages, krope_pages,
+                                          page_table, seq_pos, scale=scale)
+
     def paged_copy_page(self, pools: Dict, src, dst) -> Dict:
-        # one paged_copy launch per stacked pool (k_pages, v_pages), in place
+        # one paged_copy launch per stacked pool (k_pages and v_pages, or
+        # ckv_pages and krope_pages), in place
         return {name: paged_copy(pool, src, dst) for name, pool in pools.items()}
 
 

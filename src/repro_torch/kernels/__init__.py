@@ -8,11 +8,18 @@ from repro_torch.kernels.bwma_attention import bwma_attention
 from repro_torch.kernels.bwma_fused_ffn import bwma_fused_ffn
 from repro_torch.kernels.bwma_gemm import bwma_gemm
 from repro_torch.kernels.bwma_layernorm import bwma_layernorm
-from repro_torch.kernels.paged_attention import paged_attention_decode, paged_copy
+from repro_torch.kernels.bwma_softmax import bwma_softmax
+from repro_torch.kernels.bwma_transpose import bwma_transpose
+from repro_torch.kernels.paged_attention import (
+    mla_paged_attention_decode,
+    paged_attention_decode,
+    paged_copy,
+)
 from repro_torch.kernels.rwma_gemm import rwma_gemm
 
 KERNELS = (bwma_gemm, bwma_fused_ffn, bwma_layernorm, bwma_attention,
-           rwma_gemm, paged_attention_decode, paged_copy)
+           rwma_gemm, paged_attention_decode, paged_copy,
+           mla_paged_attention_decode, bwma_softmax, bwma_transpose)
 
 
 def launch_counts() -> dict:

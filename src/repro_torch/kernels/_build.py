@@ -51,8 +51,17 @@ _SIGNATURES = {
     # q, k_pages, v_pages, table, seq_pos, out, B, H, hkv, dh, page, maxp, scale, stream
     "paged_attention_decode_f32": ([_P] * 6 + [_I] * 6 + [_F, _P], _I),
     "paged_attention_decode_bf16": ([_P] * 6 + [_I] * 6 + [_F, _P], _I),
+    # q_lat, q_rope, ckv_pages, krope_pages, table, seq_pos, out, B, H, r, dr, page,
+    # maxp, scale, stream
+    "mla_paged_attention_decode_f32": ([_P] * 7 + [_I] * 6 + [_F, _P], _I),
+    "mla_paged_attention_decode_bf16": ([_P] * 7 + [_I] * 6 + [_F, _P], _I),
     # pool, layers, layer_bytes, page_bytes, src, dst, stream
     "paged_copy": ([_P, _I, _L, _L, _I, _I, _P], _I),
+    # x, out, block_rows, gn, bm, bn, n_logical, stream
+    "bwma_softmax_f32": ([_P, _P, _L] + [_I] * 4 + [_P], _I),
+    "bwma_softmax_bf16": ([_P, _P, _L] + [_I] * 4 + [_P], _I),
+    # x, out, elem_size, blocks, gm, gn, bm, bn, stream
+    "bwma_transpose": ([_P, _P, _I, _L] + [_I] * 4 + [_P], _I),
     "bwma_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -5,12 +5,9 @@ world and the blocked (BWMA) world and run where their tensors live: the
 kernels for CUDA tensors, their plain versions for CPU tensors.
 
 Dtype contract, as in the JAX package: the element-wise-shaped ops
-(layernorm/attention) preserve the input dtype; the GEMM-shaped ops
+(softmax/layernorm/attention) preserve the input dtype; the GEMM-shaped ops
 (``blocked_matmul``, ``blocked_ffn``) return the **f32 accumulator** unless
 ``out_dtype`` says otherwise.
-
-``blocked_softmax`` waits for its kernel (``bwma_softmax``: ROADMAP.md
-queue 2 item 9).
 """
 from __future__ import annotations
 
@@ -32,6 +29,10 @@ def blocked_matmul(a: Blocked, b: Blocked, out_dtype: Optional[torch.dtype] = No
     if out_dtype is not None:
         out = out.to(out_dtype)
     return Blocked(out, (a.shape[0], b.shape[1]), a.layout)
+
+
+def blocked_softmax(a: Blocked) -> Blocked:
+    return resolve_backend("cuda").softmax(a)
 
 
 def blocked_layernorm(a: Blocked, gamma_blocked, beta_blocked) -> Blocked:

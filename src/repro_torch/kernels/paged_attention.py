@@ -1,13 +1,14 @@
-"""Paged one-token GQA decode and the COW page copy: the CUDA kernels
-``csrc/paged_attention.cu`` and their plain versions.
+"""Paged one-token GQA and MLA decode and the COW page copy: the CUDA
+kernels ``csrc/paged_attention.cu`` and their plain versions.
 
-Counterpart of ``repro.kernels.paged_attention`` (its MLA kernel waits for
-the MLA slice, ROADMAP.md queue 2 item 8).  The serving engine sizes its
-KV-cache pages to the kernel block so that the decode step can read them in
-place: :func:`paged_attention_decode` walks each slot's page-table row page
-by page with an online softmax, so the gathered history never exists in
-device memory, and :func:`paged_copy` is the copy-on-write step of
-shared-prefix serving, one page in every layer of a stacked pool, in place.
+Counterpart of ``repro.kernels.paged_attention``.  The serving engine sizes
+its KV-cache pages to the kernel block so that the decode step can read
+them in place: :func:`paged_attention_decode` (K/V pages) and
+:func:`mla_paged_attention_decode` (MLA's latent pages, absorbed
+formulation) walk each slot's page-table row page by page with an online
+softmax, so the gathered history never exists in device memory, and
+:func:`paged_copy` is the copy-on-write step of shared-prefix serving, one
+page in every layer of a stacked pool, in place.
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
 version for CPU tensors; ``launches`` counts the kernel launches only.
@@ -121,6 +122,114 @@ def paged_attention_decode(q, k_pages, v_pages, page_table, seq_pos, *,
 
 
 paged_attention_decode.launches = 0
+
+
+def _check_mla(q_lat, q_rope, ckv_pages, krope_pages, page_table, seq_pos):
+    """Check the MLA operands on either device; return (B, H, r, dr, page, maxp)."""
+    if q_lat.dim() != 4 or q_lat.shape[1] != 1 or q_rope.dim() != 4 or \
+            q_rope.shape[:3] != q_lat.shape[:3]:
+        raise ValueError("mla_paged_attention_decode: q_lat must be (B, 1, H, r) and "
+                         f"q_rope (B, 1, H, dr), got {tuple(q_lat.shape)} and "
+                         f"{tuple(q_rope.shape)}")
+    B, _, H, r = q_lat.shape
+    dr = q_rope.shape[-1]
+    if ckv_pages.dim() != 3 or krope_pages.dim() != 3 or \
+            ckv_pages.shape[:2] != krope_pages.shape[:2] or ckv_pages.shape[2] != r or \
+            krope_pages.shape[2] != dr:
+        raise ValueError("mla_paged_attention_decode: pools must be (num_pages, page, r) "
+                         f"and (num_pages, page, dr) for r={r}, dr={dr}, got "
+                         f"{tuple(ckv_pages.shape)} and {tuple(krope_pages.shape)}")
+    dtypes = {t.dtype for t in (q_lat, q_rope, ckv_pages, krope_pages)}
+    if len(dtypes) != 1 or ckv_pages.dtype not in DECODE_DTYPES:
+        raise TypeError("mla_paged_attention_decode: queries and pools must share one of "
+                        f"{DECODE_DTYPES}, got {sorted(map(str, dtypes))}")
+    if page_table.dim() != 2 or page_table.shape[0] != B or tuple(seq_pos.shape) != (B,):
+        raise ValueError(f"mla_paged_attention_decode: page_table must be (B, maxp) and "
+                         f"seq_pos (B,) with B={B}, got {tuple(page_table.shape)}, "
+                         f"{tuple(seq_pos.shape)}")
+    if page_table.dtype != torch.int32 or seq_pos.dtype != torch.int32:
+        raise TypeError("mla_paged_attention_decode: page_table and seq_pos must be int32")
+    return B, H, r, dr, ckv_pages.shape[1], page_table.shape[1]
+
+
+@no_tf32()
+def mla_decode_plain(q_lat, q_rope, ckv_pages, krope_pages, page_table, seq_pos, *,
+                     scale: float):
+    """Plain PyTorch version of the MLA kernel, in the TPU kernel's order:
+    walk every page of each slot's table row, score ``scale * (q_lat . c_kv +
+    q_rope . k_rope)``, mask keys past ``seq_pos`` (inclusive bound) with
+    :data:`MASK`, carry an online softmax across the pages and keep the
+    probabilities for the ``p @ c_kv`` product (the gather oracle casts them
+    to the pools' type first).  Scores, running max, probabilities and
+    rescale factors are fp32 values, as in the TPU kernel; the dot products
+    and the sums over keys accumulate in fp64 for fp32 pools (fp32 for bf16
+    pools) and round once, as the CUDA kernel does, so that the two agree to
+    an ulp whatever order each sums in.  Returns ``(B, 1, H, r)`` in the
+    pools' type."""
+    B, H, r, dr, page, maxp = _check_mla(q_lat, q_rope, ckv_pages, krope_pages,
+                                         page_table, seq_pos)
+    acc_t = torch.float64 if ckv_pages.dtype == torch.float32 else torch.float32
+    scale = torch.tensor(scale, dtype=torch.float32).item()  # the kernel's fp32 scale
+    ql = q_lat[:, 0].to(acc_t)  # (B, H, r)
+    qr = q_rope[:, 0].to(acc_t)
+    acc = torch.zeros(B, H, r, dtype=acc_t, device=ql.device)
+    m = torch.full((B, H, 1), MASK, dtype=torch.float32, device=ql.device)
+    den = torch.zeros(B, H, 1, dtype=acc_t, device=ql.device)
+    table = page_table.long()
+    pos = seq_pos.long()[:, None]
+    offs = torch.arange(page, device=ql.device)
+    for j in range(maxp):
+        c = ckv_pages[table[:, j]].to(acc_t)  # (B, page, r)
+        kr = krope_pages[table[:, j]].to(acc_t)  # (B, page, dr)
+        s = torch.einsum("bhr,bpr->bhp", ql, c) + torch.einsum("bhd,bpd->bhp", qr, kr)
+        s = (s * scale).float()
+        valid = (j * page + offs)[None, :] <= pos  # (B, page)
+        s = torch.where(valid[:, None, :], s, MASK)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        den = den * alpha.to(acc_t) + p.to(acc_t).sum(-1, keepdim=True)
+        acc = acc * alpha.to(acc_t) + torch.einsum("bhp,bpr->bhr", p.to(acc_t), c)
+        m = m_new
+    den = torch.where(den == 0.0, 1.0, den)  # unreachable: position 0 is valid
+    return (acc / den).float()[:, None].to(ckv_pages.dtype)
+
+
+def mla_paged_attention_decode(q_lat, q_rope, ckv_pages, krope_pages, page_table, seq_pos,
+                               *, scale: float):
+    """Fused one-token MLA decode over the block-paged *latent* pool.
+
+    ``q_lat``: (B, 1, H, r) -- q_nope already absorbed through ``W_kv_b``;
+    ``q_rope``: (B, 1, H, dr); ``ckv_pages``: (num_pages, page, r);
+    ``krope_pages``: (num_pages, page, dr); all four fp32 or all bf16;
+    ``page_table``: (B, max_pages) int32; ``seq_pos``: (B,) int32, each >= 0.
+    Returns the latent-space output ``o_lat`` (B, 1, H, r) in the pools'
+    type -- the caller applies the value expansion.  CUDA tensors launch
+    ``csrc/paged_attention.cu``; CPU tensors take :func:`mla_decode_plain`.
+    """
+    tensors = (q_lat, q_rope, ckv_pages, krope_pages, page_table, seq_pos)
+    if not _build.on_cuda("mla_paged_attention_decode", *tensors):
+        return mla_decode_plain(*tensors, scale=scale)
+    B, H, r, dr, page, maxp = _check_mla(*tensors)
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"mla_paged_attention_decode: operand of shape "
+                             f"{tuple(t.shape)} is not contiguous")
+    lib = _build.library()
+    out = torch.empty_like(q_lat)
+    entry = (lib.mla_paged_attention_decode_f32 if q_lat.dtype == torch.float32
+             else lib.mla_paged_attention_decode_bf16)
+    with torch.cuda.device(q_lat.device):
+        # scalar loads only: no alignment beyond the element's own
+        ptrs = [t.data_ptr() for t in (*tensors, out)]
+        code = entry(*ptrs, B, H, r, dr, page, maxp, float(scale),
+                     _build.stream(q_lat.device))
+    _build.check(code, "mla_paged_attention_decode")
+    mla_paged_attention_decode.launches += 1
+    return out
+
+
+mla_paged_attention_decode.launches = 0
 
 
 def _check_copy(pool, src, dst):

@@ -12,8 +12,9 @@ CPU).  Multi-request workload (Poisson-ish staggered arrivals, fixed seeds):
 the paged-decode kernel; ``--engine static|both`` runs the static-wave
 baseline.  Without ``--num-requests``, one static wave of ``--batch``
 prompts.  The JAX CLI's ``--mesh`` is not ported (ROADMAP.md queue 1 item
-26); families other than dense/GQA are refused before anything is
-allocated, naming the ROADMAP.md item that ports them.
+26); families other than the dense stacks with GQA or MLA attention are
+refused before anything is allocated, naming the ROADMAP.md item that ports
+them (DeepSeek-V3 itself is MoE: item 19).
 """
 from __future__ import annotations
 

@@ -12,11 +12,12 @@ it does not own.  The engine, scheduler and model layers drive adapters
 generically through :func:`adapters_for` -- this module is the ONLY place
 that knows which family uses which cache layout.
 
-This port serves full-attention dense/GQA layers (:class:`PagedAttnAdapter`,
-K/V paged).  The other families' adapters wait for their slices, and
-:func:`unsupported_message` refuses them naming the ROADMAP.md item that
-ports each: the SWA ring, MLA latent pages, SSM state rows, enc-dec cross
-rows, MoE, and the vision frontend.
+This port serves dense layers with full GQA attention
+(:class:`PagedAttnAdapter`, K/V paged) or MLA (:class:`LatentMLAAdapter`,
+the latent c_kv + shared rotary key paged).  The other families' adapters
+wait for their slices, and :func:`unsupported_message` refuses them naming
+the ROADMAP.md item that ports each: the SWA ring, SSM state rows, enc-dec
+cross rows, MoE, and the vision frontend.
 """
 from __future__ import annotations
 
@@ -195,11 +196,53 @@ class PagedAttnAdapter(CacheAdapter):
         )
 
 
+class LatentMLAAdapter(CacheAdapter):
+    """MLA (DeepSeek-V3): latent ``c_kv`` + shared rotary key paged.
+
+    Pages hold ``kv_lora_rank + qk_rope_dim`` values per token instead of
+    ``2 * n_kv_heads * d_head``.  Decode runs the absorbed-matmul
+    formulation straight over the latent pages.
+    """
+
+    key = "attn"
+    param_key = "attn"
+    family = "MLA (latent pages)"
+    paged = True
+    shareable = True
+
+    def init_pool(self, cfg, geom, device=None):
+        return attn.mla_paged_cache_init(cfg, geom.num_pages, geom.page_size, device=device)
+
+    def copy_page(self, cfg, seg_cache, src, dst):
+        return resolve_backend(cfg.decode_backend).paged_copy_page(seg_cache, src, dst)
+
+    def install(self, cfg, dst, src, slot, phys_tok, off_tok):
+        return _install_paged(dst, src, phys_tok, off_tok,
+                              {"ckv": "ckv_pages", "krope": "krope_pages"})
+
+    def src_tokens(self, src):
+        return int(src["ckv"].shape[2])
+
+    def chunk(self, p, cfg, h, positions, cache, ctx, pos_offset):
+        return attn.mla_paged_prefill_chunk(
+            p, cfg, h, positions, cache, ctx["table_row"],
+            ctx["phys_tok"], ctx["off_tok"], pos_offset,
+        )
+
+    def decode(self, p, cfg, h, positions, cache, *, seq_pos, page_table, active):
+        return attn.mla_paged_decode(
+            p, cfg, h, positions, cache, page_table, seq_pos, active=active
+        )
+
+
 # --------------------------------------------------------------------------
 # Registry
 # --------------------------------------------------------------------------
 
 PAGED_GQA = PagedAttnAdapter()
+MLA_LATENT = LatentMLAAdapter()
+
+_ATTN_ADAPTERS = {"full": PAGED_GQA, "mla": MLA_LATENT}
 
 
 def adapters_for(cfg: ModelConfig, kind: str) -> List[CacheAdapter]:
@@ -210,7 +253,7 @@ def adapters_for(cfg: ModelConfig, kind: str) -> List[CacheAdapter]:
         raise NotImplementedError(msg)
     if kind != "dense":
         raise NotImplementedError(f"{cfg.name}: no cache adapter for segment kind {kind!r}")
-    return [PAGED_GQA]
+    return [_ATTN_ADAPTERS[cfg.attn_type]]
 
 
 def all_adapters(cfg: ModelConfig) -> List[CacheAdapter]:
@@ -264,7 +307,7 @@ def prefill_chunk_multiple(cfg: ModelConfig) -> int:
 def supported_families() -> Tuple[str, ...]:
     """Family names the adapter registry serves (the engine error text and
     the launch driver report exactly this list)."""
-    return (PAGED_GQA.family,)
+    return (PAGED_GQA.family, MLA_LATENT.family)
 
 
 def unsupported_reason(cfg: ModelConfig) -> Optional[str]:
@@ -280,13 +323,10 @@ def unsupported_reason(cfg: ModelConfig) -> Optional[str]:
         return ("SSM state rows are not ported yet (ROADMAP.md queue 1 item 21)")
     if cfg.family == "moe" or cfg.n_experts:
         return "MoE layers are not ported yet (ROADMAP.md queue 1 item 19)"
-    if cfg.attn_type == "mla":
-        return ("MLA latent pages are not ported yet "
-                "(ROADMAP.md queue 1 item 18, queue 2 item 8)")
     if cfg.attn_type == "swa":
         return ("the sliding-window ring cache is not ported yet "
                 "(ROADMAP.md queue 1 item 20)")
-    if cfg.attn_type != "full" or cfg.family != "dense":
+    if cfg.attn_type not in _ATTN_ADAPTERS or cfg.family != "dense":
         return f"family {cfg.family!r} / attention {cfg.attn_type!r} has no adapter"
     return None
 

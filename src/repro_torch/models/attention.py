@@ -1,11 +1,13 @@
-"""Attention modules, dense/GQA part: full attention with RoPE, its static
-cache, and the block-paged KV cache of the serving engine.
+"""Attention modules: full GQA attention with RoPE and MLA (DeepSeek-V3),
+their static caches, and the block-paged caches of the serving engine.
 
-Counterpart of the GQA half of ``repro.models.attention``.  Functional
-style: ``init`` returns a params dict; :func:`gqa_forward` handles the
-three execution modes ``train`` (no cache), ``prefill`` (returns a filled
-cache) and ``decode`` (one token against the cache).  The sliding-window
-ring cache and MLA wait for their slices (ROADMAP.md queue 1 items 20, 18).
+Counterpart of ``repro.models.attention``.  Functional style: ``init``
+returns a params dict; :func:`gqa_forward` and :func:`mla_forward` handle
+the three execution modes ``train`` (no cache), ``prefill`` (returns a
+filled cache) and ``decode`` (one token against the cache).  MLA caches the
+*latent* c_kv + the shared rotary key and decodes with the absorbed-matmul
+formulation.  The sliding-window ring cache and M-RoPE wait for their
+slices (ROADMAP.md queue 1 items 20, 24).
 
 Where the JAX package rebuilds a cache functionally (``dynamic_update_slice``,
 ``.at[...].set``) and donates the old one, this port writes into the cache
@@ -21,6 +23,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.backend import resolve_backend
 from repro_torch.models.common import (
+    MASK,
     apply_rope,
     chunked_attention,
     decode_attention,
@@ -260,3 +263,287 @@ def gqa_paged_prefill_chunk(
                             q_chunk=cfg.q_chunk)
     out = out.reshape(B, C, cfg.n_heads * cfg.d_head)
     return dense(cfg, out, p["wo"]), cache
+
+
+# --------------------------------------------------------------------------
+# MLA (DeepSeek-V3)
+# --------------------------------------------------------------------------
+# Paged variants live below mla_forward: the engine pages the *latent*
+# c_kv + shared rotary key (kv_lora_rank + qk_rope_dim values per token
+# instead of 2 * n_kv_heads * d_head) and decodes with the absorbed-matmul
+# formulation straight over the latent pages.  The absorption and the value
+# expansion are plain products outside any kernel, as in the JAX package.
+
+def mla_init(generator: torch.Generator, cfg: ModelConfig, device=None) -> Dict:
+    d, H = cfg.d_model, cfg.n_heads
+    r_q, r_kv = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    return {
+        "wq_a": dense_init(generator, d, r_q, cfg.dtype, device=device),
+        "q_norm": torch.ones((r_q,), dtype=cfg.dtype, device=device),
+        "wq_b": dense_init(generator, r_q, H * (dn + dr), cfg.dtype, device=device),
+        "wkv_a": dense_init(generator, d, r_kv + dr, cfg.dtype, device=device),
+        "kv_norm": torch.ones((r_kv,), dtype=cfg.dtype, device=device),
+        "wkv_b": dense_init(generator, r_kv, H * (dn + dv), cfg.dtype, device=device),
+        "wo": dense_init(generator, H * dv, d, cfg.dtype, device=device),
+    }
+
+
+def mla_cache_init(cfg: ModelConfig, batch: int, max_len: int, device=None):
+    """Static cache for one layer: the latent (r_kv) + shared rotary key (dr)."""
+    return {
+        "ckv": torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=cfg.dtype, device=device),
+        "krope": torch.zeros((batch, max_len, cfg.qk_rope_dim), dtype=cfg.dtype,
+                             device=device),
+        "pos": torch.full((batch, max_len), -1, dtype=torch.int32, device=device),
+    }
+
+
+def _rms(x, w, eps: float = 1e-6):
+    """RMSNorm computed in fp32 and cast back to ``x.dtype``."""
+    xf = x.float()
+    y = xf * torch.rsqrt(torch.mean(xf * xf, -1, keepdim=True) + eps)
+    return (y * w.float()).to(x.dtype)
+
+
+def _mla_qkv_latent(p, cfg: ModelConfig, x, positions):
+    """Common projections: per-head q (nope + rope), latent ckv, shared k_rope."""
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    q = _rms(x @ p["wq_a"], p["q_norm"]) @ p["wq_b"]
+    q = q.reshape(B, S, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    kv = x @ p["wkv_a"]  # (B, S, r_kv + dr)
+    ckv = _rms(kv[..., :cfg.kv_lora_rank], p["kv_norm"])
+    k_rope = apply_rope(kv[..., cfg.kv_lora_rank:][:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0]  # (B, S, dr) -- shared across heads
+    return q_nope, q_rope, ckv, k_rope
+
+
+# The two MLA attention formulations, each written once: the static-cache
+# decode and the paged decode's oracle both reach mla_latent_attend, the
+# one-shot prefill and the paged prefill chunk both call
+# _mla_expanded_attend, so the engine's parity with the static Server leans
+# on math that cannot drift apart.
+
+def mla_latent_attend(q_lat, q_rope, ckv_c, kr_c, valid, *, scale):
+    """Latent-space MLA attention (the absorbed formulation's core).
+
+    ``q_lat``: (B, S, H, r) -- q_nope already absorbed through ``W_kv_b``;
+    ``valid``: (B, K) key mask.  Returns the latent-space output ``o_lat``
+    (B, S, H, r) in ``ckv_c.dtype``; the caller applies the value expansion.
+    Scores in fp32; the probabilities are cast to ``ckv_c.dtype`` before the
+    product with the latents, as in the JAX package.
+    """
+    s = torch.einsum("bshr,bkr->bhsk", q_lat.float(), ckv_c.float())
+    s = s + torch.einsum("bshd,bkd->bhsk", q_rope.float(), kr_c.float())
+    s = torch.where(valid[:, None, None, :], s * scale, MASK)
+    att = torch.softmax(s, -1).to(ckv_c.dtype)  # (B, H, S, K)
+    return torch.einsum("bhsk,bkr->bshr", att, ckv_c)
+
+
+def mla_paged_gather_attend(q_lat, q_rope, ckv_pages, krope_pages, page_table, seq_pos, *,
+                            scale):
+    """The gather->attend oracle over latent pages (the ``"reference"``
+    backend op).
+
+    Gathers each slot's latent pages into logical order and scores with
+    :func:`mla_latent_attend`; gathered entries sit at their absolute
+    positions, so masking by ``k_pos <= seq_pos`` reproduces the linear
+    cache's valid set exactly.
+    """
+    B = q_lat.shape[0]
+    page, r_kv = ckv_pages.shape[1], ckv_pages.shape[2]
+    maxp = page_table.shape[1]
+    table = page_table.long()
+    ckv_g = ckv_pages[table].reshape(B, maxp * page, r_kv)
+    kr_g = krope_pages[table].reshape(B, maxp * page, -1)
+    k_positions = torch.arange(maxp * page, device=q_lat.device)
+    valid = k_positions[None] <= seq_pos.long()[:, None]  # (B, K)
+    return mla_latent_attend(q_lat, q_rope, ckv_g, kr_g, valid, scale=scale)
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    return (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
+
+
+def _mla_absorbed_attend(cfg: ModelConfig, wkv_b, q_nope, q_rope, ckv_c, kr_c, valid):
+    """Absorbed-matmul MLA attention over a latent cache.
+
+    score = q_nope . (W_kv_b,k^T c) + q_rope . k_rope
+          = (q_nope W_k^T) . c + q_rope . k_rope
+    ``valid``: (B, K) key mask.  Returns (B, S, H, v_head_dim).
+    """
+    dn = cfg.qk_nope_dim
+    q_lat = torch.einsum("bshd,rhd->bshr", q_nope, wkv_b[..., :dn])
+    o_lat = mla_latent_attend(q_lat, q_rope, ckv_c, kr_c, valid, scale=_mla_scale(cfg))
+    return torch.einsum("bshr,rhd->bshd", o_lat, wkv_b[..., dn:])  # value expand
+
+
+def _mla_expanded_attend(cfg: ModelConfig, wkv_b, q_nope, q_rope, ckv, k_rope, *,
+                         pos_offset, k_positions=None):
+    """Expanded-formulation MLA attention (prefill and prefill chunk).
+
+    Each key position's kv expansion depends only on its own latent, so the
+    same call serves contiguous latents and page-gathered ones (with
+    ``k_positions`` labelling the gathered order).
+    """
+    H = cfg.n_heads
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    B, K = ckv.shape[:2]
+    kv = torch.einsum("bsr,rhd->bshd", ckv, wkv_b)
+    k_nope, v = kv[..., :dn], kv[..., dn:]
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, K, H, dr)], -1)
+    q = torch.cat([q_nope, q_rope], -1)
+    return chunked_attention(q, k, v, causal=True, q_offset=pos_offset,
+                             k_positions=k_positions, q_chunk=cfg.q_chunk,
+                             scale=_mla_scale(cfg))
+
+
+def mla_forward(
+    p: Dict,
+    cfg: ModelConfig,
+    x: torch.Tensor,  # (B, S, d)
+    positions,  # (B, S)
+    *,
+    mode: str = "train",
+    cache: Optional[Dict] = None,
+    pos_offset: int = 0,
+) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """MLA attention.  ``decode`` writes the new token's latent, rotary key
+    and position label into ``cache`` in place (slot ``pos_offset``) and
+    attends in the absorbed formulation; ``prefill`` returns a new cache
+    holding the sequence's latents."""
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    dn, dv = cfg.qk_nope_dim, cfg.v_head_dim
+    q_nope, q_rope, ckv, k_rope = _mla_qkv_latent(p, cfg, x, positions)
+    wkv_b = p["wkv_b"].reshape(cfg.kv_lora_rank, H, dn + dv)
+    if mode == "decode":
+        assert cache is not None and S == 1
+        cache["ckv"][:, pos_offset] = ckv[:, 0]
+        cache["krope"][:, pos_offset] = k_rope[:, 0]
+        cache["pos"][:, pos_offset] = pos_offset
+        valid = (cache["pos"] >= 0) & (cache["pos"] <= pos_offset)
+        out = _mla_absorbed_attend(cfg, wkv_b, q_nope, q_rope, cache["ckv"],
+                                   cache["krope"], valid)
+        new_cache = cache
+    else:
+        out = _mla_expanded_attend(cfg, wkv_b, q_nope, q_rope, ckv, k_rope,
+                                   pos_offset=pos_offset)
+        new_cache = None
+        if mode == "prefill":
+            pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+            new_cache = {"ckv": ckv, "krope": k_rope, "pos": pos.contiguous()}
+    out = out.reshape(B, S, H * dv)
+    return out @ p["wo"], new_cache
+
+
+# --------------------------------------------------------------------------
+# Paged MLA (latent pages -- the continuous-batching engine's MLA cache)
+# --------------------------------------------------------------------------
+
+def mla_paged_cache_init(cfg: ModelConfig, num_pages: int, page_size: int,
+                         device=None) -> Dict:
+    """One layer's share of the latent page pool.
+
+    A page holds ``page_size`` token slots of the MLA *latent* cache -- the
+    rank-``kv_lora_rank`` c_kv plus the shared ``qk_rope_dim`` rotary key --
+    which is all the absorbed-matmul decode ever reads.  Same page-id space
+    and null-page discipline as the dense K/V pool.
+    """
+    return {
+        "ckv_pages": torch.zeros((num_pages, page_size, cfg.kv_lora_rank), dtype=cfg.dtype,
+                                 device=device),
+        "krope_pages": torch.zeros((num_pages, page_size, cfg.qk_rope_dim), dtype=cfg.dtype,
+                                   device=device),
+    }
+
+
+def mla_paged_decode(
+    p: Dict,
+    cfg: ModelConfig,
+    x: torch.Tensor,  # (B, 1, d) -- one token per slot
+    positions: torch.Tensor,  # (B, 1) per-slot absolute positions (RoPE)
+    cache: Dict,  # {"ckv_pages", "krope_pages"}
+    page_table: torch.Tensor,  # (B, max_pages) int32 physical page per logical page
+    seq_pos: torch.Tensor,  # (B,) int32 absolute position of the new token
+    active: Optional[torch.Tensor] = None,  # (B,) bool slots actually decoding
+) -> Tuple[torch.Tensor, Dict]:
+    """Absorbed-matmul decode against the latent page pool.
+
+    Write: the new token's (c_kv, k_rope) lands in its slot's page, in place
+    (inactive slots write the null page, as in :func:`gqa_paged_decode`).
+    Read: through ``cfg.decode_backend``, always in the absorbed formulation
+    -- q_nope is folded into the latent space through ``W_kv_b`` so
+    attention runs over rank-r latents, never materialising per-head K/V.
+    The reference backend gathers the latent pages into logical order
+    (:func:`mla_paged_gather_attend`); the cuda backend walks the page-table
+    row through the MLA decode kernel.
+    """
+    B, S, _ = x.shape
+    assert S == 1
+    H = cfg.n_heads
+    dn, dv = cfg.qk_nope_dim, cfg.v_head_dim
+    q_nope, q_rope, ckv, k_rope = _mla_qkv_latent(p, cfg, x, positions)
+    wkv_b = p["wkv_b"].reshape(cfg.kv_lora_rank, H, dn + dv)
+    page = cache["ckv_pages"].shape[1]
+    pos = seq_pos.long()
+    phys = torch.gather(page_table.long(), 1, (pos // page)[:, None])[:, 0]
+    if active is not None:
+        phys = torch.where(active, phys, 0)  # null page absorbs idle writes
+    off = pos % page
+    cache["ckv_pages"].index_put_((phys, off), ckv[:, 0])
+    cache["krope_pages"].index_put_((phys, off), k_rope[:, 0])
+    # the kernel reads contiguous operands; einsum may hand back a permuted view
+    q_lat = torch.einsum("bshd,rhd->bshr", q_nope, wkv_b[..., :dn]).contiguous()
+    be = resolve_backend(cfg.decode_backend)
+    o_lat = be.mla_paged_attention_decode(q_lat, q_rope, cache["ckv_pages"],
+                                          cache["krope_pages"], page_table, seq_pos,
+                                          scale=_mla_scale(cfg))
+    out = torch.einsum("bshr,rhd->bshd", o_lat, wkv_b[..., dn:])  # value expand
+    out = out.reshape(B, 1, H * dv)
+    return out @ p["wo"], cache
+
+
+def mla_paged_prefill_chunk(
+    p: Dict,
+    cfg: ModelConfig,
+    x: torch.Tensor,  # (1, C, d) -- one prompt chunk for one slot
+    positions: torch.Tensor,  # (1, C) absolute positions q_off + [0, C)
+    cache: Dict,  # {"ckv_pages", "krope_pages"}
+    table_row: torch.Tensor,  # (max_pages,) this slot's page table row
+    phys_tok: torch.Tensor,  # (C,) physical page per chunk token
+    off_tok: torch.Tensor,  # (C,) in-page offset per chunk token
+    q_off: int,  # absolute position of x[:, 0]
+) -> Tuple[torch.Tensor, Dict]:
+    """One prompt chunk against the latent page pool (prefix-conditioned).
+
+    Write first (per-token latent scatter, in place), then gather the slot's
+    whole table row and run the *expanded* formulation over the gathered
+    latents -- the same per-position kv expansion and causal masked
+    attention as the one-shot prefill, keys in ascending position order.
+    The absorbed formulation is kept for decode, where it is the win.
+    """
+    B, C, _ = x.shape
+    assert B == 1
+    H = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    r_kv = cfg.kv_lora_rank
+    q_nope, q_rope, ckv, k_rope = _mla_qkv_latent(p, cfg, x, positions)
+    wkv_b = p["wkv_b"].reshape(r_kv, H, dn + dv)
+    phys, off = phys_tok.long(), off_tok.long()
+    cache["ckv_pages"].index_put_((phys, off), ckv[0])
+    cache["krope_pages"].index_put_((phys, off), k_rope[0])
+    page = cache["ckv_pages"].shape[1]
+    maxp = table_row.shape[0]
+    row = table_row.long()
+    ckv_g = cache["ckv_pages"][row].reshape(1, maxp * page, r_kv)
+    kr_g = cache["krope_pages"][row].reshape(1, maxp * page, dr)
+    kpos = torch.arange(maxp * page, dtype=torch.int32, device=x.device)[None]
+    out = _mla_expanded_attend(cfg, wkv_b, q_nope, q_rope, ckv_g, kr_g,
+                               pos_offset=q_off, k_positions=kpos)
+    out = out.reshape(B, C, H * dv)
+    return out @ p["wo"], cache

@@ -1,10 +1,12 @@
 # repro: noqa-file RPR004 -- the model math itself dispatches per family;
 # the registry rule protects the serving stack, not the layer definitions
-"""Model assembly, dense path: one functional LM for dense/GQA configs.
+"""Model assembly, dense path: one functional LM for dense configs with
+GQA or MLA attention.
 
 Counterpart of ``repro.models.model`` for the families this port serves
-(full-attention dense/GQA; the others are refused with the ROADMAP.md item
-that ports them, :func:`repro_torch.models.adapters.unsupported_message`).
+(dense stacks with full GQA attention or DeepSeek-V3's MLA; the others are
+refused with the ROADMAP.md item that ports them,
+:func:`repro_torch.models.adapters.unsupported_message`).
 Layers are grouped into homogeneous *segments*; each segment's parameters
 (and caches) are stacked along a leading L axis, as in the JAX package, and
 a Python loop over the layers takes the place of ``jax.lax.scan``.  The
@@ -61,6 +63,12 @@ def _tree_stack(trees):
     return torch.stack(trees)
 
 
+def _attn_init(generator: torch.Generator, cfg: ModelConfig, device=None) -> Dict:
+    if cfg.attn_type == "mla":
+        return attn.mla_init(generator, cfg, device)
+    return attn.gqa_init(generator, cfg, device)
+
+
 def init_layer(generator: torch.Generator, cfg: ModelConfig, kind: str,
                device=None) -> Dict:
     if kind != "dense":
@@ -68,7 +76,7 @@ def init_layer(generator: torch.Generator, cfg: ModelConfig, kind: str,
         raise NotImplementedError(f"{cfg.name}: no {kind!r} layers in this port")
     return {
         "ln1": norm_init(cfg, cfg.d_model, device),
-        "attn": attn.gqa_init(generator, cfg, device),
+        "attn": _attn_init(generator, cfg, device),
         "ln2": norm_init(cfg, cfg.d_model, device),
         "ffn": ffnm.ffn_init(generator, cfg, device=device),
     }
@@ -97,7 +105,8 @@ def layer_forward(
         )
     new_cache: Dict[str, Any] = {}
     h = apply_norm(cfg, p["ln1"], x)
-    a_out, a_cache = attn.gqa_forward(
+    forward = attn.mla_forward if cfg.attn_type == "mla" else attn.gqa_forward
+    a_out, a_cache = forward(
         p["attn"], cfg, h, positions, mode=mode,
         cache=cache.get("attn") if cache else None, pos_offset=pos_offset,
     )
@@ -149,6 +158,8 @@ def _stacked(one: Dict, n: int) -> Dict:
 
 def _layer_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int, device=None):
     _require_supported(cfg)
+    if cfg.attn_type == "mla":
+        return {"attn": attn.mla_cache_init(cfg, batch, max_len, device=device)}
     return {"attn": attn.gqa_cache_init(cfg, batch, max_len, device=device)}
 
 
@@ -183,8 +194,9 @@ def init_paged_cache(cfg: ModelConfig, max_seqs: int, num_pages: int, page_size:
                      max_len: int, device=None):
     """Stacked-per-segment decode cache for the continuous-batching engine.
 
-    Each segment's cache is whatever its family's adapters declare: paged
-    pools share physical page ids across layers (page ids are pool-wide).
+    Each segment's cache is whatever its family's adapters declare (K/V
+    pages for GQA, latent pages for MLA): paged pools share physical page
+    ids across layers (page ids are pool-wide).
     """
     _require_supported(cfg)
     device = resolve_device(device)

@@ -101,17 +101,27 @@ def test_resolve_backend_is_the_ports_own():
 
 
 def test_unported_kernel_ops_raise_not_implemented():
-    be = tbackend.resolve_backend("cuda")
-    a = tbw.block(torch.zeros(16, 16), tenc.EncoderConfig(block=16).layout)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        be.softmax(a)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        be.transpose(a)
-    # the dense paged-decode ops are ported (the serving slice); MLA waits
-    for name in ("reference", "cuda"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 18, queue 2 item 8"):
-            tbackend.resolve_backend(name).mla_paged_attention_decode(
-                None, None, None, None, None, None, scale=1.0)
+    """Every kernel op of both backends is ported now: on CPU tensors the
+    cuda backend's softmax, transpose and MLA decode run their kernels'
+    plain versions and agree with the reference backend; none raises."""
+    be, ref = tbackend.resolve_backend("cuda"), tbackend.resolve_backend("reference")
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((20, 24)).astype(np.float32))
+    a = tbw.block(x, tenc.EncoderConfig(block=16).layout)
+    torch.testing.assert_close(be.softmax(a).unblock(), torch.softmax(x, -1),
+                               rtol=2e-5, atol=2e-5)
+    assert torch.equal(be.transpose(a).unblock(), x.T)
+    assert torch.equal(be.transpose(a).data, ref.transpose(a).data)
+    rng = np.random.default_rng(1)
+    q_lat, q_rope = (torch.from_numpy(rng.standard_normal((2, 1, 3, n)).astype(np.float32))
+                     for n in (8, 4))
+    ckv, krope = (torch.from_numpy(rng.standard_normal((5, 4, n)).astype(np.float32))
+                  for n in (8, 4))
+    table = torch.tensor([[1, 2], [3, 0]], dtype=torch.int32)
+    seq = torch.tensor([6, 2], dtype=torch.int32)
+    outs = [b.mla_paged_attention_decode(q_lat, q_rope, ckv, krope, table, seq, scale=0.3)
+            for b in (be, ref)]
+    assert outs[0].shape == (2, 1, 3, 8)
+    torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=1e-6)
     pool = torch.arange(24.0).reshape(1, 3, 2, 4)
     assert torch.equal(be.paged_copy_page({"k": pool}, 0, 2)["k"][:, 2], pool[:, 0])
 

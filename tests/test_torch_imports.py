@@ -75,7 +75,8 @@ def test_port_files_include_the_serving_slice():
     names = {str(p.relative_to(PORT)) for p in _port_files() if PORT in p.parents}
     for mod in ("configs/base.py", "models/model.py", "models/adapters.py",
                 "serve/engine.py", "serve/kvcache.py", "serve/obs.py", "serve/scheduler.py",
-                "launch/serve.py", "kernels/paged_attention.py", "kernels/rwma_gemm.py"):
+                "launch/serve.py", "kernels/paged_attention.py", "kernels/rwma_gemm.py",
+                "kernels/bwma_softmax.py", "kernels/bwma_transpose.py"):
         assert mod in names, mod
 
 

@@ -20,7 +20,9 @@ from repro_torch.kernels.batching import lead_grid
 from repro_torch.kernels.bwma_attention import attention_plain
 from repro_torch.kernels.bwma_gemm import gemm_plain
 from repro_torch.kernels.bwma_layernorm import layernorm_plain
-from repro_torch.kernels.paged_attention import copy_plain, decode_plain
+from repro_torch.kernels.bwma_softmax import softmax_plain
+from repro_torch.kernels.bwma_transpose import transpose_plain
+from repro_torch.kernels.paged_attention import copy_plain, decode_plain, mla_decode_plain
 from repro_torch.kernels.rwma_gemm import rwma_plain
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -176,7 +178,8 @@ def test_wrappers_check_their_operands():
 
 def test_build_finds_all_sources_and_raises_without_nvcc(monkeypatch, tmp_path):
     names = {p.name for p in _build.sources()}
-    assert {"bwma_gemm.cu", "bwma_layernorm.cu", "bwma_attention.cu"} <= names
+    assert {"bwma_gemm.cu", "bwma_layernorm.cu", "bwma_attention.cu", "paged_attention.cu",
+            "bwma_softmax.cu", "bwma_transpose.cu"} <= names
     assert len(_build._source_key()) == 16
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))
@@ -280,7 +283,77 @@ def test_cuda_paged_copy_bit_exact(cuda_card, dtype):
     assert torch.equal(pool, want) and tk.launch_counts()["paged_copy"] == 2
 
 
-@pytest.mark.parametrize("plain", ["gemm", "attention", "rwma", "paged_decode"])
+def _mla_case(dev, B, H, r, dr, page, maxp, seq_pos, dtype):
+    rng = np.random.default_rng(18)
+    num_pages = B * maxp + 1
+    table = np.zeros((B, maxp), np.int32)
+    phys = rng.permutation(np.arange(1, num_pages))
+    for b, pos in enumerate(seq_pos):
+        used = pos // page + 1
+        table[b, :used] = phys[b * maxp:b * maxp + used]  # the rest: null page
+    q_lat, q_rope, ckv, krope = (_t(_rand(s, *shape)).to(dev, dtype) for s, shape in (
+        (19, (B, 1, H, r)), (20, (B, 1, H, dr)), (21, (num_pages, page, r)),
+        (22, (num_pages, page, dr))))
+    return (q_lat, q_rope, ckv, krope, _t(table).to(dev),
+            torch.tensor(seq_pos, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,r,dr,page,maxp,seq_pos", [
+    (2, 4, 16, 8, 8, 4, [0, 31]),
+    (3, 12, 24, 8, 16, 5, [5, 16, 79]),  # a partial last group of heads
+    (4, 128, 512, 64, 128, 16, [0, 127, 1000, 1900]),  # DeepSeek-V3 decode shapes
+])
+def test_cuda_mla_decode_matches_plain(cuda_card, dtype, B, H, r, dr, page, maxp, seq_pos):
+    """fp32 within 1e-6 (the JAX suite's paged TOL); bf16 within one bf16
+    rounding of the plain output (both compute in fp32 and round once)."""
+    args = _mla_case(cuda_card, B, H, r, dr, page, maxp, seq_pos, dtype)
+    scale = (128 + dr) ** -0.5
+    got = tk.mla_paged_attention_decode(*args, scale=scale).float()
+    want = mla_decode_plain(*args, scale=scale).float()
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 1e-6
+    else:
+        assert torch.all((got - want).abs() <= 2.0 ** -7 * want.abs() + 1e-6)
+    assert tk.launch_counts()["mla_paged_attention_decode"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lead,gm,gn,block,n_logical", [
+    ((), 3, 5, 16, 70), ((2,), 2, 3, 8, 24), ((4, 12), 32, 32, 16, 512),
+    ((4, 12), 4, 4, 128, 512), ((2, 3), 1, 4, 128, 500), ((1,), 2, 9, 64, 555)])
+def test_cuda_softmax_matches_plain(cuda_card, dtype, lead, gm, gn, block, n_logical):
+    """fp32 within 2e-5 (the op-level tolerance); bf16 within one bf16
+    rounding (both compute in fp32 and round once)."""
+    x = (_t(_rand(23, *lead, gm, gn, block, block)) * 3).to(cuda_card, dtype)
+    got, want = tk.bwma_softmax(x, n_logical), softmax_plain(x, n_logical)
+    assert got.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, **TOL)
+    else:
+        assert torch.all((got.float() - want.float()).abs() <= 2.0 ** -7 * want.float().abs()
+                         + 1e-6)
+    col = torch.arange(gn * block, device=cuda_card).reshape(gn, 1, block)
+    assert torch.all(torch.where(col >= n_logical, got, 0) == 0)
+    assert tk.launch_counts()["bwma_softmax"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.uint8, torch.float64,
+                                   torch.complex128])
+@pytest.mark.parametrize("lead,gm,gn,bm,bn", [
+    ((), 3, 5, 16, 16), ((2, 3), 4, 1, 128, 128), ((4, 12), 32, 4, 16, 16), ((2,), 3, 2, 8, 32)])
+def test_cuda_transpose_bit_exact(cuda_card, dtype, lead, gm, gn, bm, bn):
+    x = (_t(_rand(24, *lead, gm, gn, bm, bn)) * 50).to(cuda_card, dtype)
+    got = tk.bwma_transpose(x)
+    assert tuple(got.shape) == (*lead, gn, gm, bn, bm)
+    assert torch.equal(got, transpose_plain(x))
+    assert tk.launch_counts()["bwma_transpose"] == 1
+
+
+@pytest.mark.parametrize("plain", ["gemm", "attention", "rwma", "paged_decode", "mla_decode"])
 def test_plain_versions_run_without_tf32(monkeypatch, plain):
     """The plain versions are fp32 oracles: they turn TF32 off around their
     products whatever the caller set, and restore the caller's setting."""
@@ -302,9 +375,13 @@ def test_plain_versions_run_without_tf32(monkeypatch, plain):
         attention_plain(x, x, x, scale=1.0, s_logical=8)
     elif plain == "rwma":
         rwma_plain(torch.ones(16, 16), torch.ones(16, 8), bm=8, bk=8, bn=8)
-    else:
+    elif plain == "paged_decode":
         pool = torch.ones(3, 8, 1, 8)
         decode_plain(torch.ones(2, 1, 2, 8), pool, pool, torch.ones(2, 2, dtype=torch.int32),
                      torch.ones(2, dtype=torch.int32))
+    else:
+        mla_decode_plain(torch.ones(2, 1, 2, 8), torch.ones(2, 1, 2, 4), torch.ones(3, 8, 8),
+                         torch.ones(3, 8, 4), torch.ones(2, 2, dtype=torch.int32),
+                         torch.ones(2, dtype=torch.int32), scale=1.0)
     assert seen and set(seen) == {(False, False)}
     assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32

@@ -270,7 +270,7 @@ def test_other_families_refused_with_their_roadmap_item(arch):
     assert msg is not None and "ROADMAP.md queue 1 item" in msg
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
         TM.init_params(cfg, device="cpu")
-    assert A.supported_families() == (A.PAGED_GQA.family,)
+    assert A.supported_families() == (A.PAGED_GQA.family, A.MLA_LATENT.family)
 
 
 def test_slot_row_helpers_read_and_write_one_slot():
