@@ -13,17 +13,22 @@ Phases, each printing one JSON line:
    the shapes one BERT-base encoder layer gives it (blocks 16 and 128, batch
    4) and at a ragged shape; timed with CUDA events beside the plain version,
    one PyTorch library call for the same function (a yardstick only; the port
-   never calls it) and the least time the card could take (H100 SXM spec).
+   never calls it) and the least time the card could take (H100 SXM spec);
+   each GEMM case also prints its CTA tile, its share of the fp32 peak and
+   every CTA tile that spans its blocks, each held and timed alike.
 4. encoder -- the 12-layer BERT-base encoder, blocks 16 and 128, on a batch
    of 4 sequences of 512 and on one unbatched sequence, through the
    ``"cuda"`` backend, held against the ``"reference"`` backend and
    ``encoder_rwma``; the kernels' launch counts per forward must be exactly
    60 bwma_gemm, 12 bwma_fused_ffn, 24 bwma_layernorm, 12 bwma_attention;
-   the forward is timed and profiled (device time by kernel, idle share).
+   the forward is timed and profiled (device time by kernel, idle share;
+   no kernel of the port's CUDA sources may be filed under "other").
 5. serving kernels -- rwma_gemm at BERT-base projection shapes (blocks 16
    and 128, beside bwma_gemm at equal tiling: the paper's comparison) and
-   at the starcoder2-7b products of the rwma serving run (tiles 128 and 16,
-   and tile 24 for the general-tile path), paged_attention_decode at starcoder2-7b decode shapes (fp32 and bf16
+   at the starcoder2-7b products of the rwma serving run (tiles 128, 16
+   and 24), each GEMM row with its CTA tile, share of the fp32 peak and
+   tile sweep as in phase 3, and at tile 9 over 45 columns (the
+   general-tile route), paged_attention_decode at starcoder2-7b decode shapes (fp32 and bf16
    pools, ragged positions, a scattered page table with unmapped entries on
    the null page) and paged_copy (bit-exact), each against its plain
    version, timed beside its bound and one library call.
@@ -73,6 +78,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -197,7 +203,13 @@ def layer_cases(cfg, batch, gen, device):
     from repro_torch.core import encoder as enc
     from repro_torch.kernels.bwma_attention import attention_plain, bwma_attention
     from repro_torch.kernels.bwma_fused_ffn import bwma_fused_ffn, ffn_plain
-    from repro_torch.kernels.bwma_gemm import bwma_gemm, gemm_plain
+    from repro_torch.kernels.bwma_gemm import (
+        CTA_TILES,
+        bwma_gemm,
+        gemm_plain,
+        gemm_plan,
+        launch_gemm,
+    )
     from repro_torch.kernels.bwma_layernorm import bwma_layernorm, layernorm_plain
 
     lo = cfg.layout
@@ -238,10 +250,19 @@ def layer_cases(cfg, batch, gen, device):
         gn, bn = b.shape[-3], b.shape[-1]
         return 2.0 * _lead(a, b) * gm * bm * gn * bn * gk * bk
 
+    def tiling(kernel, a, b, bias=None):
+        """The plan's CTA tile, every tile that spans the blocks, and a
+        launch at a given tile (not counted: the sweep is no main-path run)."""
+        gm, _, bm, _ = a.shape[-4:]
+        gn, bn = b.shape[-3], b.shape[-1]
+        return dict(cta_tile=list(gemm_plan(gm * bm, gn * bn, bm, bn, _lead(a, b))),
+                    tiles=[t for t in CTA_TILES if t[0] % bm == 0 and t[1] % bn == 0],
+                    at_tile=lambda t: launch_gemm(kernel, a, b, bias, t))
+
     def gemm_case(label, a, b, lib_a, lib_b):
         return dict(label=label, call=lambda: bwma_gemm(a, b), plain=lambda: gemm_plain(a, b),
                     library=lambda: torch.matmul(lib_a, lib_b), in_bytes=nbytes(a, b),
-                    flops=gemm_flops(a, b), crop=None)
+                    flops=gemm_flops(a, b), crop=None, **tiling("bwma_gemm", a, b))
 
     g1, b1 = pb["ln1_g"], pb["ln1_b"]
     gs, gd, bq, bd = q.data.shape[-4:]
@@ -259,6 +280,7 @@ def layer_cases(cfg, batch, gen, device):
             if add_act else None,
             in_bytes=nbytes(x1.data, pb["w1"], pb["b1"]),
             flops=gemm_flops(x1.data, pb["w1"]), crop=None,
+            **tiling("bwma_fused_ffn", x1.data, pb["w1"], pb["b1"]),
         )],
         "bwma_layernorm": [dict(
             label=label, call=lambda: bwma_layernorm(ln_in.data, g1, b1, d),
@@ -289,6 +311,18 @@ def compare(out, want, crop):
         out, want = from_blockwise(out, layout, shape), from_blockwise(want, layout, shape)
     err = (out - want).abs().max().item()
     return err, err / max(want.abs().max().item(), 1e-30)
+
+
+def tile_sweep(at_tile, tiles, want, what: str) -> dict:
+    """Every CTA tile in ``tiles``, held against the plain version and timed
+    alike, so that the plan's tile can be read against the others."""
+    by_tile = {}
+    for tile in tiles:
+        _, rel = compare(at_tile(tile), want, None)
+        if not rel <= KERNEL_RTOL:
+            raise AssertionError(f"{what} at CTA tile {tile}: rel err {rel} > {KERNEL_RTOL}")
+        by_tile["x".join(map(str, tile))] = time_ms(lambda: at_tile(tile), samples=10, inner=5)
+    return by_tile
 
 
 def kernel_phase(torch, gen):
@@ -327,6 +361,11 @@ def kernel_phase(torch, gen):
                     b, kind = bound_ms(n_bytes, c["flops"])
                     case.update(ms=time_ms(c["call"]), plain_ms=time_ms(c["plain"]),
                                 bound_ms=b, bound_by=kind)
+                    if "cta_tile" in c:  # the GEMMs: CTA tile, fp32 peak share, sweep
+                        case.update(cta_tile=c["cta_tile"],
+                                    peak_share=c["flops"] / PEAK_FP32_FLOPS * 1e3 / case["ms"],
+                                    ms_by_tile=tile_sweep(c["at_tile"], c["tiles"], want,
+                                                          f"{kernel} {cfg_name} {c['label']}"))
                     library = c["library"]
                     case["library_ms"] = time_ms(library) if library else None
                     for key in ("ms", "plain_ms", "bound_ms"):
@@ -354,7 +393,7 @@ def kernel_phase(torch, gen):
 
 def kernel_of(name: str) -> str:
     """The port's kernel a profiler event belongs to, or "other"."""
-    if "gemm_kernel<" in name:  # gemm_tile.cuh: <BM, BN, KS, FUSED, RWMA>
+    if "gemm_kernel<" in name:  # gemm_tile.cuh: <CM, CN, TM, TN, FUSED, RWMA>
         if "true, false>" in name:
             return "bwma_fused_ffn"
         return "rwma_gemm" if "false, true>" in name else "bwma_gemm"
@@ -369,6 +408,16 @@ def kernel_of(name: str) -> str:
         if pattern in name:
             return key
     return "other"
+
+
+def port_kernel_names() -> set:
+    """The name of every ``__global__`` function in the port's CUDA sources,
+    read from the sources themselves, so that it does not lean on the
+    patterns of :func:`kernel_of`."""
+    kernel = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\((?:[^()]|\([^()]*\))*\)\s*)?"
+                        r"(\w+)\s*\(")
+    return {name for path in (SRC / "repro_torch" / "kernels" / "csrc").glob("*.cu*")
+            for name in kernel.findall(path.read_text())}
 
 
 def profile_forward(torch, forward) -> dict:
@@ -395,6 +444,12 @@ def profile_forward(torch, forward) -> dict:
             other[evt.name[:80]] = other.get(evt.name[:80], 0.0) + ms
     if not spans:
         return {"profile": "no device events recorded"}
+    # a port kernel that kernel_of does not know (a renamed template, say)
+    # would have its time filed under "other"
+    names = port_kernel_names()
+    lost = [n for n in other for k in names if re.search(rf"\b{k}\b", n)]
+    if lost:
+        raise AssertionError(f"port kernels filed under other: {lost}")
     window = (max(e for _, e in spans) - min(s for s, _ in spans)) / 1e3
     busy = sum(by_kernel.values())
     top = sorted(other.items(), key=lambda kv: -kv[1])[:5]
@@ -464,14 +519,15 @@ def serving_kernel_phase(torch, gen):
     import numpy as np
     import torch.nn.functional as F
 
-    from repro_torch.kernels.bwma_gemm import bwma_gemm
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.bwma_gemm import CTA_TILES, bwma_gemm
     from repro_torch.kernels.paged_attention import (
         copy_plain,
         decode_plain,
         paged_attention_decode,
         paged_copy,
     )
-    from repro_torch.kernels.rwma_gemm import rwma_gemm, rwma_plain
+    from repro_torch.kernels.rwma_gemm import launch_rwma, rwma_gemm, rwma_plain, rwma_route
     from repro_torch.core.layout import BlockLayout, to_blockwise
 
     out = {}
@@ -485,6 +541,7 @@ def serving_kernel_phase(torch, gen):
         tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
                "bwma_ms": 0.0}
         worst = bytes_ms = ops_ms = 0.0
+        tiles = {}  # equal tiling: the blocked GEMM's plan for the same blocks
         for name, (k, n) in products.items():
             a = torch.randn(M, k, generator=gen, device=gen.device).to("cuda")
             w = (torch.randn(k, n, generator=gen, device=gen.device) * k ** -0.5).to("cuda")
@@ -505,9 +562,11 @@ def serving_kernel_phase(torch, gen):
             tot["library_ms"] += time_ms(lambda: torch.matmul(a, w))
             tot["bwma_ms"] += time_ms(lambda: bwma_gemm(ab, wb))
             tot["bound_ms"] += b
+            tiles[name] = list(rwma_route(M, k, n, block, block)[1])
             del a, w, got, want, ab, wb
         row = {"phase": "serving_kernels", "kernel": "rwma_gemm", "block": block,
-               "max_abs_err": worst,
+               "max_abs_err": worst, "cta_tiles": tiles,
+               "peak_share": ops_ms / tot["ms"], "bwma_peak_share": ops_ms / tot["bwma_ms"],
                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                "work": f"one BERT-base layer's six projections, M = 2048, block {block}",
                **tot}
@@ -516,12 +575,14 @@ def serving_kernel_phase(torch, gen):
             out["rwma_gemm"] = row
     # -- rwma_gemm at the products the rwma serving run gives it (starcoder2-7b
     # widths): 128-token prefill chunks at tile 128, the 16-token tail chunk at
-    # tile 16; and 24 tokens at tile 24, the general-tile path that dense
-    # takes for a token count outside the powers of two
+    # tile 16, and 24 tokens at tile 24, a tile outside the powers of two that
+    # dense takes for such a token count; then tile 9 over 45 columns, the
+    # general-tile kernel's route (rows of 45 floats have no 16-byte chunks)
     d, kv, f = 4608, 512, 18432
     for M, block, products in ((128, 128, ((d, d), (d, kv), (d, f), (f, d))),
                                (16, 16, ((d, d), (d, kv), (d, f), (f, d))),
-                               (24, 24, ((d, d), (d, f), (f, d)))):
+                               (24, 24, ((d, d), (d, f), (f, d))),
+                               (27, 9, ((45, 18),))):
         for k, n in products:
             a = torch.randn(M, k, generator=gen, device=gen.device).to("cuda")
             w = (torch.randn(k, n, generator=gen, device=gen.device) * k ** -0.5).to("cuda")
@@ -537,13 +598,23 @@ def serving_kernel_phase(torch, gen):
                 raise AssertionError(f"rwma_gemm ({M},{k})@({k},{n}) block {block}: "
                                      f"rel err {rel}")
             b, kind = bound_ms(nbytes(a, w, got), 2.0 * M * k * n)
+            route, tile = rwma_route(M, k, n, block, block)
+            row.update(route=route, cta_tile=tile and list(tile))
             row.update(ms=time_ms(lambda: rwma_gemm(a, w, bm=block, bk=block, bn=block),
                                   samples=5, inner=2),
                        plain_ms=time_ms(lambda: rwma_plain(a, w, bm=block, bk=block,
                                                            bn=block), samples=5, inner=2),
                        library_ms=time_ms(lambda: torch.matmul(a, w), samples=5, inner=2),
                        bound_ms=b, bound_by=kind,
-                       work="a starcoder2-7b projection of the rwma serving run")
+                       work="a starcoder2-7b projection of the rwma serving run"
+                       if M != 27 else "the general-tile route, tile 9")
+            row["peak_share"] = 2.0 * M * k * n / PEAK_FP32_FLOPS * 1e3 / row["ms"]
+            if route == "tile_loop":  # the tiles that span the blocks (any, off 8..128)
+                spans = [t for t in CTA_TILES if block not in _build.SUPPORTED_BLOCKS
+                         or (t[0] % block == 0 and t[1] % block == 0)]
+                row["ms_by_tile"] = tile_sweep(
+                    lambda t: launch_rwma(a, w, block, block, block, t), spans, want,
+                    f"rwma_gemm ({M},{k})@({k},{n}) block {block}")
             emit(row)
             del a, w, got, want
     # -- paged_attention_decode at starcoder2-7b decode shapes

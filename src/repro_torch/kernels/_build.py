@@ -37,17 +37,20 @@ SUPPORTED_BLOCKS = (8, 16, 32, 64, 128)
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    # a, b, out, lead0, lead1, a_s0, a_s1, b_s0, b_s1, gm, gn, gk, bm, bn, bk, stream
-    "bwma_gemm_f32": ([_P, _P, _P] + [_I] * 2 + [_L] * 4 + [_I] * 6 + [_P], _I),
+    # a, b, out, lead0, lead1, a_s0, a_s1, b_s0, b_s1, gm, gn, gk, bm, bn, bk, cm, cn,
+    # stream
+    "bwma_gemm_f32": ([_P, _P, _P] + [_I] * 2 + [_L] * 4 + [_I] * 8 + [_P], _I),
     # a, b, bias, out, then as bwma_gemm_f32
-    "bwma_fused_ffn_f32": ([_P] * 4 + [_I] * 2 + [_L] * 4 + [_I] * 6 + [_P], _I),
+    "bwma_fused_ffn_f32": ([_P] * 4 + [_I] * 2 + [_L] * 4 + [_I] * 8 + [_P], _I),
     # x, gamma, beta, out, lead0, lead1, x_s0, x_s1, gm, gn, bm, bn, n_logical, eps, stream
     "bwma_layernorm_f32": ([_P] * 4 + [_I] * 2 + [_L] * 2 + [_I] * 5 + [_F, _P], _I),
     # q, k, v, out, lead0, lead1, 6 strides, gs, gd, bm, bd, rq, s_logical, scale, stream
     "bwma_attention_f32": ([_P] * 4 + [_I] * 2 + [_L] * 6 + [_I] * 6 + [_F, _P], _I),
     "bwma_attention_smem_bytes": ([_I] * 4, _L),
+    # a, b, out, M, N, K, cm, cn, stream
+    "rwma_gemm_f32": ([_P] * 3 + [_I] * 5 + [_P], _I),
     # a, b, out, gm, gn, gk, bm, bn, bk, stream
-    "rwma_gemm_f32": ([_P] * 3 + [_I] * 6 + [_P], _I),
+    "rwma_any_tile_f32": ([_P] * 3 + [_I] * 6 + [_P], _I),
     # q, k_pages, v_pages, table, seq_pos, out, B, H, hkv, dh, page, maxp, scale, stream
     "paged_attention_decode_f32": ([_P] * 6 + [_I] * 6 + [_F, _P], _I),
     "paged_attention_decode_bf16": ([_P] * 6 + [_I] * 6 + [_F, _P], _I),

@@ -8,13 +8,43 @@ are shared, not replicated (:mod:`repro_torch.kernels.batching`).
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+import math
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.core.blockwise import Blocked, gelu, no_tf32
 from repro_torch.kernels import _build
 from repro_torch.kernels.batching import lead_grid
+
+
+# The CTA tiles (CM, CN) that csrc/gemm_tile.cuh instantiates (its
+# ``dispatch``), each with the relative FFMA rate of its register tile.
+CTA_TILES = {
+    (128, 128): 1.0, (128, 64): 0.9, (64, 128): 0.9, (64, 64): 0.8,
+    (32, 128): 0.8, (32, 64): 0.7, (16, 128): 0.7, (16, 64): 0.6,
+}
+SMS = 132  # streaming multiprocessors of an H100 SXM
+
+
+@functools.lru_cache(maxsize=1024)
+def gemm_plan(rows: int, cols: int, bm: int, bn: int, lead: int = 1) -> Tuple[int, int]:
+    """The CTA tile (CM, CN) for a ``rows x cols`` output in ``lead`` slots
+    whose data blocks are ``bm x bn``: among the tiles that span whole
+    blocks, the one with the least modelled time -- waves of CTAs over the
+    card's SMs times one CTA's work over its tile's FFMA rate -- and the
+    largest of equals.  A skinny or narrow product so gets a short or
+    narrow tile, a large one the largest tile that still fills the card."""
+    def cost(tile):
+        cm, cn = tile
+        ctas = math.ceil(rows / cm) * math.ceil(cols / cn) * lead
+        return math.ceil(ctas / SMS) * cm * cn / CTA_TILES[tile], -cm * cn
+
+    fits = [t for t in CTA_TILES if t[0] % bm == 0 and t[1] % bn == 0]
+    if not fits:
+        raise ValueError(f"no CTA tile spans whole {bm} x {bn} blocks")
+    return min(fits, key=cost)
 
 
 @no_tf32()
@@ -59,10 +89,13 @@ def check_gemm(kernel: str, a: torch.Tensor, b: torch.Tensor,
 
 
 def launch_gemm(kernel: str, a: torch.Tensor, b: torch.Tensor,
-                bias: Optional[torch.Tensor]) -> torch.Tensor:
+                bias: Optional[torch.Tensor], tile: Optional[Tuple[int, int]] = None
+                ) -> torch.Tensor:
     """Launch ``csrc/bwma_gemm.cu`` (the fused variant when ``bias`` is given)
-    on CUDA tensors; returns the fp32 output.  Does not synchronise."""
+    on CUDA tensors with the CTA tile of :func:`gemm_plan` (or ``tile``);
+    returns the fp32 output.  Does not synchronise."""
     (gm, gn, gk, bm, bn, bk), grid = check_gemm(kernel, a, b, bias)
+    cm, cn = tile or gemm_plan(gm * bm, gn * bn, bm, bn, grid.size)
     out = torch.empty(*grid.shape, gm, gn, bm, bn, dtype=torch.float32, device=a.device)
     (sa0, sa1), (sb0, sb1) = grid.strides
     lib = _build.library()
@@ -71,12 +104,12 @@ def launch_gemm(kernel: str, a: torch.Tensor, b: torch.Tensor,
             pa, pb, po = _build.launch_args(a, b, out)
             code = lib.bwma_gemm_f32(
                 pa, pb, po, *grid.dims, sa0, sa1, sb0, sb1,
-                gm, gn, gk, bm, bn, bk, _build.stream(a.device))
+                gm, gn, gk, bm, bn, bk, cm, cn, _build.stream(a.device))
         else:
             pa, pb, pc, po = _build.launch_args(a, b, bias, out)
             code = lib.bwma_fused_ffn_f32(
                 pa, pb, pc, po, *grid.dims, sa0, sa1, sb0, sb1,
-                gm, gn, gk, bm, bn, bk, _build.stream(a.device))
+                gm, gn, gk, bm, bn, bk, cm, cn, _build.stream(a.device))
     _build.check(code, kernel)
     return out
 

@@ -20,17 +20,19 @@
 // H100 SXM), because the TF32 tensor-core path keeps about three decimal
 // digits and would break parity with the fp32 reference.
 //
-// Design (the loop lives in gemm_tile.cuh, shared with rwma_gemm.cu): one
-// CTA owns one output block (l, i, j) and loops over the gk k-blocks, which
-// takes the place of the TPU grid's sequential k axis.  Every operand block
-// is one contiguous bm x bk (or bk x bn) run -- the paper's arrangement --
-// so it is staged into shared memory with coalesced 16-byte loads, in
-// k-slices of KS columns so shared memory stays small (at most 18 KB at
-// 128 x 128 blocks).  A thread keeps an RM x RN register tile of the
-// accumulator, strided across the block so shared-memory reads broadcast
-// instead of conflicting.  The epilogue applies bias + GELU to the
-// accumulator in registers before the single store, as the TPU kernel does
-// at its last k step.  No double buffering, no tensor cores: simple first.
+// Design (the loop lives in gemm_tile.cuh, shared with rwma_gemm.cu): a CTA
+// computes a CM x CN super-tile of the output that spans whole data blocks,
+// the size the host's plan picks for the product (kernels/bwma_gemm.py:
+// gemm_plan), and loops over K, which takes the place of the TPU grid's
+// sequential k axis.  Every 16-byte chunk it stages lies inside one operand
+// block, and a k-slice of B's CN / bn adjacent blocks is one contiguous run
+// per block row -- the paper's arrangement -- copied with cp.async into a
+// four-stage ring in shared memory while the previous slice is consumed.
+// A thread keeps up to an 8 x 8 accumulator in registers, fed by 16-byte
+// shared-memory reads.  The epilogue applies bias + GELU to the accumulator
+// in registers before the single store, as the TPU kernel does at its last
+// k step.  FFMA only, no split-K: each output is summed by one thread in k
+// order.
 
 #include "gemm_tile.cuh"
 
@@ -38,10 +40,10 @@ extern "C" int bwma_gemm_f32(const float* a, const float* b, float* out,
                              int lead0, int lead1, long long a_s0,
                              long long a_s1, long long b_s0, long long b_s1,
                              int gm, int gn, int gk, int bm, int bn, int bk,
-                             void* stream) {
-  return gemm_tile::run<false, false>(a, b, nullptr, out, lead0, lead1, a_s0,
-                                      a_s1, b_s0, b_s1, gm, gn, gk, bm, bn,
-                                      bk, stream);
+                             int cm, int cn, void* stream) {
+  return gemm_tile::run_blocked<false>(a, b, nullptr, out, lead0, lead1, a_s0, a_s1,
+                                       b_s0, b_s1, gm, gn, gk, bm, bn, bk, cm, cn,
+                                       stream);
 }
 
 extern "C" int bwma_fused_ffn_f32(const float* a, const float* b,
@@ -49,8 +51,7 @@ extern "C" int bwma_fused_ffn_f32(const float* a, const float* b,
                                   int lead1, long long a_s0, long long a_s1,
                                   long long b_s0, long long b_s1, int gm,
                                   int gn, int gk, int bm, int bn, int bk,
-                                  void* stream) {
-  return gemm_tile::run<true, false>(a, b, bias, out, lead0, lead1, a_s0,
-                                     a_s1, b_s0, b_s1, gm, gn, gk, bm, bn, bk,
-                                     stream);
+                                  int cm, int cn, void* stream) {
+  return gemm_tile::run_blocked<true>(a, b, bias, out, lead0, lead1, a_s0, a_s1, b_s0,
+                                      b_s1, gm, gn, gk, bm, bn, bk, cm, cn, stream);
 }

@@ -15,21 +15,24 @@
 // operations, on the FFMA units (67 TFLOP/s fp32 on an H100 SXM; no TF32,
 // which would break fp32 parity).
 //
-// Design: for the tiles the blocked GEMM takes (bm, bn in 8..128, powers of
-// two; bk 8 or a multiple of 16 up to 128) it runs the same CTA tiling,
-// shared-memory slices and register tile as bwma_gemm (gemm_tile.cuh, RWMA =
-// true), so the two differ only in the addressing of a tile: here a bm x bk
-// tile of a is bm row segments of bk floats at a stride of K, a bk x bn tile
-// of b is bk segments at a stride of N, and the output tile is written the
-// same way -- where the blocked arrangement reads each tile as one
-// contiguous run.  Timing the two at equal tiling is the paper's
-// BWMA-vs-RWMA comparison on this card.
+// Design: when K and N are multiples of 4 (16-byte rows) it runs the
+// blocked GEMM's loop (gemm_tile.cuh, RWMA = true): the same CTA super-tile
+// for the same tiling (the host's plan, kernels/bwma_gemm.py:gemm_plan), the
+// same cp.async ring, register tile and epilogue, so the two differ only in
+// the addressing of a chunk: here a k-slice of the CTA's rows is CM row
+// segments of 16 floats at a stride of K, a slice of b is 16 segments at a
+// stride of N, and the output is written the same way -- where the blocked
+// arrangement reads each block row as one contiguous run.  Timing the two at
+// equal tiling is the paper's BWMA-vs-RWMA comparison on this card.  The
+// row-major addressing does not depend on the tile, so any tile that divides
+// the shapes (24, 96, 192 ... : the model's `dense` clips its tile to the
+// token count) takes this loop too, with rows past M skipped.
 //
-// Any other tile (24, 96, 9, 256 ... : the model's `dense` clips its tile to
-// the token count) runs rwma_any_tile_kernel below: one CTA per bm x bn
-// output tile as well, walking the k-tiles in order, but with runtime tile
-// sizes, scalar loads and guarded 128 x 128 sub-tiles.  It is correct for
-// every tile, and slower.
+// Any other shape (K or N not a multiple of 4, as at tile 9 over 45
+// columns) runs rwma_any_tile_kernel below: one CTA per bm x bn output tile,
+// walking the k-tiles in order, with runtime tile sizes, scalar loads and
+// guarded 128 x 128 sub-tiles.  It is correct for every tile, and slow; the
+// host picks the route (kernels/rwma_gemm.py:rwma_route).
 
 #include "gemm_tile.cuh"
 
@@ -109,18 +112,17 @@ rwma_any_tile_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
-bool pow2_tile(int d) { return d == 8 || d == 16 || d == 32 || d == 64 || d == 128; }
-
 }  // namespace
 
-extern "C" int rwma_gemm_f32(const float* a, const float* b, float* out,
-                             int gm, int gn, int gk, int bm, int bn, int bk,
-                             void* stream) {
+extern "C" int rwma_gemm_f32(const float* a, const float* b, float* out, int M, int N,
+                             int K, int cm, int cn, void* stream) {
+  return gemm_tile::run_rowmajor(a, b, out, M, N, K, cm, cn, stream);
+}
+
+extern "C" int rwma_any_tile_f32(const float* a, const float* b, float* out, int gm,
+                                 int gn, int gk, int bm, int bn, int bk, void* stream) {
   if (gm < 1 || gn < 1 || gk < 1 || bm < 1 || bn < 1 || bk < 1 || gm > 65535)
     return cudaErrorInvalidValue;
-  if (pow2_tile(bm) && pow2_tile(bn) && (bk == 8 || (bk % 16 == 0 && bk <= 128)))
-    return gemm_tile::run<false, true>(a, b, nullptr, out, 1, 1, 0, 0, 0, 0, gm,
-                                       gn, gk, bm, bn, bk, stream);
   const dim3 grid(gn, gm);
   rwma_any_tile_kernel<<<grid, kT * kT, 0, static_cast<cudaStream_t>(stream)>>>(
       a, b, out, gk * bk, gn * bn, gk, bm, bn, bk);

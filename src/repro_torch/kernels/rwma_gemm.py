@@ -2,19 +2,23 @@
 ``csrc/rwma_gemm.cu`` and its plain version.
 
 Counterpart of ``repro.kernels.rwma_gemm``.  Operands are conventional
-row-major 2-D tensors.  The tiling (bm, bk, bn) is the blocked GEMM's
-(:mod:`repro_torch.kernels.bwma_gemm`, the same CUDA loop); only the
-storage order differs: each tile the kernel loads is ``bm`` row segments at
-a stride of K elements instead of one contiguous run.  Functionally the two
-are the same product, which is the point: the layout is a pure
-memory-system optimisation.
+row-major 2-D tensors.  At equal tiling (bm, bk, bn) it runs the blocked
+GEMM's CUDA loop with the same CTA tile
+(:func:`repro_torch.kernels.bwma_gemm.gemm_plan`); only the storage order
+differs: each k-slice the kernel loads is row segments at a stride of K
+elements instead of contiguous block rows.  Functionally the two are the
+same product, which is the point: the layout is a pure memory-system
+optimisation.
 """
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.core.blockwise import no_tf32
 from repro_torch.kernels import _build
+from repro_torch.kernels.bwma_gemm import gemm_plan
 
 
 def check_rwma(a: torch.Tensor, b: torch.Tensor, bm: int, bk: int, bn: int):
@@ -37,6 +41,22 @@ def check_rwma(a: torch.Tensor, b: torch.Tensor, bm: int, bk: int, bn: int):
     return M // bm, N // bn, K // bk
 
 
+def rwma_route(M: int, K: int, N: int, bm: int, bn: int):
+    """Which CUDA kernel takes a checked product, and its CTA tile.
+
+    ``("tile_loop", (cm, cn))``: the shared GEMM loop, when K and N are
+    multiples of 4 (its 16-byte chunks); the plan is the blocked GEMM's at
+    the same tiling for blocks of 8..128 (powers of two), else one over
+    single rows and columns, since row-major addressing does not depend on
+    the tile.  ``("any_tile", None)``: the general-tile kernel, for the
+    rest (tile 9 over 45 columns)."""
+    if K % 4 or N % 4:
+        return "any_tile", None
+    if bm in _build.SUPPORTED_BLOCKS and bn in _build.SUPPORTED_BLOCKS:
+        return "tile_loop", gemm_plan(M, N, bm, bn)
+    return "tile_loop", gemm_plan(M, N, 1, 1)
+
+
 @no_tf32()
 def rwma_plain(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bk: int = 128,
                bn: int = 128) -> torch.Tensor:
@@ -50,25 +70,39 @@ def rwma_plain(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bk: int = 128
     return acc
 
 
+def launch_rwma(a: torch.Tensor, b: torch.Tensor, bm: int, bk: int, bn: int,
+                tile: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Launch ``csrc/rwma_gemm.cu`` on CUDA tensors on the route of
+    :func:`rwma_route` (``tile`` overrides the plan's CTA tile on the shared
+    loop); returns the fp32 output.  Does not synchronise."""
+    gm, gn, gk = check_rwma(a, b, bm, bk, bn)
+    (M, K), N = a.shape, b.shape[1]
+    route, plan = rwma_route(M, K, N, bm, bn)
+    out = torch.empty(M, N, dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        pa, pb, po = _build.launch_args(a, b, out)
+        lib, stream = _build.library(), _build.stream(a.device)
+        if route == "tile_loop":
+            code = lib.rwma_gemm_f32(pa, pb, po, M, N, K, *(tile or plan), stream)
+        else:
+            code = lib.rwma_any_tile_f32(pa, pb, po, gm, gn, gk, bm, bn, bk, stream)
+    _build.check(code, "rwma_gemm")
+    return out
+
+
 def rwma_gemm(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bk: int = 128,
               bn: int = 128) -> torch.Tensor:
     """(M, K) @ (K, N) -> (M, N) f32 with row-major (strided) operand tiles.
 
     Every shape must be a multiple of its tile, as in the JAX kernel, which
     also takes any such tile; the operands are contiguous fp32.  CUDA
-    tensors launch ``csrc/rwma_gemm.cu`` (the blocked GEMM's loop for tiles
-    of 8..128, powers of two, and a general-tile kernel for the rest); CPU
-    tensors take :func:`rwma_plain`.
+    tensors launch ``csrc/rwma_gemm.cu`` (the blocked GEMM's loop, or the
+    general-tile kernel where K or N is not a multiple of 4:
+    :func:`rwma_route`); CPU tensors take :func:`rwma_plain`.
     """
     if not _build.on_cuda("rwma_gemm", a, b):
         return rwma_plain(a, b, bm=bm, bk=bk, bn=bn)
-    gm, gn, gk = check_rwma(a, b, bm, bk, bn)
-    out = torch.empty(a.shape[0], b.shape[1], dtype=torch.float32, device=a.device)
-    with torch.cuda.device(a.device):
-        pa, pb, po = _build.launch_args(a, b, out)
-        code = _build.library().rwma_gemm_f32(pa, pb, po, gm, gn, gk, bm, bn, bk,
-                                              _build.stream(a.device))
-    _build.check(code, "rwma_gemm")
+    out = launch_rwma(a, b, bm, bk, bn)
     rwma_gemm.launches += 1
     return out
 

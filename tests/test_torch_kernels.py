@@ -18,12 +18,12 @@ import repro_torch.kernels as tk
 from repro_torch.kernels import _build
 from repro_torch.kernels.batching import lead_grid
 from repro_torch.kernels.bwma_attention import attention_plain
-from repro_torch.kernels.bwma_gemm import gemm_plain
+from repro_torch.kernels.bwma_gemm import CTA_TILES, gemm_plain, launch_gemm
 from repro_torch.kernels.bwma_layernorm import layernorm_plain
 from repro_torch.kernels.bwma_softmax import softmax_plain
 from repro_torch.kernels.bwma_transpose import transpose_plain
 from repro_torch.kernels.paged_attention import copy_plain, decode_plain, mla_decode_plain
-from repro_torch.kernels.rwma_gemm import rwma_plain
+from repro_torch.kernels.rwma_gemm import launch_rwma, rwma_plain
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 
@@ -200,6 +200,66 @@ def test_cuda_gemm_matches_plain(cuda_card, la, lb, gm, gk, gn, block):
     assert tk.launch_counts()["bwma_gemm"] == 1 and tk.launch_counts()["bwma_fused_ffn"] == 1
 
 
+GEMM_EDGE_CASES = [
+    # (a lead, b lead, gm, gk, gn, bm, bk, bn): gm and gn not multiples of the
+    # CTA tile's blocks, K = 3072, blocks 8..128 with bm != bn, and the
+    # per-head product (batch x 12 heads, N = 64)
+    ((), (), 9, 3, 5, 16, 16, 16),
+    ((2,), (), 17, 2, 9, 8, 8, 8),
+    ((), (), 4, 192, 4, 16, 16, 16),
+    ((), (), 1, 24, 2, 128, 128, 128),
+    ((2,), (), 3, 2, 5, 128, 64, 32),
+    ((), (3,), 2, 1, 2, 32, 128, 128),
+    ((2, 1), (12,), 8, 12, 4, 16, 16, 16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("la,lb,gm,gk,gn,bm,bk,bn", GEMM_EDGE_CASES)
+def test_cuda_gemm_edges_match_plain(cuda_card, la, lb, gm, gk, gn, bm, bk, bn):
+    a = _t(_rand(0, *la, gm, gk, bm, bk)).to(cuda_card)
+    b = _t(_rand(1, *lb, gk, gn, bk, bn, scale=0.1)).to(cuda_card)
+    bias = _t(_rand(2, gn, bn)).to(cuda_card)
+    torch.testing.assert_close(tk.bwma_gemm(a, b), gemm_plain(a, b), **TOL)
+    torch.testing.assert_close(tk.bwma_fused_ffn(a, b, bias), gemm_plain(a, b, bias), **TOL)
+    assert tk.launch_counts()["bwma_gemm"] == 1 and tk.launch_counts()["bwma_fused_ffn"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", list(CTA_TILES))
+def test_cuda_every_cta_tile_matches_plain(cuda_card, tile):
+    """Each CTA tile the loop instantiates, forced on a product whose rows
+    and columns end part-way into its last tile, in both arrangements."""
+    cm, cn = tile
+    gm, gn = 2 * cm // 16 + 1, cn // 16 + 1
+    a = _t(_rand(3, 2, gm, 5, 16, 16)).to(cuda_card)
+    b = _t(_rand(4, 5, gn, 16, 16, scale=0.1)).to(cuda_card)
+    bias = _t(_rand(5, gn, 16)).to(cuda_card)
+    torch.testing.assert_close(launch_gemm("bwma_gemm", a, b, None, tile), gemm_plain(a, b),
+                               **TOL)
+    torch.testing.assert_close(launch_gemm("bwma_fused_ffn", a, b, bias, tile),
+                               gemm_plain(a, b, bias), **TOL)
+    x = _t(_rand(6, 2 * cm + 8, 40)).to(cuda_card)
+    w = _t(_rand(7, 40, cn + 8, scale=0.1)).to(cuda_card)
+    torch.testing.assert_close(launch_rwma(x, w, 8, 8, 8, tile),
+                               rwma_plain(x, w, bm=8, bk=8, bn=8), **TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_gemms_are_bit_identical_run_to_run(cuda_card):
+    """No split-K and no atomics: each output is summed by one thread in k
+    order, so two launches on the same inputs give the same bits."""
+    a = _t(_rand(8, 2, 5, 192, 16, 16)).to(cuda_card)
+    b = _t(_rand(9, 192, 7, 16, 16, scale=0.1)).to(cuda_card)
+    bias = _t(_rand(10, 7, 16)).to(cuda_card)
+    assert torch.equal(tk.bwma_gemm(a, b), tk.bwma_gemm(a, b))
+    assert torch.equal(tk.bwma_fused_ffn(a, b, bias), tk.bwma_fused_ffn(a, b, bias))
+    x = _t(_rand(11, 24, 3072)).to(cuda_card)
+    w = _t(_rand(12, 3072, 1024, scale=0.1)).to(cuda_card)
+    assert torch.equal(tk.rwma_gemm(x, w, bm=24, bk=24, bn=8), tk.rwma_gemm(x, w, bm=24, bk=24,
+                                                                           bn=8))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("block", [8, 16, 32, 64, 128])
 def test_cuda_layernorm_matches_plain(cuda_card, block):
@@ -229,7 +289,10 @@ def test_cuda_attention_matches_plain(cuda_card, lq, lkv, gs, gd, block, s_logic
 @pytest.mark.parametrize("M,K,N,block", [(64, 48, 32, 8), (96, 64, 48, 16), (64, 96, 128, 32),
                                          (128, 64, 192, 64), (256, 384, 256, 128),
                                          (48, 72, 96, 24), (27, 45, 18, 9),
-                                         (192, 384, 576, 192)])
+                                         (192, 384, 576, 192),
+                                         # M = 16 against K and N in the
+                                         # thousands; N ending mid-tile
+                                         (16, 3072, 2048, 16), (40, 64, 200, 8)])
 def test_cuda_rwma_matches_plain(cuda_card, M, K, N, block):
     a = _t(_rand(11, M, K)).to(cuda_card)
     b = _t(_rand(12, K, N, scale=0.1)).to(cuda_card)
