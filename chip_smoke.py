@@ -15,7 +15,11 @@ Phases, each printing one JSON line:
    one PyTorch library call for the same function (a yardstick only; the port
    never calls it) and the least time the card could take (H100 SXM spec);
    each GEMM case also prints its CTA tile, its share of the fp32 peak and
-   every CTA tile that spans its blocks, each held and timed alike.
+   every CTA tile that spans its blocks, each held and timed alike.  Then
+   bwma_attention alone at BERT-base shapes, blocks 16 and 128, batches 4
+   and 1, with SDPA as its yardstick, its bound and its share of the fp32
+   peak (over the padded width and over the logical d_head) and the plan's
+   CTA tile (BQ, BKV).
 4. encoder -- the 12-layer BERT-base encoder, blocks 16 and 128, on a batch
    of 4 sequences of 512 and on one unbatched sequence, through the
    ``"cuda"`` backend, held against the ``"reference"`` backend and
@@ -31,7 +35,9 @@ Phases, each printing one JSON line:
    general-tile route), paged_attention_decode at starcoder2-7b decode shapes (fp32 and bf16
    pools, ragged positions, a scattered page table with unmapped entries on
    the null page) and paged_copy (bit-exact), each against its plain
-   version, timed beside its bound and one library call.
+   version, timed beside its bound and one library call.  Then ``dense`` in
+   bf16 on the bwma and rwma routes at a starcoder2-7b product, against the
+   xla route at 2e-2 (one launch each, a bf16 result).
 6. serve -- starcoder2-7b at full width (32 layers, d_model 4608, 36 heads
    over 4 kv heads, vocab 49152; random weights drawn on the card from a
    seed) through the continuous-batching ``Engine`` with the ``"cuda"``
@@ -389,6 +395,107 @@ def kernel_phase(torch, gen):
         del cases
         torch.cuda.empty_cache()
     return summary
+
+
+def attention_phase(torch, gen) -> dict:
+    """bwma_attention at BERT-base shapes (12 heads of 512 x 64), blocks 16
+    and 128, batches 4 and 1: held against its plain version over the
+    logical rows, timed beside the plain version, SDPA on the unblocked
+    operands (a yardstick only) and the bound, with the plan's CTA tile and
+    its share of the fp32 peak, each over the padded width the kernel
+    computes and over the logical d_head.  Returns the rows by (block,
+    batch)."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.layout import BlockLayout, to_blockwise
+    from repro_torch.kernels.bwma_attention import (
+        attention_plain,
+        attention_plan,
+        bwma_attention,
+    )
+
+    S, H, dh = 512, 12, 64
+    scale = dh ** -0.5
+    rows = {}
+    for block in (16, 128):
+        lo = BlockLayout(block, block)
+        for batch in (4, 1):
+            q_rw, k_rw, v_rw = (torch.randn(batch, H, S, dh, generator=gen,
+                                            device=gen.device).to("cuda") for _ in range(3))
+            q, k, v = (to_blockwise(t, lo) for t in (q_rw, k_rw, v_rw))
+            gs, gd, bm, bd = q.shape[-4:]
+            crop = (lo, (S, dh))
+            got = bwma_attention(q, k, v, scale=scale, s_logical=S)
+            want = attention_plain(q, k, v, scale=scale, s_logical=S)
+            torch.cuda.synchronize()
+            err, rel = compare(got, want, crop)
+            what = f"bwma_attention block {block} batch {batch}"
+            row = {"phase": "attention", "block": block, "batch": batch,
+                   "max_abs_err": err, "rel_err": rel}
+            if not (rel <= KERNEL_RTOL and torch.isfinite(want).all()):
+                emit(row)
+                raise AssertionError(f"{what}: rel err {rel} > {KERNEL_RTOL}")
+            # q k^T and p v over the padded rows and width the kernel computes,
+            # and over the logical d_head alone (at block 128 half the padded
+            # width is zero columns)
+            flops = 4.0 * batch * H * gs * bm * S * gd * bd
+            flops_logical = 4.0 * batch * H * gs * bm * S * dh
+            b_ms, kind = bound_ms(nbytes(q, k, v, got), flops)
+            b_logical_ms, _ = bound_ms(nbytes(q, k, v, got), flops_logical)
+            row.update(
+                cta_tile=list(attention_plan(gd * bd)),
+                ms=time_ms(lambda: bwma_attention(q, k, v, scale=scale, s_logical=S)),
+                plain_ms=time_ms(lambda: attention_plain(q, k, v, scale=scale, s_logical=S),
+                                 samples=5, inner=2),
+                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                    q_rw, k_rw, v_rw, scale=scale)),
+                bound_ms=b_ms, bound_by=kind, bound_logical_ms=b_logical_ms,
+                work=f"BERT-base attention, {batch} x {H} heads of {S} x {dh}, block "
+                     f"{block} (padded width {gd * bd})")
+            row["peak_share"] = flops / PEAK_FP32_FLOPS * 1e3 / row["ms"]
+            row["peak_share_logical"] = flops_logical / PEAK_FP32_FLOPS * 1e3 / row["ms"]
+            emit(row)
+            rows[(block, batch)] = row
+            del q, k, v, q_rw, k_rw, v_rw, got, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+def bf16_dense_check(torch, gen, kernels) -> dict:
+    """``dense`` in bf16 (the configs' type) on both kernel routes at one
+    starcoder2-7b product -- 128 tokens of d_model 4608 against W_q -- held
+    against the xla route (``x @ w``) at 2e-2, the JAX suite's bf16
+    tolerance.  Each route must launch its GEMM once and return bf16."""
+    import dataclasses
+
+    import repro_torch.configs as C
+    from repro_torch.models.common import dense
+
+    cfg = C.get_config("starcoder2-7b")
+    d = cfg.d_model
+    x = torch.randn(1, 128, d, generator=gen, device=gen.device).to("cuda", torch.bfloat16)
+    w = (torch.randn(d, d, generator=gen, device=gen.device) * d ** -0.5).to(
+        "cuda", torch.bfloat16)
+    want = dense(cfg, x, w).float()  # the xla route
+    out = {}
+    for route, kernel in (("bwma", "bwma_gemm"), ("rwma", "rwma_gemm")):
+        routed = dataclasses.replace(cfg, gemm_backend=route)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        got = dense(routed, x, w)
+        torch.cuda.synchronize()
+        counts = {k: n for k, n in kernels.launch_counts().items() if n}
+        err = (got.float() - want).abs()
+        row = {"phase": "bf16_dense", "route": route, "shape": [128, d, d],
+               "dtype": str(got.dtype).split(".")[-1], "launches": counts,
+               "max_abs_err": err.max().item(),
+               "ok": bool(torch.all(err <= 2e-2 + 2e-2 * want.abs()))}
+        emit(row)
+        if not (row["ok"] and got.dtype == torch.bfloat16 and counts == {kernel: 1}):
+            raise AssertionError(f"bf16 dense, route {route}: {row}")
+        out[route] = row
+    del x, w, want
+    return out
 
 
 def kernel_of(name: str) -> str:
@@ -1169,6 +1276,7 @@ def main() -> int:
     # 3. kernels against their plain versions
     gen = torch.Generator(device="cpu").manual_seed(0)
     summary = kernel_phase(torch, gen)
+    attention_phase(torch, gen)
     emit({"phase": "kernels", "names": list(LAUNCHES_PER_FORWARD),
           "launches_during_checks": kernels.launch_counts()})
 
@@ -1177,6 +1285,7 @@ def main() -> int:
 
     # 5. the serving kernels against their plain versions
     serving = serving_kernel_phase(torch, gen)
+    bf16_dense_check(torch, gen, kernels)
     emit({"phase": "serving_kernels", "names": list(SERVING_KERNELS),
           "launches_during_checks": kernels.launch_counts()})
 

@@ -85,7 +85,7 @@ class ModelConfig:
     # data-layout policy for linear layers (the paper's technique):
     # "xla" is a plain ``x @ w`` (the JAX package leaves it to XLA);
     # "bwma"/"rwma" route matmuls through the blocked / row-major CUDA GEMM
-    # kernels (fp32 only, small scale).
+    # kernels (fp32 or bf16, summed in fp32; small scale).
     gemm_backend: str = "xla"
     block: int = 128  # accelerator block (BWMA quantum) when using kernels
 

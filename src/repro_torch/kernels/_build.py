@@ -22,7 +22,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -44,9 +44,11 @@ _SIGNATURES = {
     "bwma_fused_ffn_f32": ([_P] * 4 + [_I] * 2 + [_L] * 4 + [_I] * 8 + [_P], _I),
     # x, gamma, beta, out, lead0, lead1, x_s0, x_s1, gm, gn, bm, bn, n_logical, eps, stream
     "bwma_layernorm_f32": ([_P] * 4 + [_I] * 2 + [_L] * 2 + [_I] * 5 + [_F, _P], _I),
-    # q, k, v, out, lead0, lead1, 6 strides, gs, gd, bm, bd, rq, s_logical, scale, stream
-    "bwma_attention_f32": ([_P] * 4 + [_I] * 2 + [_L] * 6 + [_I] * 6 + [_F, _P], _I),
-    "bwma_attention_smem_bytes": ([_I] * 4, _L),
+    # q, k, v, out, lead0, lead1, 6 strides, gs, gd, bm, bd, padded width, bq, bkv,
+    # s_logical, scale, stream
+    "bwma_attention_f32": ([_P] * 4 + [_I] * 2 + [_L] * 6 + [_I] * 8 + [_F, _P], _I),
+    # padded width, bq, bkv
+    "bwma_attention_smem_bytes": ([_I] * 3, _L),
     # a, b, out, M, N, K, cm, cn, stream
     "rwma_gemm_f32": ([_P] * 3 + [_I] * 5 + [_P], _I),
     # a, b, out, gm, gn, gk, bm, bn, bk, stream
@@ -174,11 +176,24 @@ def on_cuda(kernel: str, *tensors: torch.Tensor) -> bool:
                      f"on the CPU, got {sorted(map(str, devices))}")
 
 
-def check_operands(kernel: str, *tensors: torch.Tensor) -> None:
-    """The kernels take contiguous fp32 tensors; raise on anything else."""
+GEMM_DTYPES = (torch.float32, torch.bfloat16)  # bf16 is widened on the device
+_DTYPE_NAMES = {torch.float32: "fp32", torch.bfloat16: "bf16"}
+
+
+def as_fp32(*tensors: Optional[torch.Tensor]) -> List[Optional[torch.Tensor]]:
+    """The operands as fp32: bf16 ones widened on their device, fp32 ones
+    (and ``None``) passed through with no call."""
+    return [t if t is None or t.dtype == torch.float32 else t.float() for t in tensors]
+
+
+def check_operands(kernel: str, *tensors: torch.Tensor,
+                   dtypes: Sequence[torch.dtype] = (torch.float32,)) -> None:
+    """The kernels take contiguous tensors of ``dtypes``; raise on anything else."""
     for t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{kernel}: the kernels are fp32 only, got {t.dtype}")
+        if t.dtype not in dtypes:
+            names = " or ".join(_DTYPE_NAMES[d] for d in dtypes)
+            raise TypeError(f"{kernel}: the kernels take {names}"
+                            f"{' only' if len(dtypes) == 1 else ''}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: operand of shape {tuple(t.shape)} is not contiguous")
 

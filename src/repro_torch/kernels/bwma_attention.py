@@ -4,10 +4,14 @@ and its plain version.
 Counterpart of ``repro.kernels.bwma_attention``.  The ``(S, S)`` score
 matrix never exists in device memory.  Unlike the TPU kernel, which holds
 all of K and V on chip for one query block-row, the CUDA kernel streams K
-and V one key block at a time with an online softmax, because all of K and
-V at BERT-base does not fit in one CTA's shared memory.  The plain version
-walks the key blocks with the same online softmax, so the CPU tests already
-hold the streaming math against the JAX kernel's single pass.
+and V in tiles of keys with an online softmax, because all of K and V at
+BERT-base does not fit in one CTA's shared memory.  The plain version walks
+the key blocks with the same online softmax, so the CPU tests already hold
+the streaming math against the JAX kernel's single pass.
+
+A CTA of the kernel owns a tile of BQ query rows of one (batch, head) and
+streams BKV keys at a time; :func:`attention_plan` gives the tile of the
+head's padded width.
 
 Padding semantics match the reference operators: padded *key* positions get
 probability exactly 0; padded *d_head* columns stay 0; padded query rows are
@@ -15,16 +19,36 @@ finite garbage that is cropped at unblock time.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from repro_torch.core.blockwise import Blocked, no_tf32
 from repro_torch.kernels import _build
 from repro_torch.kernels.batching import lead_grid
 
-# query rows per CTA: a query block-row of bm rows is split over bm / RQ CTAs
-MAX_QUERY_ROWS = 16
 # shared memory one CTA may use on Hopper (bytes)
 MAX_SHARED_BYTES = 232448
+# The CTA tile (query rows BQ, keys per tile BKV) that csrc/bwma_attention.cu
+# instantiates at each padded head width DP (its ``dispatch``).  64 x 64 was
+# the fastest tile at the BERT-base calls, blocks 16 and 128, batches 4 and 1,
+# on an H100 80GB HBM3 at 700 W (chip_smoke.py, phase "attention"; PERF.md);
+# at width 256 a 64-row tile would not fit one CTA's shared memory.
+ATTN_TILES = {64: (64, 64), 128: (64, 64), 256: (32, 32)}
+
+
+def padded_width(width: int) -> int:
+    """The width DP at which the kernel stages a head of ``width`` columns."""
+    for dp in ATTN_TILES:
+        if width <= dp:
+            return dp
+    raise ValueError(f"bwma_attention: padded d_head {width} above 256 columns")
+
+
+def attention_plan(width: int) -> Tuple[int, int]:
+    """The CTA tile (BQ, BKV) for heads of ``width`` columns (``gd * bd``):
+    the one tile of its padded width."""
+    return ATTN_TILES[padded_width(width)]
 
 
 @no_tf32()
@@ -75,6 +99,31 @@ def _check(q, k, v, s_logical):
     return (gs, gd, bm, bd), grid
 
 
+def launch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
+                     s_logical: int) -> torch.Tensor:
+    """Launch ``csrc/bwma_attention.cu`` on CUDA tensors with the CTA tile
+    (BQ, BKV) of :func:`attention_plan`; returns the fp32 output.  Does not
+    synchronise."""
+    (gs, gd, bm, bd), grid = _check(q, k, v, s_logical)
+    dp = padded_width(gd * bd)
+    bq, bkv = ATTN_TILES[dp]
+    lib = _build.library()
+    smem = lib.bwma_attention_smem_bytes(dp, bq, bkv)
+    if not 0 < smem <= MAX_SHARED_BYTES:
+        raise ValueError(f"bwma_attention: tile ({bq}, {bkv}) at padded d_head "
+                         f"{gd * bd} needs {smem} bytes of shared memory per CTA; "
+                         f"the limit is {MAX_SHARED_BYTES}")
+    out = torch.empty(*grid.shape, gs, gd, bm, bd, dtype=torch.float32, device=q.device)
+    (q0, q1), (k0, k1), (v0, v1) = grid.strides
+    with torch.cuda.device(q.device):
+        pq, pk, pv, po = _build.launch_args(q, k, v, out)
+        code = lib.bwma_attention_f32(
+            pq, pk, pv, po, *grid.dims, q0, q1, k0, k1, v0, v1,
+            gs, gd, bm, bd, dp, bq, bkv, s_logical, float(scale), _build.stream(q.device))
+    _build.check(code, "bwma_attention")
+    return out
+
+
 def bwma_attention(q, k, v, *, scale: float, s_logical: int | None = None):
     """softmax(q @ k^T * scale) @ v, entirely in BWMA order.
 
@@ -93,26 +142,11 @@ def bwma_attention(q, k, v, *, scale: float, s_logical: int | None = None):
         if not wrapped:
             raise ValueError("s_logical is required for raw blocked arrays")
         s_logical = q.shape[0]
-    (gs, gd, bm, bd), grid = _check(qa, ka, va, s_logical)
     if _build.on_cuda("bwma_attention", qa, ka, va):
-        rq = min(bm, MAX_QUERY_ROWS)
-        lib = _build.library()
-        smem = lib.bwma_attention_smem_bytes(gd, bm, bd, rq)
-        if smem > MAX_SHARED_BYTES or rq * gd * bd > 16 * 256:
-            raise ValueError(f"bwma_attention: padded d_head {gd * bd} at block {bm} "
-                             f"needs {smem} bytes of shared memory per CTA; the "
-                             f"limit is {MAX_SHARED_BYTES}")
-        out = torch.empty(*grid.shape, gs, gd, bm, bd, dtype=torch.float32,
-                          device=qa.device)
-        (q0, q1), (k0, k1), (v0, v1) = grid.strides
-        with torch.cuda.device(qa.device):
-            pq, pk, pv, po = _build.launch_args(qa, ka, va, out)
-            code = lib.bwma_attention_f32(
-                pq, pk, pv, po, *grid.dims, q0, q1, k0, k1, v0, v1,
-                gs, gd, bm, bd, rq, s_logical, float(scale), _build.stream(qa.device))
-        _build.check(code, "bwma_attention")
+        out = launch_attention(qa, ka, va, scale=scale, s_logical=s_logical)
         bwma_attention.launches += 1
     else:
+        _check(qa, ka, va, s_logical)
         out = attention_plain(qa, ka, va, scale=scale, s_logical=s_logical)
     if wrapped:
         return Blocked(out, q.shape, q.layout)

@@ -24,8 +24,9 @@ def bwma_fused_ffn(a_blocked, w_blocked, bias_blocked: torch.Tensor):
     """gelu((..., gm,gk,bm,bk) @ (gk,gn,bk,bn) + bias(gn,bn)) -> (..., gm,gn,bm,bn).
 
     Accepts raw blocked tensors (returns the fp32 result) or :class:`Blocked`
-    wrappers for the matrix operands; the bias stays a raw blocked vector
-    shared by every leading slot.  CUDA tensors launch the kernel; CPU
+    wrappers for the matrix operands (the result cast back to the input
+    dtype); the bias stays a raw blocked vector shared by every leading
+    slot.  Operands are fp32 or bf16, summed in fp32.  CUDA tensors launch the kernel; CPU
     tensors take :func:`ffn_plain`.
     """
     wrapped = isinstance(a_blocked, Blocked)
@@ -40,7 +41,8 @@ def bwma_fused_ffn(a_blocked, w_blocked, bias_blocked: torch.Tensor):
         check_gemm("bwma_fused_ffn", a, w, bias_blocked)
         out = ffn_plain(a, w, bias_blocked)
     if wrapped:
-        return Blocked(out, (a_blocked.shape[0], w_blocked.shape[1]), a_blocked.layout)
+        return Blocked(out.to(a_blocked.dtype), (a_blocked.shape[0], w_blocked.shape[1]),
+                       a_blocked.layout)
     return out
 
 

@@ -77,7 +77,7 @@ def check_gemm(kernel: str, a: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"{kernel}: inner blocks mismatch: "
                          f"{tuple(a.shape)} @ {tuple(b.shape)}")
     operands = (a, b) if bias is None else (a, b, bias)
-    _build.check_operands(kernel, *operands)
+    _build.check_operands(kernel, *operands, dtypes=_build.GEMM_DTYPES)
     _build.check_block(kernel, bm, bn, bk)
     if bias is not None and tuple(bias.shape) != (gn, bn):
         raise ValueError(f"{kernel}: bias must be blocked ({gn}, {bn}), "
@@ -93,8 +93,13 @@ def launch_gemm(kernel: str, a: torch.Tensor, b: torch.Tensor,
                 ) -> torch.Tensor:
     """Launch ``csrc/bwma_gemm.cu`` (the fused variant when ``bias`` is given)
     on CUDA tensors with the CTA tile of :func:`gemm_plan` (or ``tile``);
-    returns the fp32 output.  Does not synchronise."""
+    returns the fp32 output.  Does not synchronise.
+
+    bf16 operands are widened to fp32 on the device first and run the fp32
+    kernel: a product of two bf16 values is exact in fp32, so this is what
+    an fp32-accumulating bf16 kernel computes, at the cost of the copies."""
     (gm, gn, gk, bm, bn, bk), grid = check_gemm(kernel, a, b, bias)
+    a, b, bias = _build.as_fp32(a, b, bias)
     cm, cn = tile or gemm_plan(gm * bm, gn * bn, bm, bn, grid.size)
     out = torch.empty(*grid.shape, gm, gn, bm, bn, dtype=torch.float32, device=a.device)
     (sa0, sa1), (sb0, sb1) = grid.strides
@@ -118,8 +123,10 @@ def bwma_gemm(a_blocked, b_blocked):
     """(..., gm, gk, bm, bk) @ (..., gk, gn, bk, bn) -> (..., gm, gn, bm, bn).
 
     Accepts raw blocked tensors or :class:`Blocked` wrappers (the result
-    type follows the inputs); the operands and the result are fp32.  CUDA
-    tensors launch the kernel; CPU tensors take :func:`gemm_plain`.
+    type follows the inputs).  Operands are fp32 or bf16, summed in fp32: a
+    raw result is the fp32 accumulator, a :class:`Blocked` one is cast back
+    to the input dtype, as in the JAX package.  CUDA tensors launch the
+    kernel; CPU tensors take :func:`gemm_plain`.
     """
     wrapped = isinstance(a_blocked, Blocked)
     if wrapped != isinstance(b_blocked, Blocked):
@@ -136,7 +143,8 @@ def bwma_gemm(a_blocked, b_blocked):
         check_gemm("bwma_gemm", a, b, None)
         out = gemm_plain(a, b)
     if wrapped:
-        return Blocked(out, (a_blocked.shape[0], b_blocked.shape[1]), a_blocked.layout)
+        return Blocked(out.to(a_blocked.dtype), (a_blocked.shape[0], b_blocked.shape[1]),
+                       a_blocked.layout)
     return out
 
 

@@ -35,7 +35,7 @@ def check_rwma(a: torch.Tensor, b: torch.Tensor, bm: int, bk: int, bn: int):
         raise ValueError(f"rwma_gemm: tiles must be positive, got {(bm, bk, bn)}")
     if M % bm or K % bk or N % bn:
         raise ValueError(f"shapes {tuple(a.shape)}x{tuple(b.shape)} not divisible by blocks")
-    _build.check_operands("rwma_gemm", a, b)
+    _build.check_operands("rwma_gemm", a, b, dtypes=_build.GEMM_DTYPES)
     if M // bm > 65535:
         raise ValueError(f"rwma_gemm: grid too large (M // bm = {M // bm})")
     return M // bm, N // bn, K // bk
@@ -61,8 +61,9 @@ def rwma_route(M: int, K: int, N: int, bm: int, bn: int):
 def rwma_plain(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bk: int = 128,
                bn: int = 128) -> torch.Tensor:
     """Plain PyTorch version of the kernel: the same loop over the k-tiles
-    into an fp32 accumulator, on row-major operands."""
+    into an fp32 accumulator, on row-major operands (bf16 widened first)."""
     check_rwma(a, b, bm, bk, bn)
+    a, b = a.float(), b.float()
     acc = None
     for k0 in range(0, a.shape[1], bk):
         t = torch.matmul(a[:, k0:k0 + bk], b[k0:k0 + bk])
@@ -74,8 +75,11 @@ def launch_rwma(a: torch.Tensor, b: torch.Tensor, bm: int, bk: int, bn: int,
                 tile: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Launch ``csrc/rwma_gemm.cu`` on CUDA tensors on the route of
     :func:`rwma_route` (``tile`` overrides the plan's CTA tile on the shared
-    loop); returns the fp32 output.  Does not synchronise."""
+    loop); returns the fp32 output.  Does not synchronise.  bf16 operands
+    are widened to fp32 on the device first, as in
+    :func:`repro_torch.kernels.bwma_gemm.launch_gemm`."""
     gm, gn, gk = check_rwma(a, b, bm, bk, bn)
+    a, b = _build.as_fp32(a, b)
     (M, K), N = a.shape, b.shape[1]
     route, plan = rwma_route(M, K, N, bm, bn)
     out = torch.empty(M, N, dtype=torch.float32, device=a.device)
@@ -95,7 +99,8 @@ def rwma_gemm(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bk: int = 128,
     """(M, K) @ (K, N) -> (M, N) f32 with row-major (strided) operand tiles.
 
     Every shape must be a multiple of its tile, as in the JAX kernel, which
-    also takes any such tile; the operands are contiguous fp32.  CUDA
+    also takes any such tile; the operands are contiguous fp32 or bf16, and
+    the result is fp32 either way (the JAX kernel's ``acc_dtype``).  CUDA
     tensors launch ``csrc/rwma_gemm.cu`` (the blocked GEMM's loop, or the
     general-tile kernel where K or N is not a multiple of 4:
     :func:`rwma_route`); CPU tensors take :func:`rwma_plain`.

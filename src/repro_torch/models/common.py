@@ -75,8 +75,8 @@ def dense(cfg: ModelConfig, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
       (paper Fig. 4d);
     * ``rwma`` -- the row-major tiled GEMM kernel (the paper's baseline).
 
-    The kernel routes are fp32 only (the port's GEMMs raise on other
-    types).  The tile is the JAX package's: ``cfg.block``, clipped to the
+    The kernel routes take fp32 or bf16 (summed in fp32) and return
+    ``x.dtype``, as in the JAX package.  The tile is the JAX package's: ``cfg.block``, clipped to the
     operand sizes, at least 8.  ``rwma`` runs its kernel at that tile
     whenever it divides the shapes and falls back to ``x2 @ w`` only where
     it does not, as in the JAX package; ``bwma`` pads its blocks, so it runs

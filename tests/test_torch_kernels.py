@@ -17,7 +17,7 @@ import numpy as np
 import repro_torch.kernels as tk
 from repro_torch.kernels import _build
 from repro_torch.kernels.batching import lead_grid
-from repro_torch.kernels.bwma_attention import attention_plain
+from repro_torch.kernels.bwma_attention import ATTN_TILES, attention_plain, launch_attention
 from repro_torch.kernels.bwma_gemm import CTA_TILES, gemm_plain, launch_gemm
 from repro_torch.kernels.bwma_layernorm import layernorm_plain
 from repro_torch.kernels.bwma_softmax import softmax_plain
@@ -124,6 +124,18 @@ ATTN_CASES = [
     ((3,), (3,), 4, 2, 8, 30),
     ((3,), (1,), 2, 3, 8, 16),  # K/V broadcast over the query heads
     ((), (), 2, 4, 16, 32),
+    # query tiles of the CUDA kernel that span several query blocks (8 of 16)
+    ((2,), (2,), 8, 4, 16, 128),
+    # s_logical ending mid key tile (keys 64..127), and skipping whole key
+    # tiles (keys 100..255 of four 64-key tiles)
+    ((2,), (2,), 16, 2, 8, 70),
+    ((1,), (1,), 16, 4, 16, 100),
+    # K/V broadcast over the query heads under a batch lead, several key tiles
+    ((2, 3), (2, 1), 8, 4, 16, 120),
+    # block 128 (d_head 64 padded to 128) at batch 4 and 1, and a head of 256
+    ((4, 2), (4, 2), 4, 1, 128, 512),
+    ((1, 2), (1, 2), 4, 1, 128, 500),
+    ((2,), (2,), 2, 4, 64, 100),
 ]
 
 
@@ -283,6 +295,39 @@ def test_cuda_attention_matches_plain(cuda_card, lq, lkv, gs, gd, block, s_logic
     rows = torch.arange(gs * block, device=cuda_card).reshape(gs, 1, block, 1) < s_logical
     torch.testing.assert_close(torch.where(rows, got, 0.0), torch.where(rows, want, 0.0), **TOL)
     assert tk.launch_counts()["bwma_attention"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dp", list(ATTN_TILES))
+def test_cuda_every_attention_tile_matches_plain(cuda_card, dp):
+    """The CTA tile of each padded width the kernel instantiates, on a call
+    whose query rows end part-way into the last tile and whose keys end
+    part-way into a key tile."""
+    bq, bkv = ATTN_TILES[dp]
+    block = 16
+    gd = dp // block - 1  # width dp - 16: the last 16 staged columns zero-filled
+    gs = (2 * bq + bkv) // block + 1
+    s_logical = gs * block - bkv // 2 - 3
+    q = _t(_rand(8, 2, 3, gs, gd, block, block)).to(cuda_card)
+    k = _t(_rand(9, 2, 1, gs, gd, block, block)).to(cuda_card)
+    v = _t(_rand(10, 2, 1, gs, gd, block, block)).to(cuda_card)
+    got = launch_attention(q, k, v, scale=0.2, s_logical=s_logical)
+    want = attention_plain(q, k, v, scale=0.2, s_logical=s_logical)
+    rows = torch.arange(gs * block, device=cuda_card).reshape(gs, 1, block, 1) < s_logical
+    torch.testing.assert_close(torch.where(rows, got, 0.0), torch.where(rows, want, 0.0), **TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_attention_is_bit_identical_run_to_run(cuda_card):
+    """No split over keys and no atomics: each output is summed by one
+    thread in key order, so two launches on the same inputs give the same
+    bits (BERT-base shapes, blocks 16 and 128)."""
+    for gd, block in ((4, 16), (1, 128)):
+        gs = 512 // block
+        q, k, v = (_t(_rand(s, 2, 12, gs, gd, block, block)).to(cuda_card) for s in (8, 9, 10))
+        assert torch.equal(tk.bwma_attention(q, k, v, scale=0.125, s_logical=500),
+                           tk.bwma_attention(q, k, v, scale=0.125, s_logical=500))
+    assert tk.launch_counts()["bwma_attention"] == 4
 
 
 @pytest.mark.cuda

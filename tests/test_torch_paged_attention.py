@@ -204,8 +204,8 @@ def test_rwma_divisibility_and_type_errors():
                       interpret=True)
     with pytest.raises(ValueError, match="inner dims mismatch"):
         rwma_gemm(torch.zeros(16, 16), torch.zeros(32, 16), bm=16, bk=16, bn=16)
-    with pytest.raises(TypeError, match="fp32"):
-        rwma_gemm(torch.zeros(16, 16, dtype=torch.bfloat16),
-                  torch.zeros(16, 16, dtype=torch.bfloat16), bm=16, bk=16, bn=16)
+    with pytest.raises(TypeError, match="fp32"):  # bf16 runs (widened); float64 does not
+        rwma_gemm(torch.zeros(16, 16, dtype=torch.float64),
+                  torch.zeros(16, 16, dtype=torch.float64), bm=16, bk=16, bn=16)
     with pytest.raises(ValueError, match="tiles must be positive"):
         rwma_gemm(torch.zeros(24, 24), torch.zeros(24, 24), bm=0, bk=24, bn=24)
