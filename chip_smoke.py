@@ -19,7 +19,15 @@ Phases, each printing one JSON line:
    bwma_attention alone at BERT-base shapes, blocks 16 and 128, batches 4
    and 1, with SDPA as its yardstick, its bound and its share of the fp32
    peak (over the padded width and over the logical d_head) and the plan's
-   CTA tile (BQ, BKV).
+   CTA tile (BQ, BKV), and in bf16 (within one bf16 rounding of its plain
+   version).  Then bwma_layernorm alone at BERT-base shapes, blocks 16 and
+   128, batches 4 and 1, in fp32 and bf16, with F.layer_norm as its
+   yardstick, its bound and its plan.  Every
+   timed kernel row here and in phases 5 and 7 also gives the kernel's own
+   device time per launch from torch.profiler (``device_ms``; the event
+   time of a kernel of a few microseconds is mostly the wrapper's Python),
+   the library call's (``library_device_ms``) and the wrapper's host time
+   per call with no synchronise between calls (``host_us``).
 4. encoder -- the 12-layer BERT-base encoder, blocks 16 and 128, on a batch
    of 4 sequences of 512 and on one unbatched sequence, through the
    ``"cuda"`` backend, held against the ``"reference"`` backend and
@@ -177,6 +185,75 @@ def time_samples(fn, samples: int, inner: int) -> list:
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return times
+
+
+def host_us(fn, calls: int = 50, repeats: int = 10) -> float:
+    """The host's time per call of ``fn`` in microseconds: the least over
+    ``repeats`` of ``calls`` calls issued back to back with no synchronise
+    between them, so that it counts the wrapper's launch path alone (the
+    least, because other work on the machine's shared cores only adds)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return min(times)
+
+
+def device_profile(fn, calls: int = 20, want: str = "all") -> dict:
+    """``calls`` calls of ``fn`` under torch.profiler, after a warm-up:
+    ``{key: (device ms, events)}`` with the port's kernels by name
+    (:func:`kernel_of`) and ``"all"`` for every device event.  A session
+    that records no ``want`` event is run again, up to three sessions: the
+    profiler sometimes returns one without the device events of work that
+    ran."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        by = {}
+        for evt in prof.events():
+            if evt.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            ms = (evt.time_range.end - evt.time_range.start) / 1e3
+            for key in (kernel_of(evt.name), "all"):
+                t, n = by.get(key, (0.0, 0))
+                by[key] = (t + ms, n + 1)
+        if want in by:
+            return by
+    raise AssertionError(f"the profiler recorded no {want} event in three sessions")
+
+
+def kernel_device_ms(fn, kernel: str) -> float:
+    """The device time of one launch of the port's ``kernel`` inside ``fn``,
+    from the profiler: the kernel's own duration, without the host's time
+    between launches that the CUDA-event times of a short kernel include."""
+    t, n = device_profile(fn, want=kernel)[kernel]
+    return t / n
+
+
+def call_device_ms(fn, calls: int = 20) -> float:
+    """The device time per call of ``fn``, every kernel and copy it runs."""
+    return device_profile(fn, calls)["all"][0] / calls
+
+
+def device_and_host(kernel: str, call, library=None) -> dict:
+    """A kernel row's device ms per launch, its wrapper's host µs per call
+    and the library call's device ms per call (None without one)."""
+    return {"device_ms": kernel_device_ms(call, kernel), "host_us": host_us(call),
+            "library_device_ms": None if library is None else call_device_ms(library)}
 
 
 def nbytes(*tensors) -> int:
@@ -347,7 +424,8 @@ def kernel_phase(torch, gen):
             row = {"phase": "kernels", "config": cfg_name, "batch": batch, "kernel": kernel,
                    "cases": []}
             tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-                   "bytes_ms": 0.0, "ops_ms": 0.0}
+                   "bytes_ms": 0.0, "ops_ms": 0.0, "device_ms": 0.0, "host_us": 0.0,
+                   "library_device_ms": 0.0}
             has_library = True
             worst = 0.0
             for c in entries:
@@ -374,20 +452,24 @@ def kernel_phase(torch, gen):
                                                           f"{kernel} {cfg_name} {c['label']}"))
                     library = c["library"]
                     case["library_ms"] = time_ms(library) if library else None
-                    for key in ("ms", "plain_ms", "bound_ms"):
+                    case.update(device_and_host(kernel, c["call"], library))
+                    for key in ("ms", "plain_ms", "bound_ms", "device_ms", "host_us"):
                         tot[key] += case[key]
                     tot["bytes_ms"] += n_bytes / PEAK_BYTES_PER_S * 1e3
                     tot["ops_ms"] += c["flops"] / PEAK_FP32_FLOPS * 1e3
                     if library:
                         tot["library_ms"] += case["library_ms"]
+                        tot["library_device_ms"] += case["library_device_ms"]
                     else:
                         has_library = False
                 del out, want
                 row["cases"].append(case)
             row["max_abs_err"] = worst
             if timed:
-                row["per_layer"] = {k: tot[k] for k in ("ms", "plain_ms", "bound_ms")}
-                row["per_layer"]["library_ms"] = tot["library_ms"] if has_library else None
+                row["per_layer"] = {k: tot[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                        "device_ms", "host_us")}
+                for key in ("library_ms", "library_device_ms"):
+                    row["per_layer"][key] = tot[key] if has_library else None
                 row["per_layer"]["bound_by"] = (
                     "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations")
             emit(row)
@@ -407,7 +489,7 @@ def attention_phase(torch, gen) -> dict:
     batch)."""
     import torch.nn.functional as F
 
-    from repro_torch.core.layout import BlockLayout, to_blockwise
+    from repro_torch.core.layout import BlockLayout, from_blockwise, to_blockwise
     from repro_torch.kernels.bwma_attention import (
         attention_plain,
         attention_plan,
@@ -454,9 +536,111 @@ def attention_phase(torch, gen) -> dict:
                      f"{block} (padded width {gd * bd})")
             row["peak_share"] = flops / PEAK_FP32_FLOPS * 1e3 / row["ms"]
             row["peak_share_logical"] = flops_logical / PEAK_FP32_FLOPS * 1e3 / row["ms"]
+            row.update(device_and_host(
+                "bwma_attention", lambda: bwma_attention(q, k, v, scale=scale, s_logical=S),
+                lambda: F.scaled_dot_product_attention(q_rw, k_rw, v_rw, scale=scale)))
             emit(row)
             rows[(block, batch)] = row
-            del q, k, v, q_rw, k_rw, v_rw, got, want
+            # bf16 q/k/v: widened on the device, the fp32 kernel, one rounding
+            q16, k16, v16 = (t.to(torch.bfloat16) for t in (q, k, v))
+            got = bwma_attention(q16, k16, v16, scale=scale, s_logical=S)
+            want = attention_plain(q16, k16, v16, scale=scale, s_logical=S)
+            torch.cuda.synchronize()
+            got, want = (from_blockwise(t, lo, (S, dh)).float() for t in (got, want))
+            err = (got - want).abs()
+            row = {"phase": "attention", "block": block, "batch": batch, "dtype": "bfloat16",
+                   "max_abs_err": err.max().item(),
+                   "ok": bool(torch.all(err <= BF16_ROUNDING * want.abs() + PAGED_TOL))}
+            if not row["ok"]:
+                emit(row)
+                raise AssertionError(f"{what} bf16: not within one bf16 rounding")
+
+            def call16():
+                return bwma_attention(q16, k16, v16, scale=scale, s_logical=S)
+
+            qkv16 = [t.to(torch.bfloat16) for t in (q_rw, k_rw, v_rw)]
+
+            def library16():
+                return F.scaled_dot_product_attention(*qkv16, scale=scale)
+
+            row.update(ms=time_ms(call16), call_device_ms=call_device_ms(call16),
+                       library_ms=time_ms(library16),
+                       **device_and_host("bwma_attention", call16, library16))
+            emit(row)
+            del q, k, v, q_rw, k_rw, v_rw, q16, k16, v16, qkv16, got, want, err
+    torch.cuda.empty_cache()
+    return rows
+
+
+def layernorm_phase(torch, gen) -> dict:
+    """bwma_layernorm at BERT-base shapes (rows of d_model 768), blocks 16
+    and 128, batches 4 and 1, with x and gamma/beta in fp32, x in bf16 with
+    fp32 gamma/beta, and all in bf16: held against its plain version (fp32
+    within 2e-5 of the plain's magnitude, bf16 within one bf16 rounding),
+    timed by CUDA events and by the profiler's device time per launch, with
+    the wrapper's host µs per call, F.layer_norm on the unblocked rows in the
+    same types as the yardstick, the bytes bound and the plan.  Returns the
+    rows by (block, batch, x dtype, gamma/beta dtype)."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.blockwise import block_vector
+    from repro_torch.core.layout import BlockLayout, to_blockwise
+    from repro_torch.kernels.bwma_layernorm import bwma_layernorm, layernorm_plain, layernorm_plan
+
+    S, d = 512, 768
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows = {}
+    for block in (16, 128):
+        lo = BlockLayout(block, block)
+        for batch in (4, 1):
+            x_rw = torch.randn(batch, S, d, generator=gen, device=gen.device).to("cuda")
+            g_rw = (1.0 + 0.1 * torch.randn(d, generator=gen, device=gen.device)).to("cuda")
+            b_rw = (0.1 * torch.randn(d, generator=gen, device=gen.device)).to("cuda")
+            for x_dtype, p_dtype in ((f32, f32), (bf16, f32), (bf16, bf16)):
+                xr, gr, br = x_rw.to(x_dtype), g_rw.to(p_dtype), b_rw.to(p_dtype)
+                x = to_blockwise(xr, lo).contiguous()
+                g, b = block_vector(gr, lo), block_vector(br, lo)
+                names = [str(t).split(".")[-1] for t in (x_dtype, p_dtype)]
+                what = f"bwma_layernorm block {block} batch {batch} {'/'.join(names)}"
+                row = {"phase": "layernorm", "block": block, "batch": batch,
+                       "dtype": names[0], "param_dtype": names[1]}
+
+                def gate(got, want, label):
+                    got, want = got.float(), want.float()
+                    err = (got - want).abs()
+                    row[label] = err.max().item()
+                    ok = (row[label] <= KERNEL_RTOL * want.abs().max().item()
+                          if x_dtype == f32 else
+                          bool(torch.all(err <= BF16_ROUNDING * want.abs() + PAGED_TOL)))
+                    if not (ok and torch.isfinite(want).all()):
+                        emit(row)
+                        raise AssertionError(f"{what} ({label}): max err {row[label]}")
+
+                def call():
+                    return bwma_layernorm(x, g, b, d)
+
+                got = call()
+                want = layernorm_plain(x, g, b, d)
+                torch.cuda.synchronize()
+                if got.dtype != x_dtype:
+                    raise AssertionError(f"{what}: result {got.dtype}")
+                gate(got, want, "max_abs_err")
+                per_lane, looped = layernorm_plan(d, x_dtype)
+                b_ms, kind = bound_ms(nbytes(x, g, b, got), 8.0 * x.numel())
+                row.update(plan={"vectors_per_lane": per_lane, "looped": looped},
+                           ms=time_ms(call), plain_ms=time_ms(lambda: layernorm_plain(
+                               x, g, b, d), samples=5, inner=2),
+                           library_ms=time_ms(lambda: F.layer_norm(xr, (d,), gr, br, 1e-5))
+                           if p_dtype == x_dtype else None,
+                           bound_ms=b_ms, bound_by=kind,
+                           **device_and_host("bwma_layernorm", call, (lambda: F.layer_norm(
+                               xr, (d,), gr, br, 1e-5)) if p_dtype == x_dtype else None))
+                row["work"] = (f"BERT-base LayerNorm, {batch} x {S} rows of {d}, block "
+                               f"{block}, x {names[0]}, gamma/beta {names[1]}")
+                emit(row)
+                rows[(block, batch) + tuple(names)] = row
+                del x, g, b, xr, gr, br, got, want
+            del x_rw, g_rw, b_rw
     torch.cuda.empty_cache()
     return rows
 
@@ -646,7 +830,7 @@ def serving_kernel_phase(torch, gen):
     for block in (16, 128):
         lo = BlockLayout(block, block)
         tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-               "bwma_ms": 0.0}
+               "bwma_ms": 0.0, "device_ms": 0.0, "host_us": 0.0, "library_device_ms": 0.0}
         worst = bytes_ms = ops_ms = 0.0
         tiles = {}  # equal tiling: the blocked GEMM's plan for the same blocks
         for name, (k, n) in products.items():
@@ -669,6 +853,10 @@ def serving_kernel_phase(torch, gen):
             tot["library_ms"] += time_ms(lambda: torch.matmul(a, w))
             tot["bwma_ms"] += time_ms(lambda: bwma_gemm(ab, wb))
             tot["bound_ms"] += b
+            for key, t in device_and_host("rwma_gemm",
+                                          lambda: rwma_gemm(a, w, bm=block, bk=block, bn=block),
+                                          lambda: torch.matmul(a, w)).items():
+                tot[key] += t
             tiles[name] = list(rwma_route(M, k, n, block, block)[1])
             del a, w, got, want, ab, wb
         row = {"phase": "serving_kernels", "kernel": "rwma_gemm", "block": block,
@@ -773,7 +961,9 @@ def serving_kernel_phase(torch, gen):
                "plain_ms": time_ms(lambda: decode_plain(*args)),
                "library_ms": time_ms(library), "bound_ms": b, "bound_by": kind,
                "work": f"one layer's decode, B={B} H={H} Hkv={hkv} dh={dh} page={page} "
-                       f"seq_pos={seq} ({str(dtype).split('.')[-1]} pools)"}
+                       f"seq_pos={seq} ({str(dtype).split('.')[-1]} pools)",
+               **device_and_host("paged_attention_decode",
+                                 lambda: paged_attention_decode(*args), library)}
         emit(row)
         out.setdefault("paged_attention_decode", row)
         del q, kp, vp, kg, vg
@@ -797,7 +987,9 @@ def serving_kernel_phase(torch, gen):
                "library_ms": time_ms(lambda: pool[:, 9].copy_(pool[:, 5])),
                "bound_ms": b, "bound_by": kind,
                "work": f"one pool of one COW event: 32 layers x one {page}-token page "
-                       f"({str(dtype).split('.')[-1]})"}
+                       f"({str(dtype).split('.')[-1]})",
+               **device_and_host("paged_copy", lambda: paged_copy(pool, 5, 9),
+                                 lambda: pool[:, 9].copy_(pool[:, 5]))}
         emit(row)
         out.setdefault("paged_copy", row)
         del pool, want
@@ -1097,7 +1289,10 @@ def mla_kernel_phase(torch, gen):
                "plain_ms": time_ms(lambda: mla_decode_plain(*args, scale=scale)),
                "library_ms": time_ms(library), "bound_ms": b_ms, "bound_by": kind,
                "work": f"one layer's decode, B={B} H={H} r={r} dr={dr} page={page} "
-                       f"seq_pos={seq} ({name} pools)"}
+                       f"seq_pos={seq} ({name} pools)",
+               **device_and_host("mla_paged_attention_decode",
+                                 lambda: mla_paged_attention_decode(*args, scale=scale),
+                                 library)}
         emit(row)
         out.setdefault("mla_paged_attention_decode", row)
         del q_lat, q_rope, ckv, krope, cg, kg, qs
@@ -1132,7 +1327,10 @@ def mla_kernel_phase(torch, gen):
                                library_ms=time_ms(lambda: torch.softmax(scores, -1)),
                                bound_ms=b_ms, bound_by=kind,
                                work=f"BERT-base scores, 4 x 12 heads of {S} x {S}, "
-                                    f"block {block}, fp32")
+                                    f"block {block}, fp32",
+                               **device_and_host("bwma_softmax",
+                                                 lambda: bwma_softmax(x, n_logical),
+                                                 lambda: torch.softmax(scores, -1)))
                     if block == 16:
                         out["bwma_softmax"] = row
                 emit(row)
@@ -1159,7 +1357,9 @@ def mla_kernel_phase(torch, gen):
                            plain_ms=time_ms(lambda: transpose_plain(x)),
                            library_ms=time_ms(lambda: k_rw.transpose(-1, -2).contiguous()),
                            bound_ms=b_ms, bound_by=kind,
-                           work=f"BERT-base K, 4 x 12 heads of {S} x 64, block {block}, fp32")
+                           work=f"BERT-base K, 4 x 12 heads of {S} x 64, block {block}, fp32",
+                           **device_and_host("bwma_transpose", lambda: bwma_transpose(x),
+                                             lambda: k_rw.transpose(-1, -2).contiguous()))
                 if block == 16:
                     out["bwma_transpose"] = row
             emit(row)
@@ -1273,10 +1473,12 @@ def main() -> int:
           "library": str(lib_path.relative_to(ROOT)) if lib_path.is_relative_to(ROOT)
           else str(lib_path)})
 
-    # 3. kernels against their plain versions
     gen = torch.Generator(device="cpu").manual_seed(0)
+
+    # 3. kernels against their plain versions
     summary = kernel_phase(torch, gen)
     attention_phase(torch, gen)
+    layernorm_phase(torch, gen)
     emit({"phase": "kernels", "names": list(LAUNCHES_PER_FORWARD),
           "launches_during_checks": kernels.launch_counts()})
 
@@ -1318,7 +1520,10 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in summary[kernel].values()),
             "ms": per["ms"], "plain_ms": per["plain_ms"], "bound_ms": per["bound_ms"],
             "bound_by": per["bound_by"], "library_ms": per["library_ms"],
+            "device_ms": per["device_ms"], "host_us": per["host_us"],
+            "library_device_ms": per["library_device_ms"],
             "work": "one encoder layer's launches, BERT-base block 16, batch 4",
+            "block_128": summary[kernel]["bert-base block 128"]["per_layer"],
         })
         if not all(math.isfinite(per[k]) for k in ("ms", "plain_ms", "bound_ms")):
             raise AssertionError(f"{kernel}: timing not finite")
@@ -1329,7 +1534,9 @@ def main() -> int:
             "replaces": REPLACES[kernel], "launches": counted[kernel],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"], "work": row["work"],
+            "library_ms": row["library_ms"], "device_ms": row["device_ms"],
+            "host_us": row["host_us"], "library_device_ms": row["library_device_ms"],
+            "work": row["work"],
         })
         if not all(math.isfinite(row[k]) for k in ("ms", "plain_ms", "bound_ms")):
             raise AssertionError(f"{kernel}: timing not finite")

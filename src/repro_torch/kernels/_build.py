@@ -42,8 +42,9 @@ _SIGNATURES = {
     "bwma_gemm_f32": ([_P, _P, _P] + [_I] * 2 + [_L] * 4 + [_I] * 8 + [_P], _I),
     # a, b, bias, out, then as bwma_gemm_f32
     "bwma_fused_ffn_f32": ([_P] * 4 + [_I] * 2 + [_L] * 4 + [_I] * 8 + [_P], _I),
-    # x, gamma, beta, out, lead0, lead1, x_s0, x_s1, gm, gn, bm, bn, n_logical, eps, stream
-    "bwma_layernorm_f32": ([_P] * 4 + [_I] * 2 + [_L] * 2 + [_I] * 5 + [_F, _P], _I),
+    # x, gamma, beta, out, x_bf16, gamma_bf16, beta_bf16, lead0, lead1, x_s0, x_s1, gm, gn,
+    # bm, bn, n_logical, eps, vectors_per_lane, stream
+    "bwma_layernorm": ([_P] * 4 + [_I] * 5 + [_L] * 2 + [_I] * 5 + [_F, _I, _P], _I),
     # q, k, v, out, lead0, lead1, 6 strides, gs, gd, bm, bd, padded width, bq, bkv,
     # s_logical, scale, stream
     "bwma_attention_f32": ([_P] * 4 + [_I] * 2 + [_L] * 6 + [_I] * 8 + [_F, _P], _I),
@@ -176,8 +177,9 @@ def on_cuda(kernel: str, *tensors: torch.Tensor) -> bool:
                      f"on the CPU, got {sorted(map(str, devices))}")
 
 
-GEMM_DTYPES = (torch.float32, torch.bfloat16)  # bf16 is widened on the device
-_DTYPE_NAMES = {torch.float32: "fp32", torch.bfloat16: "bf16"}
+# the types the GEMM, LayerNorm and attention wrappers take: the LayerNorm
+# kernel reads bf16 itself, the GEMMs and the attention widen it on the device
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def as_fp32(*tensors: Optional[torch.Tensor]) -> List[Optional[torch.Tensor]]:
@@ -186,14 +188,11 @@ def as_fp32(*tensors: Optional[torch.Tensor]) -> List[Optional[torch.Tensor]]:
     return [t if t is None or t.dtype == torch.float32 else t.float() for t in tensors]
 
 
-def check_operands(kernel: str, *tensors: torch.Tensor,
-                   dtypes: Sequence[torch.dtype] = (torch.float32,)) -> None:
-    """The kernels take contiguous tensors of ``dtypes``; raise on anything else."""
+def check_operands(kernel: str, *tensors: torch.Tensor) -> None:
+    """The kernels take contiguous fp32 or bf16 tensors; raise on anything else."""
     for t in tensors:
-        if t.dtype not in dtypes:
-            names = " or ".join(_DTYPE_NAMES[d] for d in dtypes)
-            raise TypeError(f"{kernel}: the kernels take {names}"
-                            f"{' only' if len(dtypes) == 1 else ''}, got {t.dtype}")
+        if t.dtype not in KERNEL_DTYPES:
+            raise TypeError(f"{kernel}: the kernels take fp32 or bf16, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: operand of shape {tuple(t.shape)} is not contiguous")
 

@@ -49,7 +49,10 @@ def lead_grid(args: Sequence[torch.Tensor], core_ndims: Sequence[int]) -> LeadGr
     if len(args) != len(core_ndims):
         raise ValueError(f"{len(args)} args vs {len(core_ndims)} core ranks")
     leads = [tuple(a.shape[: a.dim() - c]) for a, c in zip(args, core_ndims)]
-    lead = tuple(torch.broadcast_shapes(*leads))
+    # equal lead shapes (one operand, or q/k/v of one attention) broadcast to
+    # themselves; torch.broadcast_shapes costs tens of µs of the launch path
+    lead = leads[0] if leads.count(leads[0]) == len(leads) else tuple(
+        torch.broadcast_shapes(*leads))
     n = len(lead)
     if n > MAX_LEAD_DIMS:
         raise ValueError(

@@ -57,7 +57,9 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Plain PyTorch version of the kernel: per query block-row, walk the key
     blocks with an online softmax (running max and sum per row), masked keys
     filled with ``finfo(float32).min`` and given weight exactly 0, then
-    ``o / max(l, 1e-30)``.  ``q, k, v``: ``(..., gs, gd, bm, bd)``."""
+    ``o / max(l, 1e-30)``, in fp32, rounded once to ``q.dtype``.  ``q, k,
+    v``: ``(..., gs, gd, bm, bd)``."""
+    dtype = q.dtype
     q, k, v = q.float(), k.float(), v.float()
     gs, bm = q.shape[-4], q.shape[-2]
     neg = torch.finfo(torch.float32).min
@@ -79,7 +81,7 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         pv = torch.einsum("...ac,...dcb->...dab", p.squeeze(-3), vj)
         o = pv if o is None else o * alpha + pv
         m = m_new
-    return o / torch.clamp(l, min=1e-30)
+    return (o / torch.clamp(l, min=1e-30)).to(dtype)
 
 
 def _check(q, k, v, s_logical):
@@ -102,9 +104,15 @@ def _check(q, k, v, s_logical):
 def launch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
                      s_logical: int) -> torch.Tensor:
     """Launch ``csrc/bwma_attention.cu`` on CUDA tensors with the CTA tile
-    (BQ, BKV) of :func:`attention_plan`; returns the fp32 output.  Does not
-    synchronise."""
+    (BQ, BKV) of :func:`attention_plan`; returns the output in ``q.dtype``.
+    Does not synchronise.
+
+    bf16 operands are widened to fp32 on the device first and run the fp32
+    kernel, whose result is rounded once to bf16: what the JAX kernel
+    computes, at the cost of the copies."""
     (gs, gd, bm, bd), grid = _check(q, k, v, s_logical)
+    dtype = q.dtype
+    q, k, v = _build.as_fp32(q, k, v)
     dp = padded_width(gd * bd)
     bq, bkv = ATTN_TILES[dp]
     lib = _build.library()
@@ -121,7 +129,7 @@ def launch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale
             pq, pk, pv, po, *grid.dims, q0, q1, k0, k1, v0, v1,
             gs, gd, bm, bd, dp, bq, bkv, s_logical, float(scale), _build.stream(q.device))
     _build.check(code, "bwma_attention")
-    return out
+    return out if dtype == torch.float32 else out.to(dtype)
 
 
 def bwma_attention(q, k, v, *, scale: float, s_logical: int | None = None):
@@ -129,8 +137,9 @@ def bwma_attention(q, k, v, *, scale: float, s_logical: int | None = None):
 
     q/k/v: ``(..., gs, gd, b, b)`` blocked matrices of logical shape
     ``(seq, d_head)`` -- raw tensors (``s_logical`` required) or
-    :class:`Blocked` wrappers.  Leading dims (batch, heads) broadcast.  CUDA
-    tensors launch the kernel; CPU tensors take :func:`attention_plain`.
+    :class:`Blocked` wrappers.  Leading dims (batch, heads) broadcast.  q/k/v
+    are fp32 or bf16; the result has q's type.  CUDA tensors launch the
+    kernel; CPU tensors take :func:`attention_plain`.
     """
     wrapped = isinstance(q, Blocked)
     if wrapped != isinstance(k, Blocked) or wrapped != isinstance(v, Blocked):

@@ -77,7 +77,7 @@ def check_gemm(kernel: str, a: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"{kernel}: inner blocks mismatch: "
                          f"{tuple(a.shape)} @ {tuple(b.shape)}")
     operands = (a, b) if bias is None else (a, b, bias)
-    _build.check_operands(kernel, *operands, dtypes=_build.GEMM_DTYPES)
+    _build.check_operands(kernel, *operands)
     _build.check_block(kernel, bm, bn, bk)
     if bias is not None and tuple(bias.shape) != (gn, bn):
         raise ValueError(f"{kernel}: bias must be blocked ({gn}, {bn}), "

@@ -35,7 +35,7 @@ def check_rwma(a: torch.Tensor, b: torch.Tensor, bm: int, bk: int, bn: int):
         raise ValueError(f"rwma_gemm: tiles must be positive, got {(bm, bk, bn)}")
     if M % bm or K % bk or N % bn:
         raise ValueError(f"shapes {tuple(a.shape)}x{tuple(b.shape)} not divisible by blocks")
-    _build.check_operands("rwma_gemm", a, b, dtypes=_build.GEMM_DTYPES)
+    _build.check_operands("rwma_gemm", a, b)
     if M // bm > 65535:
         raise ValueError(f"rwma_gemm: grid too large (M // bm = {M // bm})")
     return M // bm, N // bn, K // bk

@@ -19,7 +19,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.batching import lead_grid
 from repro_torch.kernels.bwma_attention import ATTN_TILES, attention_plain, launch_attention
 from repro_torch.kernels.bwma_gemm import CTA_TILES, gemm_plain, launch_gemm
-from repro_torch.kernels.bwma_layernorm import layernorm_plain
+from repro_torch.kernels.bwma_layernorm import layernorm_plain, layernorm_plan
 from repro_torch.kernels.bwma_softmax import softmax_plain
 from repro_torch.kernels.bwma_transpose import transpose_plain
 from repro_torch.kernels.paged_attention import copy_plain, decode_plain, mla_decode_plain
@@ -281,6 +281,92 @@ def test_cuda_layernorm_matches_plain(cuda_card, block):
     torch.testing.assert_close(tk.bwma_layernorm(x, gamma, beta, n),
                                layernorm_plain(x, gamma, beta, n), **TOL)
     assert tk.launch_counts()["bwma_layernorm"] == 1
+
+
+BF16_ROUNDING = 2.0 ** -7
+
+
+def _within_one_bf16_rounding(got, want):
+    """Kernel and plain version both compute in fp32 and round once to bf16,
+    so they may differ by one rounding of the result: 2^-7 of its magnitude
+    (plus 1e-6 for the fp32 sums' own order)."""
+    assert got.dtype == want.dtype == torch.bfloat16
+    err = (got.float() - want.float()).abs()
+    assert torch.all(err <= BF16_ROUNDING * want.float().abs() + 1e-6), err.max().item()
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype,param_dtype", [(F32, F32), (BF16, F32), (BF16, BF16),
+                                                 (F32, BF16)])
+@pytest.mark.parametrize("block", [8, 16, 32, 64, 128])
+def test_cuda_layernorm_types_match_plain(cuda_card, block, x_dtype, param_dtype):
+    """x and gamma/beta each fp32 or bf16, at every block, a ragged width
+    and broadcast leads (batch x heads, and a head axis of 1): fp32 within
+    2e-5, bf16 within one bf16 rounding, one launch per call."""
+    gamma, beta = (_t(_rand(s, 3, block)).to(cuda_card, param_dtype) for s in (6, 7))
+    n = 3 * block - 5
+    for seed, lead in ((5, (2, 3)), (6, (3, 1))):
+        x = _t(_rand(seed, *lead, 2, 3, block, block, scale=3.0)).to(cuda_card, x_dtype)
+        got = tk.bwma_layernorm(x, gamma, beta, n)
+        want = layernorm_plain(x, gamma, beta, n)
+        assert got.dtype == x_dtype
+        if x_dtype == F32:
+            torch.testing.assert_close(got, want, **TOL)
+        else:
+            _within_one_bf16_rounding(got, want)
+    assert tk.launch_counts()["bwma_layernorm"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,width", [(F32, 2048), (F32, 4096), (BF16, 4096), (BF16, 8192),
+                                         (F32, 768), (BF16, 768)])
+def test_cuda_layernorm_wide_rows_match_plain(cuda_card, dtype, width):
+    """The widest rows of the register path (2048 fp32, 4096 bf16) and rows
+    twice as wide, which take the looped path, beside BERT-base's 768."""
+    block = 128
+    gn = width // block
+    x = _t(_rand(11, 2, 2, gn, block, block, scale=2.0)).to(cuda_card, dtype)
+    gamma, beta = (_t(_rand(s, gn, block)).to(cuda_card) for s in (12, 13))
+    n = width - 37
+    _, looped = layernorm_plan(width, dtype)
+    assert looped == (width > 16 * 32 * 16 // x.element_size())
+    got = tk.bwma_layernorm(x, gamma, beta, n)
+    want = layernorm_plain(x, gamma, beta, n)
+    if dtype == F32:
+        torch.testing.assert_close(got, want, **TOL)
+    else:
+        _within_one_bf16_rounding(got, want)
+    assert tk.launch_counts()["bwma_layernorm"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq,lkv,gs,gd,block,s_logical",
+                         ATTN_CASES[:4] + [((2,), (2,), 4, 1, 128, 500)])
+def test_cuda_attention_bf16_matches_plain(cuda_card, lq, lkv, gs, gd, block, s_logical):
+    q = _t(_rand(8, *lq, gs, gd, block, block)).to(cuda_card, BF16)
+    k = _t(_rand(9, *lkv, gs, gd, block, block)).to(cuda_card, BF16)
+    v = _t(_rand(10, *lkv, gs, gd, block, block)).to(cuda_card, BF16)
+    got = tk.bwma_attention(q, k, v, scale=0.3, s_logical=s_logical)
+    want = attention_plain(q, k, v, scale=0.3, s_logical=s_logical)
+    rows = torch.arange(gs * block, device=cuda_card).reshape(gs, 1, block, 1) < s_logical
+    _within_one_bf16_rounding(torch.where(rows, got, 0.0), torch.where(rows, want, 0.0))
+    assert tk.launch_counts()["bwma_attention"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", [torch.float64, torch.float16])
+def test_cuda_layernorm_and_attention_refuse_other_types(cuda_card, bad):
+    """No fallback on the card: another type raises before any launch."""
+    x = torch.zeros(2, 2, 16, 16, device=cuda_card, dtype=bad)
+    g = torch.ones(2, 16, device=cuda_card)
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        tk.bwma_layernorm(x, g, g, 32)
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        tk.bwma_attention(x, x, x, scale=1.0, s_logical=32)
+    assert tk.launch_counts() == dict.fromkeys(tk.launch_counts(), 0)
 
 
 @pytest.mark.cuda
