@@ -42,7 +42,10 @@ Phases, each printing one JSON line:
    tile sweep as in phase 3, and at tile 9 over 45 columns (the
    general-tile route), paged_attention_decode at starcoder2-7b decode shapes (fp32 and bf16
    pools, ragged positions, a scattered page table with unmapped entries on
-   the null page) and paged_copy (bit-exact), each against its plain
+   the null page; each slot's output also bit-identical alone, behind
+   null-page columns and run to run; the row gives the split's keys and its
+   working CTAs, and its device time is the split and combine kernels'
+   together) and paged_copy (bit-exact), each against its plain
    version, timed beside its bound and one library call.  Then ``dense`` in
    bf16 on the bwma and rwma routes at a starcoder2-7b product, against the
    xla route at 2e-2 (one launch each, a bf16 result).
@@ -206,10 +209,18 @@ def host_us(fn, calls: int = 50, repeats: int = 10) -> float:
     return min(times)
 
 
+# Kernels a wrapper launches after its first one in the same call (the
+# paged decode's combine pass): their time adds to the wrapper's kernel, but
+# they are not a launch of their own.
+FOLLOW_UP_KERNELS = ("paged_decode_combine_kernel",)
+
+
 def device_profile(fn, calls: int = 20, want: str = "all") -> dict:
     """``calls`` calls of ``fn`` under torch.profiler, after a warm-up:
-    ``{key: (device ms, events)}`` with the port's kernels by name
-    (:func:`kernel_of`) and ``"all"`` for every device event.  A session
+    ``{key: (device ms, launches)}`` with the port's kernels by name
+    (:func:`kernel_of`; a follow-up kernel's time counts, its event is not a
+    launch), ``"follow-up"`` for the follow-up kernels alone and ``"all"``
+    for every device event.  A session
     that records no ``want`` event is run again, up to three sessions: the
     profiler sometimes returns one without the device events of work that
     ran."""
@@ -228,20 +239,13 @@ def device_profile(fn, calls: int = 20, want: str = "all") -> dict:
             if evt.device_type != torch.autograd.DeviceType.CUDA:
                 continue
             ms = (evt.time_range.end - evt.time_range.start) / 1e3
-            for key in (kernel_of(evt.name), "all"):
+            launch = not any(k in evt.name for k in FOLLOW_UP_KERNELS)
+            for key in (kernel_of(evt.name), "all") + (() if launch else ("follow-up",)):
                 t, n = by.get(key, (0.0, 0))
-                by[key] = (t + ms, n + 1)
+                by[key] = (t + ms, n + launch)
         if want in by:
             return by
     raise AssertionError(f"the profiler recorded no {want} event in three sessions")
-
-
-def kernel_device_ms(fn, kernel: str) -> float:
-    """The device time of one launch of the port's ``kernel`` inside ``fn``,
-    from the profiler: the kernel's own duration, without the host's time
-    between launches that the CUDA-event times of a short kernel include."""
-    t, n = device_profile(fn, want=kernel)[kernel]
-    return t / n
 
 
 def call_device_ms(fn, calls: int = 20) -> float:
@@ -250,10 +254,19 @@ def call_device_ms(fn, calls: int = 20) -> float:
 
 
 def device_and_host(kernel: str, call, library=None) -> dict:
-    """A kernel row's device ms per launch, its wrapper's host µs per call
-    and the library call's device ms per call (None without one)."""
-    return {"device_ms": kernel_device_ms(call, kernel), "host_us": host_us(call),
-            "library_device_ms": None if library is None else call_device_ms(library)}
+    """A kernel row's device ms per launch of the port's ``kernel`` inside
+    ``call``, from the profiler: the kernel's own duration (with its
+    follow-up kernels', also given alone where it has any), without the
+    host's time between launches that the CUDA-event times of a short
+    kernel include; its wrapper's host µs per call; and the library call's
+    device ms per call (None without one)."""
+    by = device_profile(call, want=kernel)
+    t, n = by[kernel]
+    row = {"device_ms": t / n, "host_us": host_us(call),
+           "library_device_ms": None if library is None else call_device_ms(library)}
+    if "follow-up" in by:
+        row["follow_up_device_ms"] = by["follow-up"][0] / n
+    return row
 
 
 def nbytes(*tensors) -> int:
@@ -692,6 +705,7 @@ def kernel_of(name: str) -> str:
                          ("bwma_layernorm", "bwma_layernorm_kernel"),
                          ("bwma_attention", "bwma_attention_kernel"),
                          ("paged_attention_decode", "paged_decode_kernel"),
+                         ("paged_attention_decode", "paged_decode_combine_kernel"),
                          ("paged_copy", "paged_copy_kernel"),
                          ("mla_paged_attention_decode", "mla_decode_kernel"),
                          ("bwma_softmax", "bwma_softmax_kernel"),
@@ -815,6 +829,7 @@ def serving_kernel_phase(torch, gen):
     from repro_torch.kernels.paged_attention import (
         copy_plain,
         decode_plain,
+        decode_plan,
         paged_attention_decode,
         paged_copy,
     )
@@ -941,6 +956,20 @@ def serving_kernel_phase(torch, gen):
             torch.all((got - want).abs() <= BF16_ROUNDING * want.abs() + PAGED_TOL))
         if not ok:
             raise AssertionError(f"paged_attention_decode {dtype}: max err {err}")
+        # batch invariance (each slot alone, and behind maxp doubled by
+        # null-page columns) and run-to-run bit identity
+        full = paged_attention_decode(*args)
+        wide = paged_attention_decode(q, kp, vp, torch.cat([table_t, torch.zeros_like(table_t)],
+                                                           1), seq_t)
+        for b in range(B):
+            alone = paged_attention_decode(q[b:b + 1], kp, vp, table_t[b:b + 1], seq_t[b:b + 1])
+            if not (torch.equal(alone[0], full[b]) and torch.equal(wide[b], full[b])):
+                raise AssertionError(f"paged_attention_decode {dtype}: slot {b} is not "
+                                     "batch invariant")
+        if not torch.equal(paged_attention_decode(*args), full):
+            raise AssertionError(f"paged_attention_decode {dtype}: not bit-identical run to run")
+        split_keys, splits = decode_plan(page, maxp)
+        ctas = sum(-(-(p + 1) // split_keys) for p in seq) * hkv  # G = 9: one CTA per kv head
         # the library yardstick: SDPA over the keys gathered per slot
         kg = kp[table_t.long()].reshape(B, maxp * page, hkv, dh).transpose(1, 2)
         vg = vp[table_t.long()].reshape(B, maxp * page, hkv, dh).transpose(1, 2)
@@ -960,13 +989,15 @@ def serving_kernel_phase(torch, gen):
                "ms": time_ms(lambda: paged_attention_decode(*args)),
                "plain_ms": time_ms(lambda: decode_plain(*args)),
                "library_ms": time_ms(library), "bound_ms": b, "bound_by": kind,
+               "split_keys": split_keys, "ctas": ctas, "grid": [B, hkv, splits],
+               "batch_invariant": True, "bit_identical_run_to_run": True,
                "work": f"one layer's decode, B={B} H={H} Hkv={hkv} dh={dh} page={page} "
                        f"seq_pos={seq} ({str(dtype).split('.')[-1]} pools)",
                **device_and_host("paged_attention_decode",
                                  lambda: paged_attention_decode(*args), library)}
         emit(row)
         out.setdefault("paged_attention_decode", row)
-        del q, kp, vp, kg, vg
+        del q, kp, vp, kg, vg, full, wide
     # -- paged_copy: one COW event's copy of one pool, all 32 layers
     for dtype in (torch.float32, torch.bfloat16):
         pool = torch.randn(32, num_pages, page, hkv, dh, generator=gen,

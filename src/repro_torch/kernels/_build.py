@@ -54,9 +54,10 @@ _SIGNATURES = {
     "rwma_gemm_f32": ([_P] * 3 + [_I] * 5 + [_P], _I),
     # a, b, out, gm, gn, gk, bm, bn, bk, stream
     "rwma_any_tile_f32": ([_P] * 3 + [_I] * 6 + [_P], _I),
-    # q, k_pages, v_pages, table, seq_pos, out, B, H, hkv, dh, page, maxp, scale, stream
-    "paged_attention_decode_f32": ([_P] * 6 + [_I] * 6 + [_F, _P], _I),
-    "paged_attention_decode_bf16": ([_P] * 6 + [_I] * 6 + [_F, _P], _I),
+    # q, k_pages, v_pages, table, seq_pos, out, workspace, B, H, hkv, dh, page, maxp,
+    # splits, scale, stream
+    "paged_attention_decode_f32": ([_P] * 7 + [_I] * 7 + [_F, _P], _I),
+    "paged_attention_decode_bf16": ([_P] * 7 + [_I] * 7 + [_F, _P], _I),
     # q_lat, q_rope, ckv_pages, krope_pages, table, seq_pos, out, B, H, r, dr, page,
     # maxp, scale, stream
     "mla_paged_attention_decode_f32": ([_P] * 7 + [_I] * 6 + [_F, _P], _I),

@@ -17,26 +17,39 @@
 //
 // What bounds it on this card: every key and value it reads is used by the
 // G = H / Hkv query heads of its group once each -- 2 G multiply-adds per
-// element loaded -- so it is bound by the bytes of the slot's K/V history
-// (3.35 TB/s HBM3 on an H100 SXM), not by operations.
+// element loaded, 9 flop per bf16 byte at G = 9 against the card's ~20 fp32
+// flop per HBM byte -- so it is bound by the bytes of the slot's K/V history
+// (3.35 TB/s HBM3 on an H100 SXM), and the card must keep enough of them in
+// flight.
 //
 // Design.  The TPU grid (B, maxp) walks a slot's pages in order and carries
 // the online-softmax state in VMEM scratch from one grid step to the next.
-// Hopper runs blocks in no order, so one CTA owns one (slot, kv head) and
-// walks the slot's page-table row in a loop, reading table[b, j] itself
-// (there is no scalar prefetch), with the running max, denominator and
-// weighted-value accumulator of its G query heads in shared memory.  Each
-// page is consumed in tiles of kTileKeys keys: a K/V tile is loaded once,
-// converted to fp32, and serves all G query heads of the group (at G = 9
-// the tile is read once instead of nine times).  The walk stops at the
-// page holding seq_pos[b]; keys past seq_pos are never read.  That is exact
-// against the TPU kernel, which masks them with finfo(float32).min: a
-// masked key adds exp(min - m) = 0 to every sum, and key 0 is always valid,
-// so the running max is a real score from the first tile on.  K rows are
-// padded by one float in shared memory so that threads scoring different
-// keys read different banks.  No tensor cores, one CTA per (slot, kv head),
-// no split over the keys: simple first.
-//
+// Hopper runs blocks in no order, on 132 SMs, so the history is split:
+// - paged_decode_kernel, grid (B, Hkv x head chunks, splits): a CTA owns the
+//   kSplitKeys keys [z kSplitKeys, (z + 1) kSplitKeys) of one slot and the
+//   query heads (at most kHeadsPerCta) of one kv head.  The partition is
+//   fixed in keys, not derived from B, maxp or the SM count, so a slot's
+//   output depends only on its own q, keys and seq_pos; the grid's splits
+//   past a slot's last key return at once.  The split's keys stream in
+//   tiles of kTileKeys through a two-stage cp.async ring (16-byte copies
+//   where dh and the pools' addresses allow, else 8 or 4, else plain 2-byte
+//   copies), each key's page looked up once in the slot's table row.  Warp
+//   w of 8 owns the heads w and w + 8 (two warps per scheduler, so one
+//   hides the other's latency): lane t scores key t of the tile against
+//   them (q in shared memory as fp32, zero-padded like the rows), the warp
+//   updates each head's running max and denominator with shuffles, and the
+//   fp32 probabilities go through shared memory to P @ V, where lane l
+//   holds the columns 2l, 2l + 1 (+ 64 j) of the warp's heads in registers.
+//   The CTA writes its partial -- running max m, denominator l and
+//   unnormalised accumulator, all fp32 -- to a workspace.
+// - paged_decode_combine_kernel, grid (B, H): merges a head's partials in
+//   ascending split order with the online softmax's rescale (m = max m_i,
+//   l = sum l_i e^(m_i - m), acc likewise), divides and rounds once.  One
+//   split is exact: e^0 = 1.
+// Keys past seq_pos are never read, which is exact against the TPU kernel's
+// finfo(float32).min mask: a masked key adds exp(min - m) = 0 to every sum.
+// No tensor cores: P stays fp32 for P @ V, as in the TPU kernel.  No atomics.
+
 // mla_paged_attention_decode (DeepSeek-V3's absorbed-matmul MLA read):
 //   o_lat[b, 0, h] = softmax_k(scale * (q_lat[b, 0, h] . c_kv[b, k] +
 //                                       q_rope[b, 0, h] . k_rope[b, k])) @ c_kv[b, k]
@@ -61,8 +74,8 @@
 // heads in VMEM; at DeepSeek-V3 width that is 256 KB, more than a block's
 // 227 KB of shared memory, and one fp32 page of 128 latents is 288 KB.  So
 // one CTA owns one (slot, group of kMlaHeads query heads) and walks the
-// slot's page-table row as the GQA kernel does, stopping at the page that
-// holds seq_pos (exact for the same reason), and streams each page in tiles
+// slot's whole page-table row, stopping at the page that holds seq_pos
+// (exact for the same reason as the GQA decode), and streams each page in tiles
 // of kMlaKeys keys.  A tile of latent + rope rows is loaded once into shared
 // memory (fp32, odd row stride) and serves the group's heads: in the score
 // phase lane t scores key t and warp w sums the dimensions d = w (mod 8), for
@@ -87,9 +100,19 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kTileKeys = 32;
-constexpr float kMask = -FLT_MAX;  // finfo(float32).min, the TPU kernel's fill
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kTileKeys = 32;       // keys per stage of the ring: one per lane when scoring
+constexpr int kStages = 2;          // depth of the cp.async ring
+constexpr int kSplitKeys = 128;     // keys per CTA: the fixed partition of a slot's history
+constexpr int kHeadsPerWarp = 2;    // query heads a warp owns: head w + kWarps j
+constexpr int kHeadsPerCta = kWarps * kHeadsPerWarp;
+constexpr int kMaxDimChunks = 4;    // dh <= 64 kMaxDimChunks: lane l holds 2l, 2l+1 (+ 64 j)
+constexpr float kMask = -FLT_MAX;   // finfo(float32).min, the TPU kernel's fill
+static_assert(kSplitKeys % kTileKeys == 0, "a split is whole tiles");
+static_assert(kTileKeys == 32, "lane t scores key t of a tile");
+static_assert(kHeadsPerWarp == 2, "a key's probabilities for a warp's heads are one float2");
+static_assert(kSplitKeys <= kThreads, "one thread looks up each key of a split");
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -103,6 +126,83 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+template <typename A>
+__device__ __forceinline__ A warp_sum(A v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// 16 bytes of a K or V row in shared memory as fp32 values, and the pair of
+// values at an even column.  bf16 widens exactly: its bits are the top half
+// of the fp32 value's.
+template <typename T>
+struct Row;
+template <>
+struct Row<float> {
+  static constexpr int kElems = 4;
+  __device__ static void load(const unsigned char* s, float* x) {
+    const float4 v = *reinterpret_cast<const float4*>(s);
+    x[0] = v.x;
+    x[1] = v.y;
+    x[2] = v.z;
+    x[3] = v.w;
+  }
+  __device__ static float2 pair(const unsigned char* s) {
+    return *reinterpret_cast<const float2*>(s);
+  }
+};
+template <>
+struct Row<__nv_bfloat16> {
+  static constexpr int kElems = 8;
+  __device__ static void load(const unsigned char* s, float* x) {
+    const uint4 v = *reinterpret_cast<const uint4*>(s);
+    const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      x[2 * i] = __uint_as_float(w[i] << 16);
+      x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+  __device__ static float2 pair(const unsigned char* s) {
+    const unsigned w = *reinterpret_cast<const unsigned*>(s);
+    return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
+  }
+};
+
+// One word of a K/V row, global -> shared: cp.async of 16, 8 or 4 bytes, or
+// a plain 2-byte copy (a bf16 row whose address is only 2-byte aligned).
+__device__ __forceinline__ void copy_word(unsigned char* smem, const unsigned char* gmem,
+                                          int bytes) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem)
+                 : "memory");
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst), "l"(gmem)
+                 : "memory");
+  else if (bytes == 4)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem)
+                 : "memory");
+  else
+    *reinterpret_cast<unsigned short*>(smem) = *reinterpret_cast<const unsigned short*>(gmem);
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 struct DecodeArgs {
   const void* q;
   const void* k;
@@ -110,155 +210,349 @@ struct DecodeArgs {
   const int* table;
   const int* seq_pos;
   void* out;
-  int H, hkv, dh, page, maxp;
+  float* ws;  // partials: acc (B, H, splits, dh), then (m, l) (B, H, splits, 2)
+  int B, H, hkv, dh, page, maxp, splits;
+  int chunks;      // head chunks per kv head: ceil(G / kHeadsPerCta)
+  int copy_bytes;  // 16, 8, 4 or 2: the widest word every K/V row is aligned to
   float scale;
 };
 
-// Shared memory, in floats: q and the accumulator (G x dh each), a K tile
-// (kTileKeys x (dh + 1)), a V tile (kTileKeys x dh), the tile's scores /
-// probabilities (G x kTileKeys), and the running max, denominator and
-// rescale factor (G each).
-__host__ __device__ inline long long decode_smem_floats(int G, int dh) {
-  return 2LL * G * dh + static_cast<long long>(kTileKeys) * (dh + 1) +
-         static_cast<long long>(kTileKeys) * dh + static_cast<long long>(G) * kTileKeys +
-         3LL * G;
+// The keys of slot b that count: 0 .. seq_pos[b] (inclusive), within the
+// table's reach.
+__device__ __forceinline__ long long slot_keys(const DecodeArgs& p, int b) {
+  const long long n = static_cast<long long>(p.seq_pos[b]) + 1;
+  const long long reach = static_cast<long long>(p.maxp) * p.page;
+  return n < reach ? n : reach;
 }
 
-template <typename T>
+// A K or V row in shared memory: its 16-byte chunks, zero-padded past dh,
+// and an odd count of them, so that the 8 lanes of a quarter warp reading
+// 16 bytes of 8 different rows hit different banks.
+__host__ __device__ inline int row_chunks(int dh, int esz) { return (dh * esz + 15) / 16; }
+__host__ __device__ inline int row_bytes(int dh, int esz) {
+  return (row_chunks(dh, esz) | 1) * 16;
+}
+
+// Shared memory: the K/V ring (stages x {K, V} x kTileKeys rows), the byte
+// offset of each of the split's keys in the pools, kHeadsPerCta q rows in
+// fp32 (zero past the CTA's heads and past dh), and each warp's
+// probabilities of a tile (keys x kHeadsPerWarp).
+__host__ __device__ inline long long decode_smem_bytes(int dh, int esz) {
+  return static_cast<long long>(kStages) * 2 * kTileKeys * row_bytes(dh, esz) +
+         8LL * kSplitKeys + 4LL * kHeadsPerCta * row_chunks(dh, esz) * (16 / esz) +
+         4LL * kWarps * kTileKeys * kHeadsPerWarp;
+}
+
+// Loads a thread issues before it uses the first of them: global loads in
+// a loop whose next load waits on the last one would pay the memory's
+// latency once per iteration.
+constexpr int kBatch = 8;
+
+template <typename T, int DC>
 __global__ void __launch_bounds__(kThreads) paged_decode_kernel(DecodeArgs p) {
-  extern __shared__ __align__(16) float smem[];
+  constexpr int E = Row<T>::kElems;
   const int b = blockIdx.x;
-  const int kvh = blockIdx.y;
+  const long long n_keys = slot_keys(p, b);
+  const long long key0 = static_cast<long long>(blockIdx.z) * kSplitKeys;
+  if (key0 >= n_keys) return;  // past the slot's last key
+  const int n_split =
+      static_cast<int>(n_keys - key0 < kSplitKeys ? n_keys - key0 : kSplitKeys);
   const int G = p.H / p.hkv;
+  const int kvh = blockIdx.y / p.chunks;
+  const int per_chunk = (G + p.chunks - 1) / p.chunks;
+  const int g0 = (blockIdx.y - kvh * p.chunks) * per_chunk;  // first head within the group
+  const int heads = G - g0 < per_chunk ? G - g0 : per_chunk;
+  if (heads <= 0) return;
   const int dh = p.dh;
-  const int ks = dh + 1;
-  float* q_s = smem;
-  float* acc_s = q_s + G * dh;
-  float* k_s = acc_s + G * dh;
-  float* v_s = k_s + kTileKeys * ks;
-  float* s_s = v_s + kTileKeys * dh;
-  float* m_s = s_s + G * kTileKeys;
-  float* l_s = m_s + G;
-  float* a_s = l_s + G;
+  const int esz = static_cast<int>(sizeof(T));
+  const int chunks = row_chunks(dh, esz);
+  const int rb = row_bytes(dh, esz);
+  const int qs = chunks * E;  // q row stride in floats
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* ring = smem;
+  long long* off_s = reinterpret_cast<long long*>(smem + kStages * 2 * kTileKeys * rb);
+  float* q_s = reinterpret_cast<float*>(off_s + kSplitKeys);
   const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  float* pw = q_s + kHeadsPerCta * qs + warp * kTileKeys * kHeadsPerWarp;
 
-  // query heads kvh * G .. kvh * G + G - 1 of slot b: G * dh contiguous values
-  const T* q = static_cast<const T*>(p.q) +
-               (static_cast<long long>(b) * p.H + static_cast<long long>(kvh) * G) * dh;
-  for (int e = tid; e < G * dh; e += kThreads) {
-    q_s[e] = to_f32(q[e]);
-    acc_s[e] = 0.0f;
-  }
-  for (int g = tid; g < G; g += kThreads) {
-    m_s[g] = kMask;
-    l_s[g] = 0.0f;
-  }
-
-  const long long tok_stride = static_cast<long long>(p.hkv) * dh;
-  const long long page_stride = static_cast<long long>(p.page) * tok_stride;
-  const T* kbase = static_cast<const T*>(p.k) + static_cast<long long>(kvh) * dh;
-  const T* vbase = static_cast<const T*>(p.v) + static_cast<long long>(kvh) * dh;
+  // each key's row: its page from the slot's table row, one load per key,
+  // all in flight at once
+  const int data = dh * esz;
+  const long long key_bytes = static_cast<long long>(p.hkv) * data;
   const int* row = p.table + static_cast<long long>(b) * p.maxp;
-  // keys 0 .. seq_pos[b] are valid (inclusive), within the table's reach
-  long long n_keys = static_cast<long long>(p.seq_pos[b]) + 1;
-  const long long reach = static_cast<long long>(p.maxp) * p.page;
-  if (n_keys > reach) n_keys = reach;
-  const int n_pages = static_cast<int>((n_keys + p.page - 1) / p.page);
-
-  for (int j = 0; j < n_pages; ++j) {
-    const long long phys = row[j];
-    const T* kpage = kbase + phys * page_stride;
-    const T* vpage = vbase + phys * page_stride;
-    for (int t0 = 0; t0 < p.page; t0 += kTileKeys) {
-      const long long key0 = static_cast<long long>(j) * p.page + t0;
-      if (key0 >= n_keys) break;
-      int n = p.page - t0;
-      if (n > kTileKeys) n = kTileKeys;
-      if (n_keys - key0 < n) n = static_cast<int>(n_keys - key0);
-
-      __syncthreads();  // the previous tile (and the q/acc init) is done
-      for (int e = tid; e < n * dh; e += kThreads) {
-        const int t = e / dh;
-        const int d = e - t * dh;
-        const long long off = static_cast<long long>(t0 + t) * tok_stride + d;
-        k_s[t * ks + d] = to_f32(kpage[off]);
-        v_s[t * dh + d] = to_f32(vpage[off]);
-      }
-      __syncthreads();
-
-      // scores of the group's G query heads against the tile's n keys
-      for (int e = tid; e < G * n; e += kThreads) {
-        const int g = e / n;
-        const int t = e - g * n;
-        const float* qg = q_s + g * dh;
-        const float* kt = k_s + t * ks;
-        float dot = 0.0f;
-        for (int d = 0; d < dh; ++d) dot = fmaf(qg[d], kt[d], dot);
-        s_s[g * kTileKeys + t] = dot * p.scale;
-      }
-      __syncthreads();
-
-      // online-softmax update, one thread per query head
-      for (int g = tid; g < G; g += kThreads) {
-        float* sg = s_s + g * kTileKeys;
-        const float m_prev = m_s[g];
-        float m_new = m_prev;
-        for (int t = 0; t < n; ++t) m_new = fmaxf(m_new, sg[t]);
-        const float alpha = expf(m_prev - m_new);
-        float sum = 0.0f;
-        for (int t = 0; t < n; ++t) {
-          const float pt = expf(sg[t] - m_new);
-          sg[t] = pt;
-          sum += pt;
-        }
-        l_s[g] = l_s[g] * alpha + sum;
-        m_s[g] = m_new;
-        a_s[g] = alpha;
-      }
-      __syncthreads();
-
-      // acc = acc * alpha + p @ V, one (head, column) per thread at a time
-      for (int e = tid; e < G * dh; e += kThreads) {
-        const int g = e / dh;
-        const int d = e - g * dh;
-        const float* pg = s_s + g * kTileKeys;
-        float acc = acc_s[e] * a_s[g];
-        for (int t = 0; t < n; ++t) acc = fmaf(pg[t], v_s[t * dh + d], acc);
-        acc_s[e] = acc;
-      }
-    }
+  if (tid < n_split) {
+    const long long key = key0 + tid;
+    const long long j = key / p.page;
+    off_s[tid] = (static_cast<long long>(row[j]) * p.page + (key - j * p.page)) * key_bytes;
+  }
+  // the rows' padding past dh: zero once, no copy writes it
+  const int tail = chunks * 16 - data;
+  for (int e = tid; e < kStages * 2 * kTileKeys * tail; e += kThreads) {
+    const int r = e / tail;
+    ring[r * rb + data + (e - r * tail)] = 0;
   }
   __syncthreads();
 
-  T* out = static_cast<T*>(p.out) +
-           (static_cast<long long>(b) * p.H + static_cast<long long>(kvh) * G) * dh;
-  for (int e = tid; e < G * dh; e += kThreads) {
-    float l = l_s[e / dh];
-    if (l == 0.0f) l = 1.0f;  // unreachable: key 0 is always valid
-    out[e] = from_f32<T>(acc_s[e] / l);
+  const int W = p.copy_bytes;
+  const int words = data / W;
+  const unsigned char* kpool = static_cast<const unsigned char*>(p.k) + kvh * data;
+  const unsigned char* vpool = static_cast<const unsigned char*>(p.v) + kvh * data;
+  auto load_tile = [&](int tile) {
+    unsigned char* ks = ring + (tile % kStages) * 2 * kTileKeys * rb;
+    unsigned char* vs = ks + kTileKeys * rb;
+    const long long* offs = off_s + tile * kTileKeys;
+    const int n = n_split - tile * kTileKeys < kTileKeys ? n_split - tile * kTileKeys
+                                                         : kTileKeys;
+    for (int e = tid; e < n * words; e += kThreads) {
+      const int r = e / words;
+      const int w = e - r * words;
+      const long long off = offs[r] + static_cast<long long>(w) * W;
+      copy_word(ks + r * rb + w * W, kpool + off, W);
+      copy_word(vs + r * rb + w * W, vpool + off, W);
+    }
+  };
+
+  // the warp's heads: local w + kWarps j for j < nh (warp-uniform)
+  const int nh = warp < heads ? (heads - warp + kWarps - 1) / kWarps : 0;
+  float m_run[kHeadsPerWarp], l_run[kHeadsPerWarp], acc[kHeadsPerWarp][DC][2];
+#pragma unroll
+  for (int j = 0; j < kHeadsPerWarp; ++j) {
+    m_run[j] = kMask;
+    l_run[j] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[j][c][0] = acc[j][c][1] = 0.0f;
   }
+
+  const int tiles = (n_split + kTileKeys - 1) / kTileKeys;
+  load_tile(0);
+  cp_async_commit();
+  if (tiles > 1) load_tile(1);
+  cp_async_commit();
+
+  // q, while the first tiles are in flight: kBatch loads before their stores
+  const int h0 = kvh * G + g0;  // the CTA's first query head
+  const T* q = static_cast<const T*>(p.q) + (static_cast<long long>(b) * p.H + h0) * dh;
+  for (int e0 = 0; e0 < kHeadsPerCta * qs; e0 += kBatch * kThreads) {
+    float x[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int e = e0 + u * kThreads + tid;
+      const int g = e / qs;
+      const int d = e - g * qs;
+      x[u] = g < heads && d < dh ? to_f32(q[g * dh + d]) : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int e = e0 + u * kThreads + tid;
+      if (e < kHeadsPerCta * qs) q_s[e] = x[u];
+    }
+  }
+  for (int i = 0; i < tiles; ++i) {
+    cp_async_wait<kStages - 1>();  // tile i has landed (this thread's words)
+    __syncthreads();               // ... everyone's, and q and the padding
+    const unsigned char* ks = ring + (i % kStages) * 2 * kTileKeys * rb;
+    const unsigned char* vs = ks + kTileKeys * rb;
+    const int n = n_split - i * kTileKeys < kTileKeys ? n_split - i * kTileKeys : kTileKeys;
+    if (nh > 0) {
+      // scores: lane t, key t, against the warp's heads.  A head slot past
+      // nh computes too (on q rows of zeros, never written), here and
+      // below, so that the loops run without branches and the heads'
+      // chains interleave; each head sums even and odd columns apart.
+      float s[kHeadsPerWarp][2] = {};
+      if (lane < n) {
+        const unsigned char* kr = ks + lane * rb;
+#pragma unroll 4
+        for (int c = 0; c < chunks; ++c) {
+          float kv[E];
+          Row<T>::load(kr + c * 16, kv);
+#pragma unroll
+          for (int j = 0; j < kHeadsPerWarp; ++j) {
+            const float* qg = q_s + (warp + kWarps * j) * qs + c * E;
+#pragma unroll
+            for (int e = 0; e < E; e += 4) {
+              const float4 qv = *reinterpret_cast<const float4*>(qg + e);
+              s[j][0] = fmaf(qv.x, kv[e], s[j][0]);
+              s[j][1] = fmaf(qv.y, kv[e + 1], s[j][1]);
+              s[j][0] = fmaf(qv.z, kv[e + 2], s[j][0]);
+              s[j][1] = fmaf(qv.w, kv[e + 3], s[j][1]);
+            }
+          }
+        }
+      }
+      // the online softmax of each head over the tile, reduced across lanes
+      float alpha[kHeadsPerWarp];
+#pragma unroll
+      for (int j = 0; j < kHeadsPerWarp; ++j) {
+        const float sc = lane < n ? (s[j][0] + s[j][1]) * p.scale : kMask;
+        const float m_new = fmaxf(m_run[j], warp_max(sc));
+        alpha[j] = expf(m_run[j] - m_new);
+        const float pt = lane < n ? expf(sc - m_new) : 0.0f;
+        l_run[j] = l_run[j] * alpha[j] + warp_sum(pt);
+        m_run[j] = m_new;
+        pw[lane * kHeadsPerWarp + j] = pt;
+      }
+      __syncwarp();
+      // acc = acc * alpha + P @ V, P in fp32
+#pragma unroll
+      for (int j = 0; j < kHeadsPerWarp; ++j)
+#pragma unroll
+        for (int c = 0; c < DC; ++c) {
+          acc[j][c][0] *= alpha[j];
+          acc[j][c][1] *= alpha[j];
+        }
+#pragma unroll 4
+      for (int t = 0; t < n; ++t) {
+        const float2 pv = *reinterpret_cast<const float2*>(pw + t * kHeadsPerWarp);
+        const float pr[kHeadsPerWarp] = {pv.x, pv.y};
+        const unsigned char* vr = vs + t * rb;
+#pragma unroll
+        for (int c = 0; c < DC; ++c) {
+          const int d = 2 * lane + 64 * c;
+          if (d < dh) {
+            const float2 v2 = Row<T>::pair(vr + d * esz);
+#pragma unroll
+            for (int j = 0; j < kHeadsPerWarp; ++j) {
+              acc[j][c][0] = fmaf(pr[j], v2.x, acc[j][c][0]);
+              acc[j][c][1] = fmaf(pr[j], v2.y, acc[j][c][1]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // the stage is free for the tile two ahead
+    if (i + kStages < tiles) load_tile(i + kStages);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();  // nothing is left in flight at exit
+
+  // the partial of each of the warp's heads for this split
+  float* ml = p.ws + static_cast<long long>(p.B) * p.H * p.splits * dh;
+#pragma unroll
+  for (int j = 0; j < kHeadsPerWarp; ++j) {
+    if (j < nh) {
+      const long long slot =
+          (static_cast<long long>(b) * p.H + h0 + warp + kWarps * j) * p.splits + blockIdx.z;
+      float* pa = p.ws + slot * dh;
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        const int d = 2 * lane + 64 * c;
+        if (d < dh) pa[d] = acc[j][c][0];
+        if (d + 1 < dh) pa[d + 1] = acc[j][c][1];
+      }
+      if (lane == 0) {
+        ml[2 * slot] = m_run[j];
+        ml[2 * slot + 1] = l_run[j];
+      }
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) paged_decode_combine_kernel(DecodeArgs p) {
+  const int b = blockIdx.x;
+  const int h = blockIdx.y;
+  const long long n_keys = slot_keys(p, b);
+  const int used = n_keys > 0 ? static_cast<int>((n_keys + kSplitKeys - 1) / kSplitKeys) : 0;
+  const long long slot0 = (static_cast<long long>(b) * p.H + h) * p.splits;
+  const float* ml = p.ws + static_cast<long long>(p.B) * p.H * p.splits * p.dh + 2 * slot0;
+  const float* pa = p.ws + slot0 * p.dh;
+  T* out = static_cast<T*>(p.out) + (static_cast<long long>(b) * p.H + h) * p.dh;
+  // kBatch splits' loads at a time, then their sums in ascending order
+  float m = kMask;
+  for (int i0 = 0; i0 < used; i0 += kBatch) {
+    float mi[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) mi[u] = i0 + u < used ? ml[2 * (i0 + u)] : kMask;
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) m = fmaxf(m, mi[u]);
+  }
+  for (int d = threadIdx.x; d < p.dh; d += kThreads) {
+    float l = 0.0f, acc = 0.0f;
+    for (int i0 = 0; i0 < used; i0 += kBatch) {
+      float mi[kBatch], li[kBatch], ai[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const bool ok = i0 + u < used;
+        mi[u] = ok ? ml[2 * (i0 + u)] : kMask;
+        li[u] = ok ? ml[2 * (i0 + u) + 1] : 0.0f;
+        ai[u] = ok ? pa[static_cast<long long>(i0 + u) * p.dh + d] : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        if (i0 + u < used) {
+          const float f = expf(mi[u] - m);
+          l += li[u] * f;
+          acc += ai[u] * f;
+        }
+      }
+    }
+    if (l == 0.0f) l = 1.0f;  // no key (seq_pos < 0): zeros, as before the split
+    out[d] = from_f32<T>(acc / l);
+  }
+}
+
+// Shared memory above 48 KB is an attribute of the function on each
+// device: set it once per device for the largest size asked so far, not on
+// every launch of the host-bound decode step.
+constexpr int kMaxDevices = 64;
+
+template <typename T, int DC>
+cudaError_t allow_smem(long long smem) {
+  static long long allowed[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < kMaxDevices && allowed[dev] >= smem) return cudaSuccess;
+  e = cudaFuncSetAttribute(paged_decode_kernel<T, DC>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e == cudaSuccess && dev < kMaxDevices) allowed[dev] = smem;
+  return e;
+}
+
+template <typename T, int DC>
+int launch_decode_dc(const DecodeArgs& p, cudaStream_t stream) {
+  const long long smem = decode_smem_bytes(p.dh, sizeof(T));
+  if (smem > 232448) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = allow_smem<T, DC>(smem);
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid(p.B, p.hkv * p.chunks, p.splits);
+  paged_decode_kernel<T, DC><<<grid, kThreads, static_cast<size_t>(smem), stream>>>(p);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  paged_decode_combine_kernel<T><<<dim3(p.B, p.H), kThreads, 0, stream>>>(p);
+  return cudaGetLastError();
 }
 
 template <typename T>
 int launch_decode(const void* q, const void* k, const void* v, const int* table,
-                  const int* seq_pos, void* out, int B, int H, int hkv, int dh,
-                  int page, int maxp, float scale, void* stream) {
-  if (B < 1 || hkv < 1 || H % hkv != 0 || dh < 1 || page < 1 || maxp < 1 ||
-      hkv > 65535)
+                  const int* seq_pos, void* out, float* ws, int B, int H, int hkv, int dh,
+                  int page, int maxp, int splits, float scale, void* stream) {
+  if (B < 1 || hkv < 1 || H % hkv != 0 || H > 65535 || dh < 1 ||
+      dh > 64 * kMaxDimChunks || page < 1 || maxp < 1)
     return cudaErrorInvalidValue;
-  const long long smem = decode_smem_floats(H / hkv, dh) * 4;
-  if (smem > 232448) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        paged_decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  const DecodeArgs p{q, k, v, table, seq_pos, out, H, hkv, dh, page, maxp, scale};
-  const dim3 grid(B, hkv);
-  paged_decode_kernel<T><<<grid, kThreads, static_cast<size_t>(smem),
-                           static_cast<cudaStream_t>(stream)>>>(p);
-  return cudaGetLastError();
+  // the wrapper sized the workspace for this many splits
+  const long long reach = static_cast<long long>(maxp) * page;
+  if (splits != (reach + kSplitKeys - 1) / kSplitKeys || splits > 65535)
+    return cudaErrorInvalidValue;
+  const int G = H / hkv;
+  const int chunks = (G + kHeadsPerCta - 1) / kHeadsPerCta;
+  if (static_cast<long long>(hkv) * chunks > 65535) return cudaErrorInvalidValue;
+  const int data = dh * static_cast<int>(sizeof(T));
+  const unsigned long long align = reinterpret_cast<unsigned long long>(k) |
+                                   reinterpret_cast<unsigned long long>(v) |
+                                   static_cast<unsigned long long>(data);
+  const int copy = align % 16 == 0 ? 16 : align % 8 == 0 ? 8 : align % 4 == 0 ? 4 : 2;
+  const DecodeArgs p{q,    k,    v,    table,  seq_pos, out,  ws,   B,    H,
+                     hkv,  dh,   page, maxp,   splits,  chunks, copy, scale};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dh <= 64) return launch_decode_dc<T, 1>(p, s);
+  if (dh <= 128) return launch_decode_dc<T, 2>(p, s);
+  return launch_decode_dc<T, 4>(p, s);
 }
 
 constexpr int kMlaThreads = 256;
@@ -311,19 +605,6 @@ __host__ __device__ inline long long mla_smem_bytes(int D, int acc_bytes) {
               kMlaHeads) +
          4LL * (static_cast<long long>(kMlaKeys) * mla_row_stride(D) + kMlaKeys * kMlaHeads +
                 kMlaHeads);
-}
-
-template <typename A>
-__device__ __forceinline__ A warp_sum(A v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
 }
 
 template <typename T>
@@ -524,19 +805,19 @@ int launch_copy(void* pool, int layers, long long layer_bytes, long long page_by
 
 extern "C" int paged_attention_decode_f32(const void* q, const void* k, const void* v,
                                           const int* table, const int* seq_pos, void* out,
-                                          int B, int H, int hkv, int dh, int page,
-                                          int maxp, float scale, void* stream) {
-  return launch_decode<float>(q, k, v, table, seq_pos, out, B, H, hkv, dh, page, maxp,
-                              scale, stream);
+                                          float* ws, int B, int H, int hkv, int dh, int page,
+                                          int maxp, int splits, float scale, void* stream) {
+  return launch_decode<float>(q, k, v, table, seq_pos, out, ws, B, H, hkv, dh, page, maxp,
+                              splits, scale, stream);
 }
 
 extern "C" int paged_attention_decode_bf16(const void* q, const void* k, const void* v,
-                                           const int* table, const int* seq_pos,
-                                           void* out, int B, int H, int hkv, int dh,
-                                           int page, int maxp, float scale,
+                                           const int* table, const int* seq_pos, void* out,
+                                           float* ws, int B, int H, int hkv, int dh,
+                                           int page, int maxp, int splits, float scale,
                                            void* stream) {
-  return launch_decode<__nv_bfloat16>(q, k, v, table, seq_pos, out, B, H, hkv, dh, page,
-                                      maxp, scale, stream);
+  return launch_decode<__nv_bfloat16>(q, k, v, table, seq_pos, out, ws, B, H, hkv, dh, page,
+                                      maxp, splits, scale, stream);
 }
 
 extern "C" int mla_paged_attention_decode_f32(const void* q_lat, const void* q_rope,

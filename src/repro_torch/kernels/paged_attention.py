@@ -3,19 +3,20 @@ kernels ``csrc/paged_attention.cu`` and their plain versions.
 
 Counterpart of ``repro.kernels.paged_attention``.  The serving engine sizes
 its KV-cache pages to the kernel block so that the decode step can read
-them in place: :func:`paged_attention_decode` (K/V pages) and
-:func:`mla_paged_attention_decode` (MLA's latent pages, absorbed
-formulation) walk each slot's page-table row page by page with an online
-softmax, so the gathered history never exists in device memory, and
-:func:`paged_copy` is the copy-on-write step of shared-prefix serving, one
-page in every layer of a stacked pool, in place.
+them in place: :func:`paged_attention_decode` (K/V pages; its kernel
+splits each slot's history into fixed runs of :data:`SPLIT_KEYS` keys and
+merges their partial softmaxes) and :func:`mla_paged_attention_decode`
+(MLA's latent pages, absorbed formulation) read each key through the slot's
+page-table row with an online softmax, so the gathered history never exists
+in device memory, and :func:`paged_copy` is the copy-on-write step of
+shared-prefix serving, one page in every layer of a stacked pool, in place.
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
 version for CPU tensors; ``launches`` counts the kernel launches only.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -26,6 +27,40 @@ from repro_torch.kernels import _build
 # max: a fully masked key then adds exp(MASK - m) == 0 exactly
 MASK = torch.finfo(torch.float32).min
 DECODE_DTYPES = (torch.float32, torch.bfloat16)
+# The GQA decode kernel's partition of a slot's history (kSplitKeys in
+# csrc/paged_attention.cu): a CTA owns SPLIT_KEYS keys of one slot, fixed in
+# keys -- not derived from B, maxp or the card -- so that a slot's output
+# does not depend on the other slots.  Its grid's split dimension, and the
+# kernel's head width (64 kMaxDimChunks), have these limits.
+SPLIT_KEYS = 128
+MAX_SPLITS = 65535
+MAX_HEAD_DIM = 256
+
+
+def decode_plan(page: int, maxp: int) -> Tuple[int, int]:
+    """``(split_keys, splits)`` of the GQA decode kernel for a table of
+    ``maxp`` pages of ``page`` keys: split ``z`` owns the keys ``[z *
+    split_keys, (z + 1) * split_keys)`` of every slot, and ``splits`` of them
+    cover the table's reach.  Raises past the grid's 65535."""
+    splits = -(-(page * maxp) // SPLIT_KEYS)
+    if splits > MAX_SPLITS:
+        raise ValueError(f"paged_attention_decode: {maxp} pages of {page} keys need "
+                         f"{splits} splits of {SPLIT_KEYS}, over the grid's {MAX_SPLITS}")
+    return SPLIT_KEYS, splits
+
+
+# the split kernel's partials, one buffer per (device, stream), grown as
+# needed: launches on one stream run in order, so each call may reuse it,
+# and the serving step, host-bound, saves an allocation per layer
+_workspaces = {}
+
+
+def _workspace(device: torch.device, stream: int, numel: int) -> torch.Tensor:
+    key = (device, stream)
+    ws = _workspaces.get(key)
+    if ws is None or ws.numel() < numel:
+        ws = _workspaces[key] = torch.empty(numel, dtype=torch.float32, device=device)
+    return ws
 
 
 def _check_decode(q, k_pages, v_pages, page_table, seq_pos):
@@ -95,8 +130,9 @@ def paged_attention_decode(q, k_pages, v_pages, page_table, seq_pos, *,
     dh), fp32 or bf16 like ``q``; ``page_table``: (B, max_pages) int32;
     ``seq_pos``: (B,) int32, each >= 0.  Returns (B, 1, H, dh) in
     ``q.dtype``: the contract of the reference gather + attend read.  CUDA
-    tensors launch ``csrc/paged_attention.cu``; CPU tensors take
-    :func:`decode_plain`.
+    tensors launch ``csrc/paged_attention.cu`` (dh up to 256): the split
+    kernel over :func:`decode_plan`'s grid, then the combine, one launch in
+    ``launches``; CPU tensors take :func:`decode_plain`.
     """
     tensors = (q, k_pages, v_pages, page_table, seq_pos)
     if not _build.on_cuda("paged_attention_decode", *tensors):
@@ -106,16 +142,23 @@ def paged_attention_decode(q, k_pages, v_pages, page_table, seq_pos, *,
         if not t.is_contiguous():
             raise ValueError(f"paged_attention_decode: operand of shape {tuple(t.shape)} "
                              "is not contiguous")
+    if dh > MAX_HEAD_DIM:
+        raise ValueError(f"paged_attention_decode: the kernel takes dh up to "
+                         f"{MAX_HEAD_DIM}, got {dh}")
+    _, splits = decode_plan(page, maxp)
     scale = dh ** -0.5 if scale is None else scale
     lib = _build.library()
     out = torch.empty_like(q)
     entry = (lib.paged_attention_decode_f32 if q.dtype == torch.float32
              else lib.paged_attention_decode_bf16)
     with torch.cuda.device(q.device):
-        # scalar loads only: no alignment beyond the element's own
-        ptrs = [t.data_ptr() for t in (*tensors, out)]
-        code = entry(*ptrs, B, H, hkv, dh, page, maxp, float(scale),
-                     _build.stream(q.device))
+        stream = _build.stream(q.device)
+        # each split's partial: acc (B, H, splits, dh), then (max, denominator)
+        ws = _workspace(q.device, stream, B * H * splits * (dh + 2))
+        # the kernel copies K/V rows in the widest words (16, 8, 4 or 2
+        # bytes) that dh and the pools' addresses allow
+        ptrs = [t.data_ptr() for t in (*tensors, out, ws)]
+        code = entry(*ptrs, B, H, hkv, dh, page, maxp, splits, float(scale), stream)
     _build.check(code, "paged_attention_decode")
     paged_attention_decode.launches += 1
     return out

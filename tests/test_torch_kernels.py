@@ -451,10 +451,16 @@ def _paged_case(dev, B, H, hkv, dh, page, maxp, seq_pos, dtype):
     (2, 4, 2, 16, 8, 4, [0, 31]),
     (3, 6, 6, 64, 16, 5, [5, 16, 79]),
     (4, 36, 4, 128, 128, 16, [0, 127, 1000, 1900]),  # starcoder2-7b decode shapes
+    # pages of 16; slots ending at the split edges (127, 128, 255, 256 with
+    # 128-key splits) and one of three splits
+    (5, 18, 2, 128, 16, 24, [126, 127, 128, 255, 300]),
+    (1, 36, 4, 128, 128, 64, [8191]),  # one slot of 8192 keys
+    (3, 16, 2, 64, 32, 12, [0, 129, 383]),  # G 8 at dh 64
 ])
 def test_cuda_paged_decode_matches_plain(cuda_card, dtype, B, H, hkv, dh, page, maxp, seq_pos):
     """fp32 within 1e-6 (the JAX suite's TOL); bf16 within one bf16 rounding
-    of the plain output (both compute in fp32 and round once)."""
+    of the plain output (both compute in fp32 and round once; the kernel's
+    split and combine reassociate the fp32 sums)."""
     args = _paged_case(cuda_card, B, H, hkv, dh, page, maxp, seq_pos, dtype)
     got, want = tk.paged_attention_decode(*args).float(), decode_plain(*args).float()
     if dtype == torch.float32:
@@ -462,6 +468,33 @@ def test_cuda_paged_decode_matches_plain(cuda_card, dtype, B, H, hkv, dh, page, 
     else:
         assert torch.all((got - want).abs() <= 2.0 ** -7 * want.abs() + 1e-6)
     assert tk.launch_counts()["paged_attention_decode"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_paged_decode_is_batch_invariant(cuda_card, dtype):
+    """The split is fixed in keys: each slot of a 4-slot call gives the same
+    bits as the slot run alone (B 1) and behind maxp doubled by null-page
+    columns (starcoder2-7b decode shapes)."""
+    q, k, v, table, seq = _paged_case(cuda_card, 4, 36, 4, 128, 128, 16, [0, 127, 1000, 1900],
+                                      dtype)
+    full = tk.paged_attention_decode(q, k, v, table, seq)
+    wide = tk.paged_attention_decode(q, k, v, torch.cat([table, torch.zeros_like(table)], 1),
+                                     seq)
+    for b in range(4):
+        alone = tk.paged_attention_decode(q[b:b + 1], k, v, table[b:b + 1], seq[b:b + 1])
+        assert torch.equal(alone[0], full[b]) and torch.equal(wide[b], full[b])
+    assert tk.launch_counts()["paged_attention_decode"] == 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_paged_decode_is_bit_identical_run_to_run(cuda_card, dtype):
+    """No atomics; the combine merges the splits in ascending order: two
+    launches on the same inputs give the same bits."""
+    args = _paged_case(cuda_card, 5, 18, 2, 128, 16, 24, [126, 127, 128, 255, 300], dtype)
+    assert torch.equal(tk.paged_attention_decode(*args), tk.paged_attention_decode(*args))
+    assert tk.launch_counts()["paged_attention_decode"] == 2
 
 
 @pytest.mark.cuda
