@@ -69,13 +69,17 @@ Phases, each printing one JSON line:
    0/127/1000/1900, a scattered page table with unmapped entries on the null
    page; fp32 and bf16 pools), bwma_softmax at BERT-base attention-score
    shapes (4 x 12 heads of 512 x 512, blocks 16 and 128, a full and a ragged
-   logical width) and bwma_transpose at BERT-base K shapes (512 x 64 per
-   head, blocks 16 and 128, bit-exact), each against its plain version,
-   timed beside its bound and one library call.  Then the blocked-ops path:
-   the paper's unfused attention through the ``"cuda"`` Backend protocol
-   (``transpose``, ``matmul``, ``scale``, ``ops.blocked_softmax``) at
-   BERT-base, block 16, batch 4, held against the fused kernel and the
-   reference backend; it must launch bwma_transpose and bwma_softmax once.
+   logical width, fp32 and bf16; each row with its plan: rows per CTA,
+   vectors per lane, looped, CTAs) and at looped widths (2176 fp32 and 4224
+   bf16 padded columns), and bwma_transpose at BERT-base K shapes (512 x 64
+   per head, blocks 16 and 128, fp32 and bf16, bit-exact; each row with its
+   plan: word, tile, CTAs), each against its plain version, timed (in both
+   types) beside its bound and one library call in the same type.  Then the
+   blocked-ops path: the paper's unfused attention through the ``"cuda"``
+   Backend protocol (``transpose``, ``matmul``, ``scale``,
+   ``ops.blocked_softmax``) at BERT-base, block 16, batch 4, held against
+   the fused kernel and the reference backend; it must launch
+   bwma_transpose and bwma_softmax once.
 8. mla serve -- DeepSeek-V3's dense prefix at full width (3 layers,
    d_model 7168, 128 heads, MLA q_lora 1536 / kv_lora 512 / nope 128 / rope
    64 / v 128, SwiGLU d_ff 18432, vocab 129280; random weights drawn on the
@@ -715,6 +719,12 @@ def kernel_of(name: str) -> str:
     return "other"
 
 
+def csrc_constant(source: str, name: str) -> int:
+    """A ``constexpr int`` of one of the port's CUDA sources."""
+    text = (SRC / "repro_torch" / "kernels" / "csrc" / source).read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
 def port_kernel_names() -> set:
     """The name of every ``__global__`` function in the port's CUDA sources,
     read from the sources themselves, so that it does not lean on the
@@ -1263,8 +1273,9 @@ def mla_kernel_phase(torch, gen):
     import torch.nn.functional as F
 
     from repro_torch.core.layout import BlockLayout, to_blockwise
-    from repro_torch.kernels.bwma_softmax import bwma_softmax, softmax_plain
-    from repro_torch.kernels.bwma_transpose import bwma_transpose, transpose_plain
+    from repro_torch.kernels.bwma_softmax import bwma_softmax, softmax_plain, softmax_plan
+    from repro_torch.kernels.bwma_transpose import (bwma_transpose, transpose_plain,
+                                                    transpose_plan)
     from repro_torch.kernels.paged_attention import mla_decode_plain, mla_paged_attention_decode
 
     out = {}
@@ -1329,6 +1340,16 @@ def mla_kernel_phase(torch, gen):
         del q_lat, q_rope, ckv, krope, cg, kg, qs
     # -- bwma_softmax at BERT-base attention-score shapes: 4 x 12 heads of 512 x 512
     S = 512
+    rows_per_cta = csrc_constant("bwma_softmax.cu", "kRows")
+
+    def softmax_ok(got, want, dtype):
+        err = (got.float() - want.float()).abs().max().item()
+        ok = (err <= KERNEL_RTOL * want.float().abs().max().item()
+              if dtype == torch.float32 else bool(torch.all(
+                  (got.float() - want.float()).abs()
+                  <= BF16_ROUNDING * want.float().abs() + PAGED_TOL)))
+        return ok, err
+
     scores = torch.randn(4, 12, S, S, generator=gen, device=gen.device).to("cuda") * 3
     for block in (16, 128):
         xb = to_blockwise(scores, BlockLayout(block, block)).contiguous()
@@ -1338,36 +1359,58 @@ def mla_kernel_phase(torch, gen):
                 got = bwma_softmax(x, n_logical)
                 want = softmax_plain(x, n_logical)
                 torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs().max().item()
-                ok = (err <= KERNEL_RTOL * want.float().abs().max().item()
-                      if dtype == torch.float32 else bool(torch.all(
-                          (got.float() - want.float()).abs()
-                          <= BF16_ROUNDING * want.float().abs() + PAGED_TOL)))
+                ok, err = softmax_ok(got, want, dtype)
                 name = str(dtype).split(".")[-1]
+                per_lane, looped = softmax_plan(x.shape[-3] * block, dtype)
                 row = {"phase": "mla_kernels", "kernel": "bwma_softmax", "block": block,
-                       "n_logical": n_logical, "dtype": name, "max_abs_err": err}
+                       "n_logical": n_logical, "dtype": name, "max_abs_err": err,
+                       "rows_per_cta": rows_per_cta, "vectors_per_lane": per_lane,
+                       "looped": looped, "ctas": -(-x.numel() // (S * rows_per_cta))}
                 if not ok:
                     emit(row)
                     raise AssertionError(f"bwma_softmax block {block} n {n_logical} {name}: "
                                          f"max err {err}")
-                if dtype == torch.float32 and n_logical == S:
+                if n_logical == S:
+                    lib_x = scores.to(dtype)
                     # bytes: the blocked input read once, the output written once
                     b_ms, kind = bound_ms(2 * nbytes(x), 5.0 * x.numel())
                     row.update(ms=time_ms(lambda: bwma_softmax(x, n_logical)),
                                plain_ms=time_ms(lambda: softmax_plain(x, n_logical)),
-                               library_ms=time_ms(lambda: torch.softmax(scores, -1)),
+                               library_ms=time_ms(lambda: torch.softmax(lib_x, -1)),
                                bound_ms=b_ms, bound_by=kind,
                                work=f"BERT-base scores, 4 x 12 heads of {S} x {S}, "
-                                    f"block {block}, fp32",
+                                    f"block {block}, {name}",
                                **device_and_host("bwma_softmax",
                                                  lambda: bwma_softmax(x, n_logical),
-                                                 lambda: torch.softmax(scores, -1)))
-                    if block == 16:
+                                                 lambda: torch.softmax(lib_x, -1)))
+                    del lib_x
+                    if block == 16 and dtype == torch.float32:
                         out["bwma_softmax"] = row
                 emit(row)
                 del x, got, want
         del xb
     del scores
+    # the looped path: rows wider than 2048 fp32 / 4096 bf16 columns
+    for dtype, gn, n_logical in ((torch.float32, 17, 2100), (torch.bfloat16, 33, 4219)):
+        x = (torch.randn(8, 1, gn, 128, 128, generator=gen, device=gen.device) * 3).to(
+            "cuda", dtype)
+        got = bwma_softmax(x, n_logical)
+        want = softmax_plain(x, n_logical)
+        torch.cuda.synchronize()
+        ok, err = softmax_ok(got, want, dtype)
+        name = str(dtype).split(".")[-1]
+        per_lane, looped = softmax_plan(gn * 128, dtype)
+        row = {"phase": "mla_kernels", "kernel": "bwma_softmax", "block": 128,
+               "n_logical": n_logical, "dtype": name, "max_abs_err": err,
+               "rows_per_cta": rows_per_cta, "vectors_per_lane": per_lane, "looped": looped,
+               "work": f"8 x 128 rows of {gn * 128} padded columns, {name}"}
+        if not (ok and looped):
+            emit(row)
+            raise AssertionError(f"bwma_softmax looped {name}: max err {err}, plan {looped}")
+        row.update(bound_ms=bound_ms(2 * nbytes(x), 5.0 * x.numel())[0],
+                   **device_and_host("bwma_softmax", lambda: bwma_softmax(x, n_logical)))
+        emit(row)
+        del x, got, want
     # -- bwma_transpose at BERT-base K shapes: 512 x 64 per head
     k_rw = torch.randn(4, 12, S, 64, generator=gen, device=gen.device).to("cuda")
     for block in (16, 128):
@@ -1377,24 +1420,27 @@ def mla_kernel_phase(torch, gen):
             want = transpose_plain(x)
             torch.cuda.synchronize()
             name = str(dtype).split(".")[-1]
+            plan = transpose_plan(*x.shape[-4:], x.element_size(), math.prod(x.shape[:-4]))
             row = {"phase": "mla_kernels", "kernel": "bwma_transpose", "block": block,
-                   "dtype": name, "shape": list(x.shape), "max_abs_err": 0.0}
+                   "dtype": name, "shape": list(x.shape), "max_abs_err": 0.0,
+                   "word": plan.word, "tile_blocks": plan.tile_blocks,
+                   "tile": [plan.tile_rows, plan.tile_cols], "ctas": plan.ctas}
             if not torch.equal(got, want):
                 emit(row)
                 raise AssertionError(f"bwma_transpose block {block} {name}: not bit-exact")
-            if dtype == torch.float32:
-                b_ms, kind = bound_ms(2 * nbytes(x), 0.0)
-                row.update(ms=time_ms(lambda: bwma_transpose(x)),
-                           plain_ms=time_ms(lambda: transpose_plain(x)),
-                           library_ms=time_ms(lambda: k_rw.transpose(-1, -2).contiguous()),
-                           bound_ms=b_ms, bound_by=kind,
-                           work=f"BERT-base K, 4 x 12 heads of {S} x 64, block {block}, fp32",
-                           **device_and_host("bwma_transpose", lambda: bwma_transpose(x),
-                                             lambda: k_rw.transpose(-1, -2).contiguous()))
-                if block == 16:
-                    out["bwma_transpose"] = row
+            lib_k = k_rw.to(dtype)
+            b_ms, kind = bound_ms(2 * nbytes(x), 0.0)
+            row.update(ms=time_ms(lambda: bwma_transpose(x)),
+                       plain_ms=time_ms(lambda: transpose_plain(x)),
+                       library_ms=time_ms(lambda: lib_k.transpose(-1, -2).contiguous()),
+                       bound_ms=b_ms, bound_by=kind,
+                       work=f"BERT-base K, 4 x 12 heads of {S} x 64, block {block}, {name}",
+                       **device_and_host("bwma_transpose", lambda: bwma_transpose(x),
+                                         lambda: lib_k.transpose(-1, -2).contiguous()))
+            if block == 16 and dtype == torch.float32:
+                out["bwma_transpose"] = row
             emit(row)
-            del x, got, want
+            del x, got, want, lib_k
     del k_rw
     torch.cuda.empty_cache()
     return out

@@ -9,13 +9,27 @@ the paper's Fig. 5a and written as 0.
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import torch
 
 from repro_torch.core.blockwise import Blocked
 from repro_torch.kernels import _build
+from repro_torch.kernels.bwma_layernorm import layernorm_plan
 
 SOFTMAX_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def softmax_plan(n: int, dtype: torch.dtype) -> Tuple[int, bool]:
+    """The kernel's walk of a logical row of padded width ``n`` (``gn * bn``
+    columns) of ``dtype``: ``(vectors_per_lane, looped)``.
+
+    The LayerNorm kernel's walk, with the same register budget: one warp
+    owns a row (4 rows to a CTA, fixed in the CUDA source) and a lane holds
+    ``vectors_per_lane`` 16-byte vectors of it, the power of two that covers
+    the row; above 16 (2048 fp32 or 4096 bf16 columns) the row takes the
+    looped path, which reads it twice."""
+    return layernorm_plan(n, dtype)
 
 
 def softmax_plain(x: torch.Tensor, n_logical: int) -> torch.Tensor:
@@ -49,8 +63,9 @@ def bwma_softmax(x_blocked, n_logical: int | None = None):
     Accepts a raw blocked tensor (``n_logical`` required) or a
     :class:`Blocked` wrapper (``n_logical`` defaults to its logical width).
     The output has the input's type (fp32 or bf16).  CUDA tensors launch
-    the kernel (contiguous, ``bn`` in 8..128 powers of two); CPU tensors
-    take :func:`softmax_plain`.
+    the kernel (contiguous, 16-byte aligned, ``bn`` in 8..128 powers of
+    two) with the plan of :func:`softmax_plan`; CPU tensors take
+    :func:`softmax_plain`.
     """
     wrapped = isinstance(x_blocked, Blocked)
     x = x_blocked.data if wrapped else x_blocked
@@ -68,9 +83,10 @@ def bwma_softmax(x_blocked, n_logical: int | None = None):
         lib = _build.library()
         entry = lib.bwma_softmax_f32 if x.dtype == torch.float32 else lib.bwma_softmax_bf16
         block_rows = math.prod(x.shape[:-4]) * gm
+        per_lane, looped = softmax_plan(gn * bn, x.dtype)
         with torch.cuda.device(x.device):
-            code = entry(x.data_ptr(), out.data_ptr(), block_rows, gn, bm, bn, n_logical,
-                         _build.stream(x.device))
+            code = entry(*_build.launch_args(x, out), block_rows, gn, bm, bn, n_logical,
+                         0 if looped else per_lane, _build.stream(x.device))
         _build.check(code, "bwma_softmax")
         bwma_softmax.launches += 1
     else:

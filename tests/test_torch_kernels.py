@@ -548,13 +548,19 @@ def test_cuda_mla_decode_matches_plain(cuda_card, dtype, B, H, r, dr, page, maxp
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("lead,gm,gn,block,n_logical", [
-    ((), 3, 5, 16, 70), ((2,), 2, 3, 8, 24), ((4, 12), 32, 32, 16, 512),
-    ((4, 12), 4, 4, 128, 512), ((2, 3), 1, 4, 128, 500), ((1,), 2, 9, 64, 555)])
-def test_cuda_softmax_matches_plain(cuda_card, dtype, lead, gm, gn, block, n_logical):
+@pytest.mark.parametrize("lead,gm,gn,bm,bn,n_logical", [
+    ((), 3, 5, 16, 16, 70), ((2,), 2, 3, 8, 8, 24), ((4, 12), 32, 32, 16, 16, 512),
+    ((4, 12), 4, 4, 128, 128, 512), ((2, 3), 1, 4, 128, 128, 500), ((1,), 2, 9, 64, 64, 555),
+    ((2,), 3, 4, 6, 16, 60),  # bm 6: a CTA of 4 rows straddles two block-rows
+    ((2,), 1, 17, 128, 128, 2176), ((1,), 2, 17, 128, 128, 2100),  # looped in fp32
+    ((1,), 1, 33, 128, 128, 4224), ((2,), 1, 33, 128, 128, 4219),  # looped in both types
+    ((2,), 2, 3, 16, 16, 1),  # one live column
+    ((), 2, 4, 16, 16, 62),  # the row ends inside its last 16-byte vector
+])
+def test_cuda_softmax_matches_plain(cuda_card, dtype, lead, gm, gn, bm, bn, n_logical):
     """fp32 within 2e-5 (the op-level tolerance); bf16 within one bf16
     rounding (both compute in fp32 and round once)."""
-    x = (_t(_rand(23, *lead, gm, gn, block, block)) * 3).to(cuda_card, dtype)
+    x = (_t(_rand(23, *lead, gm, gn, bm, bn)) * 3).to(cuda_card, dtype)
     got, want = tk.bwma_softmax(x, n_logical), softmax_plain(x, n_logical)
     assert got.dtype == dtype
     if dtype == torch.float32:
@@ -562,22 +568,56 @@ def test_cuda_softmax_matches_plain(cuda_card, dtype, lead, gm, gn, block, n_log
     else:
         assert torch.all((got.float() - want.float()).abs() <= 2.0 ** -7 * want.float().abs()
                          + 1e-6)
-    col = torch.arange(gn * block, device=cuda_card).reshape(gn, 1, block)
+    col = torch.arange(gn * bn, device=cuda_card).reshape(gn, 1, bn)
     assert torch.all(torch.where(col >= n_logical, got, 0) == 0)
     assert tk.launch_counts()["bwma_softmax"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lead,gm,gn,block,n_logical", [
+    ((4, 12), 32, 32, 16, 512), ((4, 12), 4, 4, 128, 500), ((2,), 1, 33, 128, 4219)])
+def test_cuda_softmax_is_bit_identical_run_to_run(cuda_card, dtype, lead, gm, gn, block,
+                                                  n_logical):
+    """A fixed reduction order and no atomics: the same bits every call, on
+    the register path and the looped one."""
+    x = (_t(_rand(29, *lead, gm, gn, block, block)) * 3).to(cuda_card, dtype)
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    first = tk.bwma_softmax(x, n_logical).view(bits)
+    for _ in range(3):
+        assert torch.equal(tk.bwma_softmax(x, n_logical).view(bits), first)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.uint8, torch.float64,
                                    torch.complex128])
 @pytest.mark.parametrize("lead,gm,gn,bm,bn", [
-    ((), 3, 5, 16, 16), ((2, 3), 4, 1, 128, 128), ((4, 12), 32, 4, 16, 16), ((2,), 3, 2, 8, 32)])
+    ((), 3, 5, 16, 16), ((2, 3), 4, 1, 128, 128), ((4, 12), 32, 4, 16, 16), ((2,), 3, 2, 8, 32),
+    ((2,), 3, 2, 64, 64),  # block 64: one whole block a CTA in fp32, two in bf16
+    ((2,), 3, 2, 24, 40), ((3,), 2, 5, 1, 7),  # rows of 96/160 and 4/28 bytes in fp32
+    ((7,), 3, 3, 8, 8),  # 63 blocks: not a multiple of a CTA's 64 (fp32) or 128 (bf16)
+])
 def test_cuda_transpose_bit_exact(cuda_card, dtype, lead, gm, gn, bm, bn):
     x = (_t(_rand(24, *lead, gm, gn, bm, bn)) * 50).to(cuda_card, dtype)
     got = tk.bwma_transpose(x)
     assert tuple(got.shape) == (*lead, gn, gm, bn, bm)
     assert torch.equal(got, transpose_plain(x))
     assert tk.launch_counts()["bwma_transpose"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bits", [(torch.float32, torch.int32), (torch.bfloat16, torch.int16),
+                                        (torch.float64, torch.int64)])
+@pytest.mark.parametrize("block", [16, 128])
+def test_cuda_transpose_moves_nan_payloads(cuda_card, dtype, bits, block):
+    """Random bit patterns (NaNs with every payload among them) move bit
+    for bit: the kernel moves words, not values."""
+    n = 2 * 3 * 2 * block * block
+    raw = torch.from_numpy(np.random.default_rng(25).integers(0, 256, n * dtype.itemsize,
+                                                              dtype=np.uint8))
+    x = raw.view(dtype).reshape(2, 3, 2, block, block).to(cuda_card)
+    got = tk.bwma_transpose(x)
+    assert torch.equal(got.view(bits), transpose_plain(x).view(bits))
 
 
 @pytest.mark.parametrize("plain", ["gemm", "attention", "rwma", "paged_decode", "mla_decode"])
