@@ -67,7 +67,11 @@ Phases, each printing one JSON line:
 7. mla kernels -- mla_paged_attention_decode at DeepSeek-V3 decode shapes
    (B=4, 128 heads, latent 512, rope 64, pages of 128, seq_pos
    0/127/1000/1900, a scattered page table with unmapped entries on the null
-   page; fp32 and bf16 pools), bwma_softmax at BERT-base attention-score
+   page; fp32 and bf16 pools; each slot's output also bit-identical alone,
+   behind null-page columns and run to run; the plan -- split keys, splits,
+   live CTAs -- and ptxas's registers and spills of its split and combine
+   kernels on earlier lines; its device time is the two kernels'),
+   bwma_softmax at BERT-base attention-score
    shapes (4 x 12 heads of 512 x 512, blocks 16 and 128, a full and a ragged
    logical width, fp32 and bf16; each row with its plan: rows per CTA,
    vectors per lane, looped, CTAs) and at looped widths (2176 fp32 and 4224
@@ -216,7 +220,7 @@ def host_us(fn, calls: int = 50, repeats: int = 10) -> float:
 # Kernels a wrapper launches after its first one in the same call (the
 # paged decode's combine pass): their time adds to the wrapper's kernel, but
 # they are not a launch of their own.
-FOLLOW_UP_KERNELS = ("paged_decode_combine_kernel",)
+FOLLOW_UP_KERNELS = ("paged_decode_combine_kernel", "mla_decode_combine_kernel")
 
 
 def device_profile(fn, calls: int = 20, want: str = "all") -> dict:
@@ -712,6 +716,7 @@ def kernel_of(name: str) -> str:
                          ("paged_attention_decode", "paged_decode_combine_kernel"),
                          ("paged_copy", "paged_copy_kernel"),
                          ("mla_paged_attention_decode", "mla_decode_kernel"),
+                         ("mla_paged_attention_decode", "mla_decode_combine_kernel"),
                          ("bwma_softmax", "bwma_softmax_kernel"),
                          ("bwma_transpose", "bwma_transpose_kernel")):
         if pattern in name:
@@ -723,6 +728,46 @@ def csrc_constant(source: str, name: str) -> int:
     """A ``constexpr int`` of one of the port's CUDA sources."""
     text = (SRC / "repro_torch" / "kernels" / "csrc" / source).read_text()
     return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+def ptxas_usage(source: str, kernel: str) -> "subprocess.Popen":
+    """Start ``nvcc -Xptxas -v`` on one of the port's CUDA sources with the
+    build's flags; :func:`read_ptxas` reads each instantiation of ``kernel``
+    from it."""
+    from repro_torch.kernels import _build
+
+    src = SRC / "repro_torch" / "kernels" / "csrc" / source
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src), "-o",
+           "/dev/null"]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    proc.kernel = kernel
+    return proc
+
+
+def read_ptxas(proc) -> dict:
+    """``{mangled name: {"registers": n, "stack_frame": b, "spill_stores": b,
+    "spill_loads": b}}`` for the kernel's instantiations, from
+    :func:`ptxas_usage`'s output."""
+    out, _ = proc.communicate(timeout=600)
+    if proc.returncode:
+        raise AssertionError(f"ptxas -v failed:\n{out[-2000:]}")
+    usage, name = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1) if proc.kernel in m.group(1) else None
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if name and m:
+            usage.setdefault(name, {}).update(stack_frame=int(m.group(1)),
+                                              spill_stores=int(m.group(2)),
+                                              spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if name and m:
+            usage.setdefault(name, {})["registers"] = int(m.group(1))
+    if not usage:
+        raise AssertionError(f"ptxas -v printed nothing for {proc.kernel}")
+    return usage
 
 
 def port_kernel_names() -> set:
@@ -1265,40 +1310,91 @@ def serve_phase(torch, kernels):
     return result
 
 
+# phase 7's MLA decode: one DeepSeek-V3 layer's decode (B, H, r, dr, page,
+# maxp) at these positions
+MLA_SHAPE = (4, 128, 512, 64, 128, 16)
+MLA_SEQ = [0, 127, 1000, 1900]
+
+
+def mla_table(torch):
+    """Phase 7's scattered page table (unmapped entries on the null page),
+    its positions and the model's scale, (qk_nope + qk_rope) ** -0.5."""
+    import numpy as np
+
+    B, H, r, dr, page, maxp = MLA_SHAPE
+    rng = np.random.default_rng(1)
+    table = np.zeros((B, maxp), np.int32)
+    phys = rng.permutation(np.arange(1, B * maxp + 1))
+    for b, pos in enumerate(MLA_SEQ):
+        used = pos // page + 1
+        table[b, :used] = phys[b * maxp:b * maxp + used]
+    return (torch.from_numpy(table).to("cuda"),
+            torch.tensor(MLA_SEQ, dtype=torch.int32, device="cuda"), (128 + dr) ** -0.5)
+
+
+def mla_operands(torch, gen, dtype):
+    """Phase 7's MLA decode operands in ``dtype``, drawn from ``gen``."""
+    B, H, r, dr, page, maxp = MLA_SHAPE
+    q_lat, q_rope = (torch.randn(B, 1, H, n, generator=gen, device=gen.device).to(
+        "cuda", dtype) for n in (r, dr))
+    ckv, krope = (torch.randn(B * maxp + 1, page, n, generator=gen, device=gen.device).to(
+        "cuda", dtype) for n in (r, dr))
+    return (q_lat, q_rope, ckv, krope) + mla_table(torch)[:2]
+
+
+def mla_decode_device_ms(repeats: int = 3) -> dict:
+    """The MLA decode's device ms per launch at phase 7's shape, in fp32 and
+    bf16, with its largest error against the plain version but no gate: for
+    a variant of the kernel that need not pass one (another accumulation
+    type, split or tile), run with that tree's ``src`` first on
+    ``sys.path``.  Prints and returns one JSON line."""
+    import torch
+
+    from repro_torch.kernels.paged_attention import mla_decode_plain, mla_paged_attention_decode
+
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    scale = mla_table(torch)[2]
+    row = {"phase": "mla_decode_device_ms", "module": mla_paged_attention_decode.__module__,
+           "file": sys.modules[mla_paged_attention_decode.__module__].__file__}
+    for dtype in (torch.float32, torch.bfloat16):
+        args = mla_operands(torch, gen, dtype)
+        got = mla_paged_attention_decode(*args, scale=scale).float()
+        want = mla_decode_plain(*args, scale=scale).float()
+        name = str(dtype).split(".")[-1]
+        row[f"{name}_max_abs_err"] = (got - want).abs().max().item()
+        runs = [device_and_host("mla_paged_attention_decode",
+                                lambda: mla_paged_attention_decode(*args, scale=scale))
+                for _ in range(repeats)]
+        row[f"{name}_device_ms"] = [run["device_ms"] for run in runs]
+        row[f"{name}_combine_device_ms"] = [run.get("follow_up_device_ms") for run in runs]
+    emit(row)
+    return row
+
+
 def mla_kernel_phase(torch, gen):
     """mla_paged_attention_decode, bwma_softmax and bwma_transpose against
     their plain versions at this slice's shapes, timed.  Returns {kernel:
     summary row}, each row's times for the configuration in its ``work``."""
-    import numpy as np
     import torch.nn.functional as F
 
     from repro_torch.core.layout import BlockLayout, to_blockwise
     from repro_torch.kernels.bwma_softmax import bwma_softmax, softmax_plain, softmax_plan
     from repro_torch.kernels.bwma_transpose import (bwma_transpose, transpose_plain,
                                                     transpose_plan)
-    from repro_torch.kernels.paged_attention import mla_decode_plain, mla_paged_attention_decode
+    from repro_torch.kernels.paged_attention import (mla_decode_plain, mla_decode_plan,
+                                                     mla_paged_attention_decode)
 
     out = {}
+    # registers and spills of the MLA kernels, compiled beside the timing
+    ptxas = ptxas_usage("paged_attention.cu", "mla_decode")
     # -- mla_paged_attention_decode at DeepSeek-V3 decode shapes
-    B, H, r, dr, page, maxp = 4, 128, 512, 64, 128, 16
-    scale = (128 + dr) ** -0.5  # (qk_nope + qk_rope) ** -0.5
-    seq = [0, 127, 1000, 1900]
-    num_pages = B * maxp + 1
-    rng = np.random.default_rng(1)
-    table = np.zeros((B, maxp), np.int32)
-    phys = rng.permutation(np.arange(1, num_pages))
-    for b, pos in enumerate(seq):
-        used = pos // page + 1
-        table[b, :used] = phys[b * maxp:b * maxp + used]  # unmapped: the null page
-    table_t = torch.from_numpy(table).to("cuda")
-    seq_t = torch.tensor(seq, dtype=torch.int32, device="cuda")
+    B, H, r, dr, page, maxp = MLA_SHAPE
+    seq = MLA_SEQ
+    table_t, seq_t, scale = mla_table(torch)
     n_keys = sum(p + 1 for p in seq)
     for dtype in (torch.float32, torch.bfloat16):
-        q_lat, q_rope = (torch.randn(B, 1, H, n, generator=gen, device=gen.device).to(
-            "cuda", dtype) for n in (r, dr))
-        ckv, krope = (torch.randn(num_pages, page, n, generator=gen, device=gen.device).to(
-            "cuda", dtype) for n in (r, dr))
-        args = (q_lat, q_rope, ckv, krope, table_t, seq_t)
+        args = mla_operands(torch, gen, dtype)
+        q_lat, q_rope, ckv, krope = args[:4]
         got = mla_paged_attention_decode(*args, scale=scale).float()
         want = mla_decode_plain(*args, scale=scale).float()
         torch.cuda.synchronize()
@@ -1308,6 +1404,28 @@ def mla_kernel_phase(torch, gen):
         name = str(dtype).split(".")[-1]
         if not ok:
             raise AssertionError(f"mla_paged_attention_decode {name}: max err {err}")
+        # batch invariance (each slot alone, and behind maxp doubled by
+        # null-page columns) and run-to-run bit identity
+        full = mla_paged_attention_decode(*args, scale=scale)
+        wide = mla_paged_attention_decode(*args[:4], torch.cat([table_t,
+                                                                torch.zeros_like(table_t)], 1),
+                                          seq_t, scale=scale)
+        for b in range(B):
+            alone = mla_paged_attention_decode(q_lat[b:b + 1], q_rope[b:b + 1], ckv, krope,
+                                               table_t[b:b + 1], seq_t[b:b + 1], scale=scale)
+            if not (torch.equal(alone[0], full[b]) and torch.equal(wide[b], full[b])):
+                raise AssertionError(f"mla_paged_attention_decode {name}: slot {b} is not "
+                                     "batch invariant")
+        if not torch.equal(mla_paged_attention_decode(*args, scale=scale), full):
+            raise AssertionError(f"mla_paged_attention_decode {name}: not bit-identical run "
+                                 "to run")
+        split_keys, splits = mla_decode_plan(page, maxp, dtype)
+        heads = csrc_constant("paged_attention.cu", "kMlaHeads")
+        live = sum(-(-(p + 1) // split_keys) for p in seq)
+        emit({"phase": "mla_kernels", "kernel": "mla_paged_attention_decode", "dtype": name,
+              "plan": {"split_keys": split_keys, "splits": splits, "heads_per_cta": heads,
+                       "grid": [-(-H // heads), B, splits], "live_splits": live,
+                       "live_ctas": live * -(-H // heads)}})
         # the library yardstick: SDPA over the latents gathered per slot, the
         # latent and rope parts concatenated, one shared kv head
         cg = ckv[table_t.long()].reshape(B, 1, maxp * page, r)
@@ -1330,6 +1448,7 @@ def mla_kernel_phase(torch, gen):
                "ms": time_ms(lambda: mla_paged_attention_decode(*args, scale=scale)),
                "plain_ms": time_ms(lambda: mla_decode_plain(*args, scale=scale)),
                "library_ms": time_ms(library), "bound_ms": b_ms, "bound_by": kind,
+               "batch_invariant": True, "bit_identical_run_to_run": True,
                "work": f"one layer's decode, B={B} H={H} r={r} dr={dr} page={page} "
                        f"seq_pos={seq} ({name} pools)",
                **device_and_host("mla_paged_attention_decode",
@@ -1337,7 +1456,9 @@ def mla_kernel_phase(torch, gen):
                                  library)}
         emit(row)
         out.setdefault("mla_paged_attention_decode", row)
-        del q_lat, q_rope, ckv, krope, cg, kg, qs
+        del q_lat, q_rope, ckv, krope, cg, kg, qs, full, wide
+    emit({"phase": "mla_kernels", "kernel": "mla_paged_attention_decode",
+          "ptxas": read_ptxas(ptxas)})
     # -- bwma_softmax at BERT-base attention-score shapes: 4 x 12 heads of 512 x 512
     S = 512
     rows_per_cta = csrc_constant("bwma_softmax.cu", "kRows")

@@ -58,10 +58,10 @@ _SIGNATURES = {
     # splits, scale, stream
     "paged_attention_decode_f32": ([_P] * 7 + [_I] * 7 + [_F, _P], _I),
     "paged_attention_decode_bf16": ([_P] * 7 + [_I] * 7 + [_F, _P], _I),
-    # q_lat, q_rope, ckv_pages, krope_pages, table, seq_pos, out, B, H, r, dr, page,
-    # maxp, scale, stream
-    "mla_paged_attention_decode_f32": ([_P] * 7 + [_I] * 6 + [_F, _P], _I),
-    "mla_paged_attention_decode_bf16": ([_P] * 7 + [_I] * 6 + [_F, _P], _I),
+    # q_lat, q_rope, ckv_pages, krope_pages, table, seq_pos, out, workspace, B, H, r, dr,
+    # page, maxp, splits, scale, stream
+    "mla_paged_attention_decode_f32": ([_P] * 8 + [_I] * 7 + [_F, _P], _I),
+    "mla_paged_attention_decode_bf16": ([_P] * 8 + [_I] * 7 + [_F, _P], _I),
     # pool, layers, layer_bytes, page_bytes, src, dst, stream
     "paged_copy": ([_P, _I, _L, _L, _I, _I, _P], _I),
     # x, out, block_rows, gn, bm, bn, n_logical, vectors_per_lane, stream
@@ -191,12 +191,32 @@ def as_fp32(*tensors: Optional[torch.Tensor]) -> List[Optional[torch.Tensor]]:
 
 
 def check_operands(kernel: str, *tensors: torch.Tensor) -> None:
-    """The kernels take contiguous fp32 or bf16 tensors; raise on anything else."""
+    """The kernels take fp32 or bf16 tensors; raise on anything else."""
     for t in tensors:
         if t.dtype not in KERNEL_DTYPES:
             raise TypeError(f"{kernel}: the kernels take fp32 or bf16, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{kernel}: operand of shape {tuple(t.shape)} is not contiguous")
+
+
+# copies :func:`operands` made, apart from the kernels' launch counts
+operand_copies = 0
+
+
+def operands(*tensors: Optional[torch.Tensor], aligned: bool = False) -> list:
+    """Each operand as it is where the kernel can read it in place --
+    contiguous and, with ``aligned`` (the kernels whose pointers go through
+    :func:`launch_args`), at a 16-byte address on the card -- else a fresh
+    contiguous copy, one per operand, counted in :data:`operand_copies`.
+    ``None`` passes through.  So the wrappers take any view, as the
+    reference does, and the kernel still runs, on the copy."""
+    global operand_copies
+    out = []
+    for t in tensors:
+        if t is None or (t.is_contiguous() and not (aligned and t.is_cuda and t.data_ptr() % 16)):
+            out.append(t)
+        else:
+            out.append(t.clone(memory_format=torch.contiguous_format))
+            operand_copies += 1
+    return out
 
 
 def check_block(kernel: str, *dims: int) -> None:
@@ -206,13 +226,15 @@ def check_block(kernel: str, *dims: int) -> None:
 
 
 def launch_args(*tensors: torch.Tensor) -> list:
-    """Device pointers of ``tensors``, after checking the 16-byte alignment
-    the kernels' vector loads need."""
+    """Device pointers of ``tensors``, after checking that each is
+    contiguous at the 16-byte alignment the kernels' vector loads need (the
+    wrappers pass their operands through :func:`operands` first)."""
     ptrs = []
     for t in tensors:
         ptr = t.data_ptr()
-        if ptr % 16:
-            raise ValueError(f"operand of shape {tuple(t.shape)} is not 16-byte aligned")
+        if ptr % 16 or not t.is_contiguous():
+            raise ValueError(f"operand of shape {tuple(t.shape)} is not contiguous at a "
+                             "16-byte aligned address")
         ptrs.append(ptr)
     return ptrs
 

@@ -147,6 +147,7 @@ def bwma_attention(q, k, v, *, scale: float, s_logical: int | None = None):
     qa = q.data if wrapped else q
     ka = k.data if wrapped else k
     va = v.data if wrapped else v
+    qa, ka, va = _build.operands(qa, ka, va, aligned=True)
     if s_logical is None:
         if not wrapped:
             raise ValueError("s_logical is required for raw blocked arrays")

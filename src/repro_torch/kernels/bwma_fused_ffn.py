@@ -34,12 +34,13 @@ def bwma_fused_ffn(a_blocked, w_blocked, bias_blocked: torch.Tensor):
         raise TypeError("pass both matrix operands as Blocked or both as raw blocked arrays")
     a = a_blocked.data if wrapped else a_blocked
     w = w_blocked.data if wrapped else w_blocked
-    if _build.on_cuda("bwma_fused_ffn", a, w, bias_blocked):
-        out = launch_gemm("bwma_fused_ffn", a, w, bias_blocked)
+    a, w, bias = _build.operands(a, w, bias_blocked, aligned=True)
+    if _build.on_cuda("bwma_fused_ffn", a, w, bias):
+        out = launch_gemm("bwma_fused_ffn", a, w, bias)
         bwma_fused_ffn.launches += 1
     else:
-        check_gemm("bwma_fused_ffn", a, w, bias_blocked)
-        out = ffn_plain(a, w, bias_blocked)
+        check_gemm("bwma_fused_ffn", a, w, bias)
+        out = ffn_plain(a, w, bias)
     if wrapped:
         return Blocked(out.to(a_blocked.dtype), (a_blocked.shape[0], w_blocked.shape[1]),
                        a_blocked.layout)

@@ -136,6 +136,7 @@ def bwma_gemm(a_blocked, b_blocked):
         if a.shape[1] != b.shape[0]:
             raise ValueError(f"inner dims mismatch: {a.shape} @ {b.shape}")
         a, b = a_blocked.data, b_blocked.data
+    a, b = _build.operands(a, b, aligned=True)
     if _build.on_cuda("bwma_gemm", a, b):
         out = launch_gemm("bwma_gemm", a, b, None)
         bwma_gemm.launches += 1

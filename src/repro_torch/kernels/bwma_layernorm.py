@@ -106,12 +106,13 @@ def bwma_layernorm(x_blocked, gamma_blocked: torch.Tensor, beta_blocked: torch.T
         if not wrapped:
             raise ValueError("n_logical is required for raw blocked arrays")
         n_logical = x_blocked.shape[1]
-    if _build.on_cuda("bwma_layernorm", x, gamma_blocked, beta_blocked):
-        out = launch_layernorm(x, gamma_blocked, beta_blocked, n_logical, eps)
+    x, gamma, beta = _build.operands(x, gamma_blocked, beta_blocked, aligned=True)
+    if _build.on_cuda("bwma_layernorm", x, gamma, beta):
+        out = launch_layernorm(x, gamma, beta, n_logical, eps)
         bwma_layernorm.launches += 1
     else:
-        _check(x, gamma_blocked, beta_blocked, n_logical)
-        out = layernorm_plain(x, gamma_blocked, beta_blocked, n_logical, eps)
+        _check(x, gamma, beta, n_logical)
+        out = layernorm_plain(x, gamma, beta, n_logical, eps)
     if wrapped:
         return Blocked(out, x_blocked.shape, x_blocked.layout)
     return out

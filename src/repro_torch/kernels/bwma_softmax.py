@@ -63,9 +63,9 @@ def bwma_softmax(x_blocked, n_logical: int | None = None):
     Accepts a raw blocked tensor (``n_logical`` required) or a
     :class:`Blocked` wrapper (``n_logical`` defaults to its logical width).
     The output has the input's type (fp32 or bf16).  CUDA tensors launch
-    the kernel (contiguous, 16-byte aligned, ``bn`` in 8..128 powers of
-    two) with the plan of :func:`softmax_plan`; CPU tensors take
-    :func:`softmax_plain`.
+    the kernel (``bn`` in 8..128 powers of two; a view, or an operand off a
+    16-byte address, on a contiguous copy: :func:`_build.operands`) with the
+    plan of :func:`softmax_plan`; CPU tensors take :func:`softmax_plain`.
     """
     wrapped = isinstance(x_blocked, Blocked)
     x = x_blocked.data if wrapped else x_blocked
@@ -75,10 +75,8 @@ def bwma_softmax(x_blocked, n_logical: int | None = None):
         n_logical = x_blocked.shape[1]
     gm, gn, bm, bn = _check(x, n_logical)
     if _build.on_cuda("bwma_softmax", x):
-        if not x.is_contiguous():
-            raise ValueError(f"bwma_softmax: operand of shape {tuple(x.shape)} "
-                             "is not contiguous")
         _build.check_block("bwma_softmax", bn)
+        x, = _build.operands(x, aligned=True)
         out = torch.empty_like(x)
         lib = _build.library()
         entry = lib.bwma_softmax_f32 if x.dtype == torch.float32 else lib.bwma_softmax_bf16

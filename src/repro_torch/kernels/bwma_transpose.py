@@ -78,17 +78,16 @@ def bwma_transpose(x_blocked):
 
     Accepts a raw blocked tensor or a :class:`Blocked` wrapper, which comes
     back with the swapped logical shape and layout.  CUDA tensors launch the
-    kernel (contiguous) with the tiling of :func:`transpose_plan`; CPU
-    tensors take :func:`transpose_plain`.
+    kernel (a view on a contiguous copy) with the tiling of
+    :func:`transpose_plan`; CPU tensors take :func:`transpose_plain`.
     """
     wrapped = isinstance(x_blocked, Blocked)
     x = x_blocked.data if wrapped else x_blocked
     if x.dim() < 4:
         raise ValueError(f"bwma_transpose: x needs 4 blocked dims, got {tuple(x.shape)}")
     if _build.on_cuda("bwma_transpose", x):
-        if not x.is_contiguous():
-            raise ValueError(f"bwma_transpose: operand of shape {tuple(x.shape)} "
-                             "is not contiguous")
+        # a view is copied; an unaligned one is not: the plan narrows its word
+        x, = _build.operands(x)
         esz = x.element_size()
         if esz not in WORD_BYTES or x.data_ptr() % esz:
             raise TypeError(f"bwma_transpose: {x.dtype} elements at address "

@@ -57,35 +57,51 @@
 // r), q_rope (B, 1, H, dr); pools c_kv (num_pages, page, r) and k_rope
 // (num_pages, page, dr), fp32 or bf16 (all four of one type); out (B, 1, H,
 // r) in the pools' type.  The scores, running max, probabilities and rescale
-// factors are fp32 values and the probabilities stay fp32 for the p @ c_kv
-// product, as in the TPU kernel; the dot products and the sums over keys
-// accumulate in a wider type (fp64 for fp32 pools, see MlaAcc) and round
-// once.
+// factors are fp32 values and the probabilities keep fp32 precision for the
+// p @ c_kv product, as in the TPU kernel; the dot products and the sums over
+// keys accumulate in a wider type (fp64 for fp32 pools, see MlaMath) and
+// round once.
 //
-// What bounds it on this card: one latent row (r + dr values) serves every
-// query head, so each element loaded feeds 2 H multiply-adds (scores) plus
-// H (the latent-space output) -- about 120 flop per fp32 byte at H = 128 --
-// so with fp32 pools it is bound by operations (67 TFLOP/s fp32 outside the
-// tensor cores; this kernel's fp64 accumulation runs at half that), not by
-// the bytes of the latent history.  With bf16 pools the bf16 tensor-core
-// rate makes the bytes the bound.
+// What bounds it on this card: MLA decode is multi-query -- every query head
+// reads the same latent row (r + dr values) -- so the scores are a small
+// GEMM [heads x (r + dr)] @ [(r + dr) x keys] and the output another,
+// [heads x keys] @ [keys x r]: about 120 flop per fp32 byte at H = 128, so
+// it is bound by operations, not by the bytes of the latent history.
 //
 // Design.  The TPU grid (B, maxp) keeps an (H, r) fp32 accumulator for all
-// heads in VMEM; at DeepSeek-V3 width that is 256 KB, more than a block's
-// 227 KB of shared memory, and one fp32 page of 128 latents is 288 KB.  So
-// one CTA owns one (slot, group of kMlaHeads query heads) and walks the
-// slot's whole page-table row, stopping at the page that holds seq_pos
-// (exact for the same reason as the GQA decode), and streams each page in tiles
-// of kMlaKeys keys.  A tile of latent + rope rows is loaded once into shared
-// memory (fp32, odd row stride) and serves the group's heads: in the score
-// phase lane t scores key t and warp w sums the dimensions d = w (mod 8), for
-// all heads of the group at once, then the partial sums meet in shared
-// memory; warp g then holds head g's scores of the tile, one per lane, and
-// updates that head's running max and denominator with warp shuffles; in the
-// output phase each thread owns latent columns c = tid + 256 j of every head
-// of the group in registers, so the accumulator never touches shared memory.
-// Heads past H (a partial last group) compute on zeros and are not written.
-// No tensor cores, no split over the keys: simple first.
+// heads in VMEM and walks a slot's pages in order.  Here, as in the GQA
+// decode, the history is split:
+// - mla_decode_kernel, grid (ceil(H / kMlaHeads), B, splits): a CTA owns the
+//   kSplitKeys keys [z kSplitKeys, (z + 1) kSplitKeys) of one slot (256 for
+//   fp32 pools, 128 for bf16; MlaMath) and kMlaHeads query heads.  The
+//   partition is fixed in keys, so a slot's output depends on its own q,
+//   keys and seq_pos alone; CTAs past a slot's last key return at once.  The
+//   CTA loads seq_pos and its keys' table entries together, then stages the
+//   query in the ring's last stage behind the first tiles' copies.  Latent +
+//   rope rows stream in tiles of kTileKeys through a ring of kStages stages
+//   in the pools' own type, each completing an mbarrier: one bulk copy (the
+//   Tensor Memory Accelerator) a row part where r, dr and the pools allow
+//   16-byte words, else cp.async words of 8, 4 or 2 bytes that arrive on
+//   it; rows past the split's end repeat its last key, which the softmax
+//   gives p = 0.  Each tile: (1) the warps split the dimensions kDimGroups
+//   ways (and the keys the rest) and compute partial scores on the tensor
+//   cores, the query fragments held in registers for the whole split; (2) a
+//   thread per (head, key) sums the partials in a fixed order, scales,
+//   masks, and updates the head's running max and denominator with shuffles
+//   over the head's 16 threads; (3) warp w owns the latent columns [64 w,
+//   64 w + 64) of every head and adds P @ c_kv on the tensor cores after
+//   rescaling.  The CTA writes its partial (m, l, acc) to a workspace.
+//   fp32 pools: mma.sync m16n8k8 in fp64 (the FP64 tensor cores, at the
+//   fp32 FFMA rate; fp32 inputs widen exactly, each product is exact and
+//   each sum is an fp64 sum), 16-key tiles, P in fp64.  bf16 pools: mma.sync
+//   m16n8k16 bf16 with fp32 accumulators (products of bf16 inputs are exact
+//   in fp32), 32-key tiles through ldmatrix; P is split into kMlaPParts
+//   bf16 parts (hi + mid + lo keeps 24 of its bits), each a product of its
+//   own: with two parts, outputs near zero can miss the bf16 gate.
+// - mla_decode_combine_kernel, grid (H, B): merges a head's partials in
+//   ascending split order (m = max m_i, l = sum l_i e^(m_i - m), acc
+//   likewise, in the accumulation type), divides and rounds once.
+// Keys past seq_pos are never read.  No atomics.
 //
 // paged_copy: copy page src -> dst in every layer of one stacked pool
 // (L, num_pages, page, ...) in place, whatever its element type: 16-byte
@@ -97,6 +113,7 @@
 #include <cuda_runtime.h>
 
 #include <cfloat>
+#include <type_traits>
 
 namespace {
 
@@ -557,25 +574,77 @@ int launch_decode(const void* q, const void* k, const void* v, const int* table,
 
 constexpr int kMlaThreads = 256;
 constexpr int kMlaWarps = kMlaThreads / 32;
-constexpr int kMlaHeads = 8;     // query heads per CTA
-constexpr int kMlaKeys = 32;     // keys per tile: one per lane in the score phase
-constexpr int kMlaMaxCols = 4;   // latent columns per thread: r <= 4 * kMlaThreads
-static_assert(kMlaWarps == kMlaHeads, "warp g updates head g's softmax state");
+constexpr int kMlaHeads = 16;         // query heads per CTA: one m16 tile
+constexpr int kMlaMaxLatent = 512;    // r: kMlaWarps warps x 64 output columns
+constexpr int kMlaMaxDims = 576;      // r + dr: the query fragments a warp holds in registers
+constexpr int kMlaColsPerWarp = kMlaMaxLatent / kMlaWarps;
+constexpr int kMlaPParts = 3;         // bf16 parts of each probability in P @ V (bf16 pools)
+constexpr int kMlaCombineThreads = 128;
+static_assert(kMlaHeads == 16, "a head's softmax runs on 16 threads; one m16 tile of heads");
+static_assert(kMlaColsPerWarp == 64, "warp w owns the latent columns [64 w, 64 w + 64)");
 
-// The accumulation type: fp64 for fp32 pools, fp32 for bf16 pools.  At
-// DeepSeek-V3 width an fp32 sum over 1901 keys (and a 576-term score) in
-// another order than the plain version's drifts by tens of half-ulps, past
-// the 1e-6 the fp32 comparison allows; a wider sum rounds once, where the
-// plain version rounds too.
+// The math of each pool type.  Acc: the accumulation type, fp64 for fp32
+// pools -- at DeepSeek-V3 width an fp32 sum over 1901 keys (and a 576-term
+// score) in another order than the plain version's drifts by tens of
+// half-ulps, past the 1e-6 the fp32 comparison allows; a wider sum rounds
+// once, where the plain version rounds too.  kDimGroups: the warps that
+// split a tile's dimensions in the score phase (the others split its keys);
+// kStep: the depth of one mma, in dimensions (scores) or keys (P @ V).
+// kStages >= 2: the query is staged in the ring's last stage.  kSplitKeys:
+// the fixed partition of a slot's history, keys per CTA (at most one a
+// thread: each looks up one key's page).
 template <typename T>
-struct MlaAcc;
+struct MlaMath;
 template <>
-struct MlaAcc<float> {
-  using type = double;
+struct MlaMath<float> {
+  using Acc = double;
+  static constexpr int kSplitKeys = 256;  // one CTA a SM: 112 CTAs, one round, at the phase-7 shape
+  static constexpr int kTileKeys = 16;
+  static constexpr int kStages = 3;       // depth of the ring
+  static constexpr int kDimGroups = 8;
+  static constexpr int kStep = 8;         // mma m16n8k8 f64
+  static constexpr int kProbStride = 17;  // doubles a head's probabilities take
+  static constexpr int kMinBlocks = 1;
 };
 template <>
-struct MlaAcc<__nv_bfloat16> {
-  using type = float;
+struct MlaMath<__nv_bfloat16> {
+  using Acc = float;
+  static constexpr int kSplitKeys = 128;  // two CTAs a SM: all 200 at once
+  static constexpr int kTileKeys = 32;
+  static constexpr int kStages = 2;       // two CTAs a SM keep two rings in flight
+  static constexpr int kDimGroups = 4;
+  static constexpr int kStep = 16;        // mma m16n8k16 bf16
+  static constexpr int kProbStride = 40;  // bf16 a head's probabilities take: rows 80 bytes apart
+  static constexpr int kMinBlocks = 2;
+};
+
+// Shared memory of the split kernel, in bytes from the start: the ring
+// (kStages x kTileKeys rows of dp values in the pools' type, dp = r + dr
+// rounded up to whole mma steps of every dimension group, zero past r + dr,
+// 16 bytes of padding a row: ldmatrix and the fp32 fragment loads then hit
+// distinct banks; the last stage holds the query until the loop starts);
+// each key's row index in the pools; the partial scores (dim groups x heads
+// x keys, Acc); the tile's probabilities (fp64 for fp32 pools, kMlaPParts
+// bf16 planes for bf16 pools); each head's rescale factor.
+template <typename T>
+struct MlaLayout {
+  int dp, row_bytes;
+  long long rows, part, prob, alpha, bytes;
+  __host__ __device__ explicit MlaLayout(int dims) {
+    using M = MlaMath<T>;
+    constexpr int q = M::kStep * M::kDimGroups;
+    dp = (dims + q - 1) / q * q;
+    row_bytes = dp * static_cast<int>(sizeof(T)) + 16;
+    rows = static_cast<long long>(M::kStages) * M::kTileKeys * row_bytes;
+    part = rows + 8LL * M::kSplitKeys;
+    prob = part + static_cast<long long>(sizeof(typename M::Acc)) * M::kDimGroups * kMlaHeads *
+                      M::kTileKeys;
+    const long long prob_bytes =
+        sizeof(T) == 4 ? 8LL * kMlaHeads * M::kProbStride
+                       : 2LL * kMlaPParts * kMlaHeads * M::kProbStride;
+    alpha = prob + (prob_bytes + 15) / 16 * 16;
+    bytes = alpha + 4LL * kMlaHeads;
+  }
 };
 
 struct MlaArgs {
@@ -586,193 +655,586 @@ struct MlaArgs {
   const int* table;
   const int* seq_pos;
   void* out;
-  int H, r, dr, page, maxp;
+  // partials: l (B, H, splits) in Acc, then m (B, H, splits) and acc (B, H,
+  // splits, r) in fp32 (an fp32 acc of one split adds at most an ulp)
+  void* ws;
+  int B, H, r, dr, page, maxp, splits;
+  int copy_bytes;    // 16, 8, 4 or 2: the widest word every latent and rope row is aligned to
+  int q_copy_bytes;  // ... and every q_lat and q_rope row
   float scale;
 };
 
-// An odd row stride: lanes reading the same column of 32 consecutive rows
-// hit 32 different banks.
-__host__ __device__ inline int mla_row_stride(int D) { return D | 1; }
+// D (16 x 8, fp64) += A (16 x 8) B (8 x 8): a0..a3 = A[g][t], A[g + 8][t],
+// A[g][t + 4], A[g + 8][t + 4]; b0, b1 = B[t][g], B[t + 4][g]; d0..d3 =
+// D[g][2t], D[g][2t + 1], D[g + 8][2t], D[g + 8][2t + 1] (g = lane / 4,
+// t = lane % 4).  Not volatile, here and below: the compiler may then
+// interleave the products of independent accumulators.
+__device__ __forceinline__ void mma_f64(double (&c)[4], const double (&a)[4], double b0,
+                                        double b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b0), "d"(b1));
+}
 
-// Shared memory: in the accumulation type, the group's queries (kMlaHeads x
-// D, latent then rope), the score phase's partial sums (warps x heads x
-// keys) and each head's final denominator; in fp32, a tile of latent + rope
-// rows (kMlaKeys x stride), the tile's probabilities (keys x heads, 16-byte
-// aligned) and each head's rescale factor.
-__host__ __device__ inline long long mla_smem_bytes(int D, int acc_bytes) {
-  return static_cast<long long>(acc_bytes) *
-             (static_cast<long long>(kMlaHeads) * D + kMlaWarps * kMlaHeads * kMlaKeys +
-              kMlaHeads) +
-         4LL * (static_cast<long long>(kMlaKeys) * mla_row_stride(D) + kMlaKeys * kMlaHeads +
-                kMlaHeads);
+// D (16 x 8, fp32) += A (16 x 16, bf16) B (16 x 8, bf16); fragments as
+// ldmatrix gives them, D as above.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* ptr) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&x)[4], const void* smem) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(x[0]), "=r"(x[1]), "=r"(x[2]), "=r"(x[3])
+               : "r"(smem_u32(smem))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&x)[4], const void* smem) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(x[0]), "=r"(x[1]), "=r"(x[2]), "=r"(x[3])
+               : "r"(smem_u32(smem))
+               : "memory");
+}
+
+// The keys of slot b that count: 0 .. seq_pos (inclusive), within the
+// table's reach.
+__device__ __forceinline__ long long mla_slot_keys(const MlaArgs& p, int pos) {
+  const long long n = static_cast<long long>(pos) + 1;
+  const long long reach = static_cast<long long>(p.maxp) * p.page;
+  return n < reach ? n : reach;
+}
+
+// The ring's barriers: one mbarrier a stage (and one for the query) that
+// completes when the stage's rows have landed.  With 16-byte rows (r and dr
+// in whole 16-byte words at 16-byte aligned pools) one thread arms it with
+// the stage's bytes and warp 0 copies each row with one bulk copy (the
+// Tensor Memory Accelerator); else every thread copies words with cp.async
+// and arrives when its copies land.
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_bytes(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_on_copies(unsigned long long* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The two parts of one row to copy: a latent (or q_lat) row and a rope (or
+// q_rope) row, which lands right after it.
+struct RowSrc {
+  const unsigned char* a;
+  const unsigned char* b;
+};
+
+// Copy n_rows rows (row i from src(i), a_bytes then row_data - a_bytes)
+// into ring rows of row_bytes and complete `bar` when they land: bulk
+// copies issued by warp 0 (n_rows <= 32) where W is 16, else cp.async
+// words of W from every thread (warp w takes the rows w, w + kMlaWarps, ...,
+// its lanes the words).
+template <typename Src>
+__device__ __forceinline__ void copy_rows(unsigned char* dst, int row_bytes, int n_rows,
+                                          int a_bytes, int row_data, int W, Src src,
+                                          unsigned long long* bar) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (W == 16) {
+    if (warp == 0) {
+      if (lane == 0) mbar_expect_bytes(bar, static_cast<unsigned>(n_rows * row_data));
+      __syncwarp();
+      if (lane < n_rows) {
+        const RowSrc from = src(lane);
+        unsigned char* d = dst + lane * row_bytes;
+        bulk_copy(d, from.a, a_bytes, bar);
+        if (row_data > a_bytes) bulk_copy(d + a_bytes, from.b, row_data - a_bytes, bar);
+      }
+    }
+    return;
+  }
+  const int wa = a_bytes / W;
+  const int wrow = row_data / W;
+  for (int i = warp; i < n_rows; i += kMlaWarps) {
+    const RowSrc from = src(i);
+    unsigned char* d = dst + i * row_bytes;
+    for (int w = lane; w < wrow; w += 32)
+      copy_word(d + w * W, w < wa ? from.a + w * W : from.b + (w - wa) * W, W);
+  }
+  mbar_arrive_on_copies(bar);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kMlaThreads) mla_decode_kernel(MlaArgs p) {
-  using A = typename MlaAcc<T>::type;
-  extern __shared__ __align__(16) unsigned char mla_smem[];
-  const int b = blockIdx.x;
-  const int h0 = blockIdx.y * kMlaHeads;
-  const int r = p.r;
-  const int dr = p.dr;
-  const int D = r + dr;
-  const int ks = mla_row_stride(D);
-  A* q_s = reinterpret_cast<A*>(mla_smem);
-  A* part_s = q_s + kMlaHeads * D;
-  A* l_s = part_s + kMlaWarps * kMlaHeads * kMlaKeys;
-  float* kv_s = reinterpret_cast<float*>(l_s + kMlaHeads);
-  float* p_s = kv_s + kMlaKeys * ks;  // 16-byte aligned: every region above is
-  float* a_s = p_s + kMlaKeys * kMlaHeads;
+__global__ void __launch_bounds__(kMlaThreads, MlaMath<T>::kMinBlocks)
+    mla_decode_kernel(MlaArgs p) {
+  using M = MlaMath<T>;
+  using A = typename M::Acc;
+  constexpr bool kF64 = sizeof(T) == 4;
+  constexpr int SK = M::kSplitKeys;
+  constexpr int TK = M::kTileKeys;
+  constexpr int kS = M::kStages;
+  static_assert(SK <= kMlaThreads && SK % TK == 0, "a thread a key; whole tiles");
+  constexpr int DG = M::kDimGroups;
+  constexpr int KS_MAX = kMlaMaxDims / (M::kStep * DG);  // mma steps a dim group takes
+  constexpr int esz = static_cast<int>(sizeof(T));
+  const int b = blockIdx.y;
+  const int z = blockIdx.z;
+  const int h0 = blockIdx.x * kMlaHeads;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
+  const int g = lane >> 2;   // an mma fragment's row group
+  const int t = lane & 3;    // ... and its column pair
+  const int i8 = lane >> 3;  // the ldmatrix matrix this lane addresses
+  const int r8 = lane & 7;   // ... and its row
+  const int r = p.r;
+  const int D = r + p.dr;
+  const MlaLayout<T> L(D);
+  extern __shared__ __align__(16) unsigned char mla_smem[];
+  unsigned char* ring = mla_smem;
+  long long* rows_s = reinterpret_cast<long long*>(mla_smem + L.rows);
+  A* part = reinterpret_cast<A*>(mla_smem + L.part);
+  float* alpha_s = reinterpret_cast<float*>(mla_smem + L.alpha);
 
-  const T* ql = static_cast<const T*>(p.q_lat) + static_cast<long long>(b) * p.H * r;
-  const T* qr = static_cast<const T*>(p.q_rope) + static_cast<long long>(b) * p.H * dr;
-  for (int e = tid; e < kMlaHeads * D; e += kMlaThreads) {
-    const int g = e / D;
-    const int d = e - g * D;
-    const int h = h0 + g;
-    float v = 0.0f;
-    if (h < p.H)
-      v = d < r ? to_f32(ql[static_cast<long long>(h) * r + d])
-                : to_f32(qr[static_cast<long long>(h) * dr + (d - r)]);
-    q_s[e] = static_cast<A>(v);
-  }
-
-  A acc[kMlaMaxCols][kMlaHeads];
-#pragma unroll
-  for (int j = 0; j < kMlaMaxCols; ++j)
-#pragma unroll
-    for (int g = 0; g < kMlaHeads; ++g) acc[j][g] = 0;
-  // head h0 + warp's running max and denominator, the same on every lane
-  float m_run = kMask;
-  A l_run = 0;
-
-  const int* row = p.table + static_cast<long long>(b) * p.maxp;
-  long long n_keys = static_cast<long long>(p.seq_pos[b]) + 1;
+  // seq_pos and this thread's key's table entry, in flight together
   const long long reach = static_cast<long long>(p.maxp) * p.page;
-  if (n_keys > reach) n_keys = reach;
-  const int n_pages = static_cast<int>((n_keys + p.page - 1) / p.page);
+  const long long key0 = static_cast<long long>(z) * SK;
+  const long long my_key = key0 + tid;
+  const int pos = p.seq_pos[b];
+  int phys = 0;
+  if (tid < SK && my_key < reach)
+    phys = p.table[static_cast<long long>(b) * p.maxp + my_key / p.page];
+  const long long n_keys = mla_slot_keys(p, pos);
+  if (key0 >= n_keys) return;  // past the slot's last key
+  const int n = static_cast<int>(n_keys - key0 < SK ? n_keys - key0 : SK);
+  // the ring's barriers (the query's last), before anything arrives on them
+  __shared__ unsigned long long full_s[kS + 1];
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kS; ++s) mbar_init(full_s + s, p.copy_bytes == 16 ? 1 : kMlaThreads);
+    mbar_init(full_s + kS, p.q_copy_bytes == 16 ? 1 : kMlaThreads);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the query, into the ring's last stage: row hl is head h0 + hl (rows past
+  // H repeat head H - 1; their outputs are dropped).  Bulk copies leave from
+  // warp 0 at once (the warp of the thread that set up the barriers), words
+  // from every thread after the barrier below.
+  const int data = D * esz;
+  const long long c_bytes = static_cast<long long>(r) * esz;
+  const long long r_bytes = static_cast<long long>(p.dr) * esz;
+  unsigned char* q_s = ring + (kS - 1) * TK * L.row_bytes;
+  auto stage_query = [&] {
+    copy_rows(
+        q_s, L.row_bytes, kMlaHeads, r * esz, data, p.q_copy_bytes,
+        [&](int hl) {
+          const long long h =
+              static_cast<long long>(b) * p.H + (h0 + hl < p.H ? h0 + hl : p.H - 1);
+          return RowSrc{static_cast<const unsigned char*>(p.q_lat) + h * c_bytes,
+                        static_cast<const unsigned char*>(p.q_rope) + h * r_bytes};
+        },
+        full_s + kS);
+  };
+  if (p.q_copy_bytes == 16) {
+    __syncwarp();
+    stage_query();
+  }
+  if (tid < n) rows_s[tid] = static_cast<long long>(phys) * p.page + my_key % p.page;
+  // the rows' padding past r + dr: zero once, no copy writes it
+  const int tail = L.dp * esz - data;
+  for (int e = tid; e < kS * TK * tail; e += kMlaThreads) {
+    const int i = e / tail;
+    ring[i * L.row_bytes + data + (e - i * tail)] = 0;
+  }
+  __syncthreads();
+  if (p.q_copy_bytes != 16) stage_query();
 
-  for (int j = 0; j < n_pages; ++j) {
-    const long long phys = row[j];
-    const T* cpage = static_cast<const T*>(p.ckv) + phys * p.page * r;
-    const T* rpage = static_cast<const T*>(p.krope) + phys * p.page * dr;
-    for (int t0 = 0; t0 < p.page; t0 += kMlaKeys) {
-      const long long key0 = static_cast<long long>(j) * p.page + t0;
-      if (key0 >= n_keys) break;
-      int n = p.page - t0;
-      if (n > kMlaKeys) n = kMlaKeys;
-      if (n_keys - key0 < n) n = static_cast<int>(n_keys - key0);
+  const unsigned char* cpool = static_cast<const unsigned char*>(p.ckv);
+  const unsigned char* rpool = static_cast<const unsigned char*>(p.krope);
+  auto load_tile = [&](int tile) {
+    // rows past the split's end repeat its last key: finite, and p = 0
+    const int k0 = tile * TK;
+    copy_rows(
+        ring + (tile % kS) * TK * L.row_bytes, L.row_bytes, TK, r * esz, data, p.copy_bytes,
+        [&](int i) {
+          const long long row = rows_s[k0 + i < n ? k0 + i : n - 1];
+          return RowSrc{cpool + row * c_bytes, rpool + row * r_bytes};
+        },
+        full_s + tile % kS);
+  };
+  const int tiles = (n + TK - 1) / TK;
+#pragma unroll
+  for (int s = 0; s < kS - 1; ++s)
+    if (s < tiles) load_tile(s);
 
-      __syncthreads();  // the previous tile's readers (and the q load) are done
-      for (int t = warp; t < n; t += kMlaWarps) {
-        const T* c = cpage + static_cast<long long>(t0 + t) * r;
-        const T* kr = rpage + static_cast<long long>(t0 + t) * dr;
-        float* dst = kv_s + t * ks;
-        for (int d = lane; d < r; d += 32) dst[d] = to_f32(c[d]);
-        for (int d = lane; d < dr; d += 32) dst[r + d] = to_f32(kr[d]);
+  // the query fragments of the warp's dimension group, in registers for the
+  // whole split: dims [dg dpg, (dg + 1) dpg) of q_lat | q_rope (zero past)
+  const int dg = warp % DG;
+  const int kg = warp / DG;  // the warp's 16 keys of a tile in the score phase
+  const int dpg = L.dp / DG;
+  const int ks = dpg / M::kStep;
+  using QFrag = typename std::conditional<kF64, double[4], unsigned[4]>::type;
+  QFrag qf[KS_MAX];
+  mbar_wait(full_s + kS, 0);  // the query has landed; the first tiles may not have
+#pragma unroll
+  for (int j = 0; j < KS_MAX; ++j) {
+    if (j < ks) {
+      const int d = dg * dpg + j * M::kStep;
+      if constexpr (kF64) {
+        const float* qr = reinterpret_cast<const float*>(q_s);
+        const int S = L.row_bytes / 4;
+        qf[j][0] = qr[g * S + d + t];
+        qf[j][1] = qr[(8 + g) * S + d + t];
+        qf[j][2] = qr[g * S + d + t + 4];
+        qf[j][3] = qr[(8 + g) * S + d + t + 4];
+      } else {
+        ldmatrix_x4(qf[j], q_s + (r8 + 8 * (i8 & 1)) * L.row_bytes + (d + 8 * (i8 >> 1)) * 2);
       }
-      __syncthreads();
+    }
+  }
+  __syncthreads();  // the last stage is the ring's again
 
-      // partial scores: key `lane`, dimensions d = warp (mod kMlaWarps)
-      A part[kMlaHeads];
+  // the warp's latent columns of every head: acc[j] for heads g, g + 8,
+  // columns c0 + 8 j + 2 t (+1)
+  const int c0 = warp * kMlaColsPerWarp;
+  constexpr int NT = kMlaColsPerWarp / 8;
+  A acc[NT][4];
 #pragma unroll
-      for (int g = 0; g < kMlaHeads; ++g) part[g] = 0;
-      if (lane < n) {
-        const float* kt = kv_s + lane * ks;
-        for (int d = warp; d < D; d += kMlaWarps) {
-          const A kv = static_cast<A>(kt[d]);
-#pragma unroll
-          for (int g = 0; g < kMlaHeads; ++g) part[g] = fma(q_s[g * D + d], kv, part[g]);
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < kMlaHeads; ++g)
-        part_s[(warp * kMlaHeads + g) * kMlaKeys + lane] = part[g];
-      __syncthreads();
+  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0;
+  // the softmax phase: thread (head hs, keys sub + 16 u); the head's running
+  // max (the same on its 16 threads) and this thread's share of its
+  // denominator
+  const int hs = tid >> 4;
+  const int sub = tid & 15;
+  float m_run = kMask;
+  A l_part = 0;
 
-      // head `warp`, key `lane`: the fp32 score, then the online-softmax update
-      A sa = 0;
-#pragma unroll
-      for (int w = 0; w < kMlaWarps; ++w) sa += part_s[(w * kMlaHeads + warp) * kMlaKeys + lane];
-      const float s = lane < n ? static_cast<float>(sa * static_cast<A>(p.scale)) : kMask;
-      const float m_new = fmaxf(m_run, warp_max(s));
-      const float alpha = expf(m_run - m_new);
-      const float pt = expf(s - m_new);
-      l_run = l_run * static_cast<A>(alpha) + warp_sum(static_cast<A>(pt));
-      m_run = m_new;
-      p_s[lane * kMlaHeads + warp] = pt;
-      if (lane == 0) a_s[warp] = alpha;
-      __syncthreads();
+  for (int i = 0; i < tiles; ++i) {
+    // the stage of tile i - 1 is free (the loop's last barrier): fill it
+    if (i + kS - 1 < tiles) load_tile(i + kS - 1);
+    mbar_wait(full_s + i % kS, (i / kS) & 1);  // tile i has landed
+    const unsigned char* st = ring + (i % kS) * TK * L.row_bytes;
+    const int nt = n - i * TK < TK ? n - i * TK : TK;  // live keys of the tile
 
-      // acc = acc * alpha + p @ c_kv, latent columns c = tid + kMlaThreads * jc
+    // 1. partial scores: the warp's dims, its 16 keys (two n8 tiles), 16
+    // heads; even and odd steps in separate accumulators, for more mma in
+    // flight
+    A sc[2][2][4] = {};
+    if constexpr (kF64) {
+      const float* kt = reinterpret_cast<const float*>(st);
+      const int S = L.row_bytes / 4;
 #pragma unroll
-      for (int g = 0; g < kMlaHeads; ++g) {
-        const A alpha_g = static_cast<A>(a_s[g]);
+      for (int j = 0; j < KS_MAX; ++j) {
+        if (j < ks) {
+          const int d = dg * dpg + j * M::kStep + t;
 #pragma unroll
-        for (int jc = 0; jc < kMlaMaxCols; ++jc) acc[jc][g] *= alpha_g;
-      }
-      for (int t = 0; t < n; ++t) {
-        const float4 pa = *reinterpret_cast<const float4*>(p_s + t * kMlaHeads);
-        const float4 pb = *reinterpret_cast<const float4*>(p_s + t * kMlaHeads + 4);
-        const A pg[kMlaHeads] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
-        const float* kt = kv_s + t * ks;
-#pragma unroll
-        for (int jc = 0; jc < kMlaMaxCols; ++jc) {
-          const int c = tid + jc * kMlaThreads;
-          if (c < r) {
-            const A v = static_cast<A>(kt[c]);
-#pragma unroll
-            for (int g = 0; g < kMlaHeads; ++g) acc[jc][g] = fma(pg[g], v, acc[jc][g]);
+          for (int nn = 0; nn < 2; ++nn) {
+            const float* kr = kt + (kg * 16 + nn * 8 + g) * S + d;
+            mma_f64(sc[j & 1][nn], qf[j], kr[0], kr[4]);
           }
         }
       }
+    } else {
+#pragma unroll
+      for (int j = 0; j < KS_MAX; ++j) {
+        if (j < ks) {
+          unsigned bf[4];  // b0, b1 of keys kg*16 + [0, 8), then of [8, 16)
+          ldmatrix_x4(bf, st + (kg * 16 + r8 + 8 * (i8 >> 1)) * L.row_bytes +
+                              (dg * dpg + j * M::kStep + 8 * (i8 & 1)) * 2);
+          mma_bf16(sc[j & 1][0], qf[j], bf[0], bf[1]);
+          mma_bf16(sc[j & 1][1], qf[j], bf[2], bf[3]);
+        }
+      }
     }
-  }
-  if (lane == 0) l_s[warp] = l_run;
-  __syncthreads();
+#pragma unroll
+    for (int nn = 0; nn < 2; ++nn) {
+      A* dst = part + (dg * kMlaHeads + g) * TK + kg * 16 + nn * 8 + 2 * t;
+      dst[0] = sc[0][nn][0] + sc[1][nn][0];
+      dst[1] = sc[0][nn][1] + sc[1][nn][1];
+      dst[8 * TK] = sc[0][nn][2] + sc[1][nn][2];
+      dst[8 * TK + 1] = sc[0][nn][3] + sc[1][nn][3];
+    }
+    __syncthreads();
 
-  T* out = static_cast<T*>(p.out) + static_cast<long long>(b) * p.H * r;
+    // 2. the online softmax of head hs over the tile
+    {
+      constexpr int U = TK / 16;
+      float s[U];
+      float tmax = kMask;
 #pragma unroll
-  for (int g = 0; g < kMlaHeads; ++g) {
-    const int h = h0 + g;
-    if (h >= p.H) break;
-    A l = l_s[g];
-    if (l == 0) l = 1;  // unreachable: key 0 is always valid
+      for (int u = 0; u < U; ++u) {
+        const int k = sub + 16 * u;
+        A sum = 0;
 #pragma unroll
-    for (int jc = 0; jc < kMlaMaxCols; ++jc) {
-      const int c = tid + jc * kMlaThreads;
-      if (c < r)
-        out[static_cast<long long>(h) * r + c] = from_f32<T>(static_cast<float>(acc[jc][g] / l));
+        for (int d2 = 0; d2 < DG; ++d2) sum += part[(d2 * kMlaHeads + hs) * TK + k];
+        s[u] = k < nt ? static_cast<float>(sum * static_cast<A>(p.scale)) : kMask;
+        tmax = fmaxf(tmax, s[u]);
+      }
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1) tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, o));
+      const float m_new = fmaxf(m_run, tmax);
+      const float alpha = expf(m_run - m_new);
+      A psum = 0;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int k = sub + 16 * u;
+        const float pr = expf(s[u] - m_new);  // 0 for a masked key
+        psum += static_cast<A>(pr);
+        if constexpr (kF64) {
+          reinterpret_cast<double*>(mla_smem + L.prob)[hs * M::kProbStride + k] = pr;
+        } else {
+          // hi + mid + lo: each part rounds the remainder, which is exact in fp32
+          __nv_bfloat16* pl = reinterpret_cast<__nv_bfloat16*>(mla_smem + L.prob);
+          float rest = pr;
+#pragma unroll
+          for (int q = 0; q < kMlaPParts; ++q) {
+            const __nv_bfloat16 x = __float2bfloat16(rest);
+            pl[(q * kMlaHeads + hs) * M::kProbStride + k] = x;
+            rest -= __bfloat162float(x);
+          }
+        }
+      }
+      l_part = l_part * static_cast<A>(alpha) + psum;
+      m_run = m_new;
+      if (sub == 0) alpha_s[hs] = alpha;
+    }
+    __syncthreads();
+
+    // 3. acc = acc * alpha + P @ c_kv over the warp's columns
+    const A a0 = alpha_s[g], a1 = alpha_s[8 + g];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      acc[j][0] *= a0;
+      acc[j][1] *= a0;
+      acc[j][2] *= a1;
+      acc[j][3] *= a1;
+    }
+    if constexpr (kF64) {
+      const double* pd = reinterpret_cast<const double*>(mla_smem + L.prob);
+      const float* vt = reinterpret_cast<const float*>(st);
+      const int S = L.row_bytes / 4;
+#pragma unroll
+      for (int j = 0; j < TK / 8; ++j) {
+        // step j's k-indices t and t + 4 are the keys 8 j + 2 t and 8 j + 2 t
+        // + 1: a step's keys for one k-index sit 2 rows apart, so with a row
+        // stride of 4 (mod 32) words the 32 lanes' c_kv loads hit 32 banks
+        const int key = 8 * j + 2 * t;
+        const double pa[4] = {pd[g * M::kProbStride + key], pd[(8 + g) * M::kProbStride + key],
+                              pd[g * M::kProbStride + key + 1],
+                              pd[(8 + g) * M::kProbStride + key + 1]};
+        const float* vr = vt + key * S + c0 + g;
+#pragma unroll
+        for (int nn = 0; nn < NT; ++nn)
+          if (c0 + nn * 8 < r) mma_f64(acc[nn], pa, vr[nn * 8], vr[S + nn * 8]);
+      }
+    } else {
+      const unsigned char* pl = mla_smem + L.prob;
+#pragma unroll
+      for (int j = 0; j < TK / 16; ++j) {
+        unsigned pa[kMlaPParts][4];
+#pragma unroll
+        for (int q = 0; q < kMlaPParts; ++q)
+          ldmatrix_x4(pa[q], pl + ((q * kMlaHeads + r8 + 8 * (i8 & 1)) * M::kProbStride +
+                                   16 * j + 8 * (i8 >> 1)) * 2);
+        // the V fragments of half the warp's columns, then their products
+        // part by part (the smallest first), so that consecutive products go
+        // to different accumulators
+#pragma unroll
+        for (int h2 = 0; h2 < NT; h2 += NT / 2) {
+          unsigned vb[NT / 4][4];  // b0, b1 of columns n0 + [0, 8), then of n0 + [8, 16)
+#pragma unroll
+          for (int nn = 0; nn < NT / 2; nn += 2) {
+            const int n0 = c0 + (h2 + nn) * 8;
+            if (n0 < r)
+              ldmatrix_x4_trans(vb[nn / 2], st + (16 * j + r8 + 8 * (i8 & 1)) * L.row_bytes +
+                                                (n0 + 8 * (i8 >> 1)) * 2);
+          }
+#pragma unroll
+          for (int q = kMlaPParts - 1; q >= 0; --q)
+#pragma unroll
+            for (int nn = 0; nn < NT / 2; ++nn)
+              if (c0 + (h2 + nn) * 8 < r)
+                mma_bf16(acc[h2 + nn], pa[q], vb[nn / 2][2 * (nn & 1)],
+                         vb[nn / 2][2 * (nn & 1) + 1]);
+        }
+      }
+    }
+    __syncthreads();  // the stage, the partial scores and P are free
+  }
+
+  // the partial of each head for this split
+  A l = l_part;
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
+  const long long N = static_cast<long long>(p.B) * p.H * p.splits;
+  A* ws_l = static_cast<A*>(p.ws);
+  float* ws_m = reinterpret_cast<float*>(ws_l + N);
+  float* ws_acc = ws_m + N;
+  const long long slot0 = static_cast<long long>(b) * p.H * p.splits + z;
+  if (sub == 0 && h0 + hs < p.H) {
+    ws_l[slot0 + static_cast<long long>(h0 + hs) * p.splits] = l;
+    ws_m[slot0 + static_cast<long long>(h0 + hs) * p.splits] = m_run;
+  }
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    const int h = h0 + m * 8 + g;
+    if (h >= p.H) continue;
+    float* dst = ws_acc + (slot0 + static_cast<long long>(h) * p.splits) * r;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int c = c0 + j * 8 + 2 * t;
+      if (c < r) dst[c] = static_cast<float>(acc[j][2 * m]);
+      if (c + 1 < r) dst[c + 1] = static_cast<float>(acc[j][2 * m + 1]);
     }
   }
+}
+
+// One CTA per (head, slot): merges the head's partials in ascending split
+// order, kBatch splits' loads in flight at a time, each thread kMlaCombine
+// latent columns.
+constexpr int kMlaCombine = kMlaMaxLatent / kMlaCombineThreads;
+
+template <typename T>
+__global__ void __launch_bounds__(kMlaCombineThreads) mla_decode_combine_kernel(MlaArgs p) {
+  using A = typename MlaMath<T>::Acc;
+  constexpr int SK = MlaMath<T>::kSplitKeys;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const long long n_keys = mla_slot_keys(p, p.seq_pos[b]);
+  const int used =
+      n_keys > 0 ? static_cast<int>((n_keys + SK - 1) / SK) : 0;
+  const long long N = static_cast<long long>(p.B) * p.H * p.splits;
+  const long long slot0 = (static_cast<long long>(b) * p.H + h) * p.splits;
+  const A* ls = static_cast<const A*>(p.ws) + slot0;
+  const float* ms = reinterpret_cast<const float*>(static_cast<const A*>(p.ws) + N) + slot0;
+  const float* pa = reinterpret_cast<const float*>(static_cast<const A*>(p.ws) + N) + N +
+                    slot0 * p.r;
+  float m = kMask;
+  for (int i0 = 0; i0 < used; i0 += kBatch) {
+    float mi[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) mi[u] = i0 + u < used ? ms[i0 + u] : kMask;
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) m = fmaxf(m, mi[u]);
+  }
+  A l = 0;
+  A a[kMlaCombine] = {};
+  for (int i0 = 0; i0 < used; i0 += kBatch) {
+    float mi[kBatch];
+    A li[kBatch];
+    float x[kBatch][kMlaCombine];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const bool ok = i0 + u < used;
+      mi[u] = ok ? ms[i0 + u] : kMask;
+      li[u] = ok ? ls[i0 + u] : 0;
+#pragma unroll
+      for (int c = 0; c < kMlaCombine; ++c) {
+        const int col = threadIdx.x + c * kMlaCombineThreads;
+        x[u][c] = ok && col < p.r ? pa[static_cast<long long>(i0 + u) * p.r + col] : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (i0 + u < used) {
+        const A f = static_cast<A>(expf(mi[u] - m));
+        l += li[u] * f;
+#pragma unroll
+        for (int c = 0; c < kMlaCombine; ++c) a[c] += static_cast<A>(x[u][c]) * f;
+      }
+    }
+  }
+  if (l == 0) l = 1;  // no key (seq_pos < 0): zeros
+  T* out = static_cast<T*>(p.out) + (static_cast<long long>(b) * p.H + h) * p.r;
+#pragma unroll
+  for (int c = 0; c < kMlaCombine; ++c) {
+    const int col = threadIdx.x + c * kMlaCombineThreads;
+    if (col < p.r) out[col] = from_f32<T>(static_cast<float>(a[c] / l));
+  }
+}
+
+// the widest word (16, 8, 4 or 2 bytes) two rows of bytes and their bases allow
+__host__ inline int copy_width(const void* a, int a_bytes, const void* b, int b_bytes) {
+  unsigned long long align = reinterpret_cast<unsigned long long>(a) |
+                             static_cast<unsigned long long>(a_bytes);
+  if (b_bytes > 0)
+    align |= reinterpret_cast<unsigned long long>(b) | static_cast<unsigned long long>(b_bytes);
+  return align % 16 == 0 ? 16 : align % 8 == 0 ? 8 : align % 4 == 0 ? 4 : 2;
 }
 
 template <typename T>
 int launch_mla_decode(const void* q_lat, const void* q_rope, const void* ckv,
                       const void* krope, const int* table, const int* seq_pos, void* out,
-                      int B, int H, int r, int dr, int page, int maxp, float scale,
-                      void* stream) {
-  if (B < 1 || H < 1 || r < 1 || r > kMlaMaxCols * kMlaThreads || dr < 0 || page < 1 ||
-      maxp < 1)
+                      void* ws, int B, int H, int r, int dr, int page, int maxp, int splits,
+                      float scale, void* stream) {
+  if (B < 1 || B > 65535 || H < 1 || r < 1 || r > kMlaMaxLatent || dr < 0 ||
+      r + dr > kMlaMaxDims || page < 1 || maxp < 1)
     return cudaErrorInvalidValue;
-  const int groups = (H + kMlaHeads - 1) / kMlaHeads;
-  if (groups > 65535) return cudaErrorInvalidValue;
-  const long long smem = mla_smem_bytes(r + dr, sizeof(typename MlaAcc<T>::type));
+  // the wrapper sized the workspace for this many splits
+  const long long reach = static_cast<long long>(maxp) * page;
+  constexpr int SK = MlaMath<T>::kSplitKeys;
+  if (splits != (reach + SK - 1) / SK || splits > 65535)
+    return cudaErrorInvalidValue;
+  const long long smem = MlaLayout<T>(r + dr).bytes;
   if (smem > 232448) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        mla_decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+    static long long allowed[kMaxDevices] = {};
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return e;
+    if (dev >= kMaxDevices || allowed[dev] < smem) {
+      e = cudaFuncSetAttribute(mla_decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+      if (e != cudaSuccess) return e;
+      if (dev < kMaxDevices) allowed[dev] = smem;
+    }
   }
-  const MlaArgs p{q_lat, q_rope, ckv, krope, table, seq_pos, out, H, r, dr, page, maxp,
-                  scale};
-  const dim3 grid(B, groups);
-  mla_decode_kernel<T><<<grid, kMlaThreads, static_cast<size_t>(smem),
-                         static_cast<cudaStream_t>(stream)>>>(p);
+  const int esz = static_cast<int>(sizeof(T));
+  const MlaArgs p{q_lat, q_rope, ckv,  krope, table,  seq_pos,
+                  out,   ws,     B,    H,     r,      dr,
+                  page,  maxp,   splits, copy_width(ckv, r * esz, krope, dr * esz),
+                  copy_width(q_lat, r * esz, q_rope, dr * esz), scale};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((H + kMlaHeads - 1) / kMlaHeads, B, splits);
+  mla_decode_kernel<T><<<grid, kMlaThreads, static_cast<size_t>(smem), s>>>(p);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  mla_decode_combine_kernel<T><<<dim3(H, B), kMlaCombineThreads, 0, s>>>(p);
   return cudaGetLastError();
 }
 
@@ -823,21 +1285,21 @@ extern "C" int paged_attention_decode_bf16(const void* q, const void* k, const v
 extern "C" int mla_paged_attention_decode_f32(const void* q_lat, const void* q_rope,
                                               const void* ckv, const void* krope,
                                               const int* table, const int* seq_pos,
-                                              void* out, int B, int H, int r, int dr,
-                                              int page, int maxp, float scale,
+                                              void* out, void* ws, int B, int H, int r, int dr,
+                                              int page, int maxp, int splits, float scale,
                                               void* stream) {
-  return launch_mla_decode<float>(q_lat, q_rope, ckv, krope, table, seq_pos, out, B, H, r,
-                                  dr, page, maxp, scale, stream);
+  return launch_mla_decode<float>(q_lat, q_rope, ckv, krope, table, seq_pos, out, ws, B, H, r,
+                                  dr, page, maxp, splits, scale, stream);
 }
 
 extern "C" int mla_paged_attention_decode_bf16(const void* q_lat, const void* q_rope,
                                                const void* ckv, const void* krope,
                                                const int* table, const int* seq_pos,
-                                               void* out, int B, int H, int r, int dr,
-                                               int page, int maxp, float scale,
-                                               void* stream) {
-  return launch_mla_decode<__nv_bfloat16>(q_lat, q_rope, ckv, krope, table, seq_pos, out,
-                                          B, H, r, dr, page, maxp, scale, stream);
+                                               void* out, void* ws, int B, int H, int r,
+                                               int dr, int page, int maxp, int splits,
+                                               float scale, void* stream) {
+  return launch_mla_decode<__nv_bfloat16>(q_lat, q_rope, ckv, krope, table, seq_pos, out, ws,
+                                          B, H, r, dr, page, maxp, splits, scale, stream);
 }
 
 extern "C" int paged_copy(void* pool, int layers, long long layer_bytes,

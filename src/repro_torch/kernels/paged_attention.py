@@ -3,16 +3,19 @@ kernels ``csrc/paged_attention.cu`` and their plain versions.
 
 Counterpart of ``repro.kernels.paged_attention``.  The serving engine sizes
 its KV-cache pages to the kernel block so that the decode step can read
-them in place: :func:`paged_attention_decode` (K/V pages; its kernel
-splits each slot's history into fixed runs of :data:`SPLIT_KEYS` keys and
-merges their partial softmaxes) and :func:`mla_paged_attention_decode`
-(MLA's latent pages, absorbed formulation) read each key through the slot's
-page-table row with an online softmax, so the gathered history never exists
-in device memory, and :func:`paged_copy` is the copy-on-write step of
-shared-prefix serving, one page in every layer of a stacked pool, in place.
+them in place: :func:`paged_attention_decode` (K/V pages) and
+:func:`mla_paged_attention_decode` (MLA's latent pages, absorbed
+formulation) read each key through the slot's page-table row with an online
+softmax, so the gathered history never exists in device memory; their
+kernels split each slot's history into fixed runs of :data:`SPLIT_KEYS` /
+:data:`MLA_SPLIT_KEYS` keys and merge the runs' partial softmaxes.
+:func:`paged_copy` is the copy-on-write step of shared-prefix serving, one
+page in every layer of a stacked pool, in place.
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
-version for CPU tensors; ``launches`` counts the kernel launches only.
+version for CPU tensors; ``launches`` counts the kernel launches only.  The
+decodes take any view (copied first, :func:`_build.operands`); the page copy,
+which writes in place, takes a contiguous pool only.
 """
 from __future__ import annotations
 
@@ -35,6 +38,14 @@ DECODE_DTYPES = (torch.float32, torch.bfloat16)
 SPLIT_KEYS = 128
 MAX_SPLITS = 65535
 MAX_HEAD_DIM = 256
+# The MLA decode kernel's partition (MlaMath<T>::kSplitKeys), fixed in keys
+# for the same reason, for each pool type: fp32 pools run one CTA a SM, so
+# larger splits fill the card in one round; bf16 pools run two.  Its widths:
+# a warp holds the query fragments of r + dr dims (kMlaMaxDims) and the
+# output columns of r (kMlaMaxLatent, 64 a warp).
+MLA_SPLIT_KEYS = {torch.float32: 256, torch.bfloat16: 128}
+MLA_MAX_LATENT = 512
+MLA_MAX_DIMS = 576
 
 
 def decode_plan(page: int, maxp: int) -> Tuple[int, int]:
@@ -47,6 +58,26 @@ def decode_plan(page: int, maxp: int) -> Tuple[int, int]:
         raise ValueError(f"paged_attention_decode: {maxp} pages of {page} keys need "
                          f"{splits} splits of {SPLIT_KEYS}, over the grid's {MAX_SPLITS}")
     return SPLIT_KEYS, splits
+
+
+def mla_decode_plan(page: int, maxp: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """``(split_keys, splits)`` of the MLA decode kernel for pools of
+    ``dtype``, as :func:`decode_plan` with :data:`MLA_SPLIT_KEYS`."""
+    split_keys = MLA_SPLIT_KEYS[dtype]
+    splits = -(-(page * maxp) // split_keys)
+    if splits > MAX_SPLITS:
+        raise ValueError(f"mla_paged_attention_decode: {maxp} pages of {page} keys need "
+                         f"{splits} splits of {split_keys}, over the grid's {MAX_SPLITS}")
+    return split_keys, splits
+
+
+def mla_workspace_floats(B: int, H: int, splits: int, r: int, dtype: torch.dtype) -> int:
+    """The fp32 words of the MLA split kernel's partials: ``l (B, H,
+    splits)`` in the accumulation type (fp64 for fp32 pools, two words each;
+    fp32 for bf16 pools), then ``m (B, H, splits)`` and ``acc (B, H, splits,
+    r)`` in fp32."""
+    words = 2 if dtype == torch.float32 else 1
+    return B * H * splits * (words + 1 + r)
 
 
 # the split kernel's partials, one buffer per (device, stream), grown as
@@ -138,17 +169,15 @@ def paged_attention_decode(q, k_pages, v_pages, page_table, seq_pos, *,
     if not _build.on_cuda("paged_attention_decode", *tensors):
         return decode_plain(q, k_pages, v_pages, page_table, seq_pos, scale=scale)
     B, H, hkv, dh, page, maxp = _check_decode(*tensors)
-    for t in tensors:
-        if not t.is_contiguous():
-            raise ValueError(f"paged_attention_decode: operand of shape {tuple(t.shape)} "
-                             "is not contiguous")
     if dh > MAX_HEAD_DIM:
         raise ValueError(f"paged_attention_decode: the kernel takes dh up to "
                          f"{MAX_HEAD_DIM}, got {dh}")
     _, splits = decode_plan(page, maxp)
+    # a view is copied; an unaligned pool is not: the kernel narrows its words
+    tensors = _build.operands(*tensors)
     scale = dh ** -0.5 if scale is None else scale
     lib = _build.library()
-    out = torch.empty_like(q)
+    out = torch.empty_like(tensors[0])
     entry = (lib.paged_attention_decode_f32 if q.dtype == torch.float32
              else lib.paged_attention_decode_bf16)
     with torch.cuda.device(q.device):
@@ -248,25 +277,32 @@ def mla_paged_attention_decode(q_lat, q_rope, ckv_pages, krope_pages, page_table
     ``page_table``: (B, max_pages) int32; ``seq_pos``: (B,) int32, each >= 0.
     Returns the latent-space output ``o_lat`` (B, 1, H, r) in the pools'
     type -- the caller applies the value expansion.  CUDA tensors launch
-    ``csrc/paged_attention.cu``; CPU tensors take :func:`mla_decode_plain`.
+    ``csrc/paged_attention.cu`` (r up to 512, r + dr up to 576): the split
+    kernel over :func:`mla_decode_plan`'s grid, then the combine, one launch
+    in ``launches``; CPU tensors take :func:`mla_decode_plain`.
     """
     tensors = (q_lat, q_rope, ckv_pages, krope_pages, page_table, seq_pos)
     if not _build.on_cuda("mla_paged_attention_decode", *tensors):
         return mla_decode_plain(*tensors, scale=scale)
     B, H, r, dr, page, maxp = _check_mla(*tensors)
-    for t in tensors:
-        if not t.is_contiguous():
-            raise ValueError(f"mla_paged_attention_decode: operand of shape "
-                             f"{tuple(t.shape)} is not contiguous")
+    if r > MLA_MAX_LATENT or r + dr > MLA_MAX_DIMS:
+        raise ValueError(f"mla_paged_attention_decode: the kernel takes r up to "
+                         f"{MLA_MAX_LATENT} and r + dr up to {MLA_MAX_DIMS}, got r={r}, "
+                         f"dr={dr}")
+    _, splits = mla_decode_plan(page, maxp, q_lat.dtype)
+    # a view is copied; an unaligned pool is not: the kernel narrows its words
+    tensors = _build.operands(*tensors)
     lib = _build.library()
-    out = torch.empty_like(q_lat)
+    out = torch.empty_like(tensors[0])
     entry = (lib.mla_paged_attention_decode_f32 if q_lat.dtype == torch.float32
              else lib.mla_paged_attention_decode_bf16)
     with torch.cuda.device(q_lat.device):
-        # scalar loads only: no alignment beyond the element's own
-        ptrs = [t.data_ptr() for t in (*tensors, out)]
-        code = entry(*ptrs, B, H, r, dr, page, maxp, float(scale),
-                     _build.stream(q_lat.device))
+        stream = _build.stream(q_lat.device)
+        ws = _workspace(q_lat.device, stream, mla_workspace_floats(B, H, splits, r, q_lat.dtype))
+        # the kernel copies latent and rope rows in the widest words (16, 8,
+        # 4 or 2 bytes) that r, dr and the pools' addresses allow
+        ptrs = [t.data_ptr() for t in (*tensors, out, ws)]
+        code = entry(*ptrs, B, H, r, dr, page, maxp, splits, float(scale), stream)
     _build.check(code, "mla_paged_attention_decode")
     mla_paged_attention_decode.launches += 1
     return out
@@ -301,12 +337,19 @@ def paged_copy(pool: torch.Tensor, src: int, dst: int) -> torch.Tensor:
     page pool ``(L, num_pages, page, ...)``, in place, bit-exact, for any
     element type; returns ``pool`` itself (the JAX kernel aliases its output
     to the pool for the same effect).  CUDA tensors launch
-    ``csrc/paged_attention.cu``; CPU tensors take :func:`copy_plain`."""
+    ``csrc/paged_attention.cu``; CPU tensors take :func:`copy_plain`.
+
+    Unlike the other wrappers it refuses a view that is not contiguous
+    rather than copying it: the copy is written in place, and a contiguous
+    copy of the pool would take the write instead of the caller's pool.  An
+    unaligned pool is taken as it is, in narrower words."""
     if not _build.on_cuda("paged_copy", pool):
         return copy_plain(pool, src, dst)
     _check_copy(pool, src, dst)
     if not pool.is_contiguous():
-        raise ValueError(f"paged_copy: pool of shape {tuple(pool.shape)} is not contiguous")
+        raise ValueError(f"paged_copy: pool of shape {tuple(pool.shape)} is not contiguous; "
+                         "the copy is made in place, so a contiguous copy of the pool would "
+                         "take it instead")
     layers = pool.shape[0]
     page_bytes = pool[0, 0].numel() * pool.element_size()
     layer_bytes = pool.shape[1] * page_bytes

@@ -99,12 +99,14 @@ def rwma_gemm(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bk: int = 128,
     """(M, K) @ (K, N) -> (M, N) f32 with row-major (strided) operand tiles.
 
     Every shape must be a multiple of its tile, as in the JAX kernel, which
-    also takes any such tile; the operands are contiguous fp32 or bf16, and
+    also takes any such tile; the operands are fp32 or bf16 (a view, or an
+    operand off a 16-byte address, runs on a contiguous copy), and
     the result is fp32 either way (the JAX kernel's ``acc_dtype``).  CUDA
     tensors launch ``csrc/rwma_gemm.cu`` (the blocked GEMM's loop, or the
     general-tile kernel where K or N is not a multiple of 4:
     :func:`rwma_route`); CPU tensors take :func:`rwma_plain`.
     """
+    a, b = _build.operands(a, b, aligned=True)
     if not _build.on_cuda("rwma_gemm", a, b):
         return rwma_plain(a, b, bm=bm, bk=bk, bn=bn)
     out = launch_rwma(a, b, bm, bk, bn)

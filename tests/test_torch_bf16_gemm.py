@@ -150,11 +150,16 @@ def test_gemms_still_refuse_other_types_and_strided_operands(kernel):
     for bad in (torch.float64, torch.int32, torch.float16):
         with pytest.raises(TypeError, match="fp32 or bf16"):
             call(a.to(bad), a.to(bad))
-    with pytest.raises(ValueError, match="contiguous"):
-        if kernel == "rwma_gemm":
-            tk.rwma_gemm(torch.zeros(16, 32).t(), torch.zeros(16, 16), bm=16, bk=16, bn=16)
-        else:
-            call(a.to(torch.bfloat16).transpose(-1, -2), a.to(torch.bfloat16))
+    # a strided view: the answer on its contiguous copy, bit for bit
+    x, _ = _bf16(3, 2, 2, 16, 16)
+    y, _ = _bf16(4, 2, 2, 16, 16)
+    if kernel == "rwma_gemm":
+        v = _bf16(5, 16, 32)[0].t()
+        w = y.reshape(64, 16)[:16]
+        assert torch.equal(tk.rwma_gemm(v, w, bm=16, bk=16, bn=16),
+                           tk.rwma_gemm(v.contiguous(), w, bm=16, bk=16, bn=16))
+    else:
+        assert torch.equal(call(x.transpose(-1, -2), y), call(x.transpose(-1, -2).contiguous(), y))
     assert tk.launch_counts() == dict.fromkeys(tk.launch_counts(), 0)
 
 

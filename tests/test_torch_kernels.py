@@ -183,8 +183,11 @@ def test_wrappers_check_their_operands():
         tk.bwma_layernorm(a, torch.zeros(2, 16), torch.zeros(2, 16), 33)
     with pytest.raises(ValueError, match="s_logical"):
         tk.bwma_attention(a, a, a, scale=1.0, s_logical=40)
-    with pytest.raises(ValueError, match="contiguous"):
-        tk.bwma_layernorm(a.transpose(-1, -2), torch.zeros(2, 16), torch.zeros(2, 16), 16)
+    # a strided view: the plain version's answer on its contiguous copy
+    view, g, z = _t(_rand(6, 2, 2, 16, 16)).transpose(-1, -2), _t(_rand(7, 2, 16)), \
+        _t(_rand(8, 2, 16))
+    assert torch.equal(tk.bwma_layernorm(view, g, z, 20),
+                       layernorm_plain(view.contiguous(), g, z, 20))
     assert tk.launch_counts() == dict.fromkeys(tk.launch_counts(), 0)
 
 
@@ -531,6 +534,13 @@ def _mla_case(dev, B, H, r, dr, page, maxp, seq_pos, dtype):
     (2, 4, 16, 8, 8, 4, [0, 31]),
     (3, 12, 24, 8, 16, 5, [5, 16, 79]),  # a partial last group of heads
     (4, 128, 512, 64, 128, 16, [0, 127, 1000, 1900]),  # DeepSeek-V3 decode shapes
+    # the splits' edges (128 keys for bf16, 256 for fp32): seq_pos = split -
+    # 1, split, split + 1, in pages of 128 and 48
+    (3, 16, 64, 16, 128, 3, [127, 128, 129]),
+    (3, 16, 64, 16, 48, 7, [255, 256, 257]),
+    (2, 37, 64, 16, 32, 10, [3, 300]),  # H not a multiple of a CTA's 16 heads
+    (2, 20, 34, 6, 16, 12, [40, 190]),  # rows of 136 / 68 bytes: 8- / 4-byte copies
+    (2, 9, 33, 7, 16, 12, [150, 2]),  # odd r: 4-byte (fp32) and 2-byte (bf16) copies
 ])
 def test_cuda_mla_decode_matches_plain(cuda_card, dtype, B, H, r, dr, page, maxp, seq_pos):
     """fp32 within 1e-6 (the JAX suite's paged TOL); bf16 within one bf16
@@ -544,6 +554,26 @@ def test_cuda_mla_decode_matches_plain(cuda_card, dtype, B, H, r, dr, page, maxp
     else:
         assert torch.all((got - want).abs() <= 2.0 ** -7 * want.abs() + 1e-6)
     assert tk.launch_counts()["mla_paged_attention_decode"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_mla_decode_is_batch_invariant_and_bit_identical(cuda_card, dtype):
+    """At DeepSeek-V3 decode shapes: a slot's output alone, in the batch and
+    behind null-page columns is the same bits (the split is fixed in keys);
+    two launches give the same bits (no atomics, an ordered combine)."""
+    args = _mla_case(cuda_card, 4, 128, 512, 64, 128, 16, [0, 127, 1000, 1900], dtype)
+    q_lat, q_rope, ckv, krope, table, seq = args
+    full = tk.mla_paged_attention_decode(*args, scale=0.07)
+    assert torch.equal(tk.mla_paged_attention_decode(*args, scale=0.07), full)
+    wide = tk.mla_paged_attention_decode(q_lat, q_rope, ckv, krope,
+                                         torch.cat([table, torch.zeros_like(table)], 1), seq,
+                                         scale=0.07)
+    for b in range(4):
+        alone = tk.mla_paged_attention_decode(q_lat[b:b + 1], q_rope[b:b + 1], ckv, krope,
+                                              table[b:b + 1], seq[b:b + 1], scale=0.07)
+        assert torch.equal(alone[0], full[b]) and torch.equal(wide[b], full[b])
+    assert tk.launch_counts()["mla_paged_attention_decode"] == 7
 
 
 @pytest.mark.cuda
