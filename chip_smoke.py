@@ -93,8 +93,34 @@ Phases, each printing one JSON line:
    launches == 3 x decode steps; paged_copy launches == 2 x COW copies >= 2;
    a clean pool audit; a ``"reference"`` engine run launches no kernel.
    Timed in bf16 as in phase 6.
+9. moe serve -- granite-moe-3b-a800m at full width (32 layers, d_model
+   1536, 24 heads over 8 kv heads, 40 experts top-8, vocab 49155) on the
+   traffic of phase 6 with one-shot prefill (each prompt dispatched as the
+   group ``Server.generate`` uses).  Gates, in fp32: greedy tokens equal
+   ``Server.generate`` where the margin rule or the router rule excuses no
+   divergence (the rule: the baseline's top-2 logit margin below 1e-3 at
+   the divergence, or some MoE layer at a decode step up to it with its
+   k-th and (k+1)-th router probabilities within 1e-6 on the baseline's
+   path; the count each rule excused is printed, with step, layer and gap);
+   paged_attention_decode launches == 32 x decode steps; paged_copy == 2 x
+   COW copies (sharing is off under one-shot prefill); no other kernel; a
+   clean audit; a ``"reference"`` run launches nothing.  Timed in bf16 with
+   128-token chunks, as phase 6.  Then DeepSeek-V3 cut to 4 layers, its 3
+   dense ones and one MoE layer at full width (256 routed experts top-8 and
+   a shared one), bf16 only: one-shot prefill, each request's first token
+   equal to ``Server.generate``'s, mla_paged_attention_decode launches == 4
+   x decode steps and no other kernel, finite logits, a clean audit; then
+   timed as phase 6.
+10. swa serve -- h2o-danube-3-4b at full width (24 layers, d_model 3840,
+   32 heads over 8 kv heads of 120, window 4096): 3 requests of 4200-4600
+   prompt tokens (the ring wraps), 16 new tokens, max_len 8192, chunks of
+   128.  Gates, in fp32: greedy tokens under the margin rule, no kernel
+   launched (the ring path runs none), a clean audit.  Timed in bf16 on the
+   traffic of phase 6.
 
-Then the per-kernel summary line, the nvidia-smi line, and last
+Each phase's seconds follow it on a line of their own.  Then the per-kernel
+summary line (the decode kernels' and the page copy's launches per serving
+run under ``launches_by_run``), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is then
 not 0 and the last line is not printed.  Imports only ``repro_torch``,
 torch, numpy and the standard library.
@@ -165,8 +191,12 @@ PEAK_BF16_FLOPS = 989e12
 PAGED_TOL = 1e-6
 BF16_ROUNDING = 2.0 ** -7
 # Greedy tokens against the single-request baseline: a divergence must fall
-# at a step where the baseline's top-2 logit margin is below this.
+# at a step where the baseline's top-2 logit margin is below this, or, in a
+# MoE stack, after a decode step of the baseline's path where some MoE
+# layer's k-th and (k+1)-th router probabilities lay within ROUTER_GAP (a
+# near-tie that the engine's 4-slot products may resolve the other way).
 MARGIN = 1e-3
+ROUTER_GAP = 1e-6
 
 
 def emit(obj) -> None:
@@ -1100,12 +1130,29 @@ def serve_traffic(vocab: int):
 def margin_at(cfg, params, server, prompt, want, i, device="cuda"):
     """The baseline's top-2 logit margin at generated step ``i``, from
     stepping the port's ``model.prefill`` and ``model.decode_step`` along the
-    baseline's own tokens, as ``Server.generate`` does."""
+    baseline's own tokens, as ``Server.generate`` does.  Also returns the
+    router gaps on that path: ``(step, layer, gap)`` for every MoE layer of
+    every decode step ``1..i`` (the forward that produces token ``step``),
+    ``gap`` the k-th minus the (k+1)-th router probability; none for a
+    dense stack."""
     import numpy as np
     import torch
 
+    from repro_torch.models import ffn
     from repro_torch.models import model as M
     from repro_torch.serve.engine import bucket_tokens
+
+    real = ffn.moe_forward
+    at = {"step": 0, "layer": cfg.first_k_dense}
+    gaps = []
+
+    def recording(p, c, x):  # the router's probabilities, as moe_forward computes them
+        if at["step"]:
+            probs = torch.softmax(x.reshape(-1, x.shape[-1]).float() @ p["router"].float(), -1)
+            top = torch.topk(probs, c.top_k + 1, -1).values
+            gaps.append((at["step"], at["layer"], (top[:, -2] - top[:, -1]).min()))
+            at["layer"] += 1
+        return real(p, c, x)
 
     S = len(prompt)
     # the prompt shape Server.generate runs: bucketed where the family allows
@@ -1113,25 +1160,35 @@ def margin_at(cfg, params, server, prompt, want, i, device="cuda"):
         if M.supports_padded_prefill(cfg) else S
     padded = np.zeros((1, Sp), np.int32)
     padded[0, :S] = prompt
-    logits, caches = M.prefill(cfg, params, {"tokens": torch.from_numpy(padded).to(device)},
-                               S - 1)
-    caches = server._grow_cache(caches, 1, S)
-    for j in range(i):
-        tok = torch.tensor([[int(want[j])]], device=device)
-        logits, caches = M.decode_step(cfg, params, caches, tok, S + j)
+    ffn.moe_forward = recording
+    try:
+        logits, caches = M.prefill(cfg, params,
+                                   {"tokens": torch.from_numpy(padded).to(device)}, S - 1)
+        caches = server._grow_cache(caches, 1, S)
+        for j in range(i):
+            at.update(step=j + 1, layer=cfg.first_k_dense)
+            tok = torch.tensor([[int(want[j])]], device=device)
+            logits, caches = M.decode_step(cfg, params, caches, tok, S + j)
+    finally:
+        ffn.moe_forward = real
     top2 = torch.topk(logits[0, -1].float(), 2).values
-    return (top2[0] - top2[1]).item()
+    return (top2[0] - top2[1]).item(), [(s, l, float(g)) for s, l, g in gaps]
 
 
-def agree(cfg, params, prompts, got, max_new, label, device="cuda"):
+def agree(cfg, params, prompts, got, max_new, label, device="cuda", max_len=2048):
     """Greedy tokens ``got`` against the single-request ``Server.generate``
-    under the margin rule.  Returns the agreed prefix lengths."""
+    under the margin rule: a divergence at step ``i`` is excused where the
+    baseline's top-2 logit margin there is below ``MARGIN``, or (a MoE
+    stack) where some MoE layer at a decode step ``<= i`` of the baseline's
+    own path had its k-th and (k+1)-th router probabilities within
+    ``ROUTER_GAP``.  Returns the agreed prefix lengths and the excused
+    divergences, each with its rule (and the near-ties: step, layer, gap)."""
     import numpy as np
 
     from repro_torch.serve import ServeConfig, Server
 
-    server = Server(cfg, params, ServeConfig(max_len=2048), device=device)
-    agreed = []
+    server = Server(cfg, params, ServeConfig(max_len=max_len), device=device)
+    agreed, excused = [], []
     for rid, prompt in enumerate(prompts):
         want = server.generate({"tokens": prompt[None]}, max_new)[0]
         mine = np.asarray(got[rid])
@@ -1139,19 +1196,31 @@ def agree(cfg, params, prompts, got, max_new, label, device="cuda"):
             agreed.append(len(want))
             continue
         i = int(np.argmax(mine != want))
-        margin = margin_at(cfg, params, server, prompt, want, i, device)
+        margin, gaps = margin_at(cfg, params, server, prompt, want, i, device)
         agreed.append(i)
-        if not margin < MARGIN:
+        near = [{"step": s, "layer": l, "gap": g} for s, l, g in gaps if g <= ROUTER_GAP]
+        if margin < MARGIN:
+            excused.append({"rid": rid, "step": i, "rule": "margin", "margin": margin})
+        elif near:
+            excused.append({"rid": rid, "step": i, "rule": "router", "margin": margin,
+                            "near_ties": near})
+        else:
+            least = min(gaps, key=lambda t: t[2]) if gaps else None
             raise AssertionError(f"{label}: request {rid} diverges at step {i} where the "
-                                 f"baseline's top-2 margin is {margin} >= {MARGIN}")
-    return agreed
+                                 f"baseline's top-2 margin is {margin} >= {MARGIN} and no "
+                                 f"router gap is <= {ROUTER_GAP} (least: {least})")
+    return agreed, excused
+
+
+def excused_counts(excused) -> dict:
+    return {rule: sum(e["rule"] == rule for e in excused) for rule in ("margin", "router")}
 
 
 def run_engine(cfg, params, prompts, arrivals, max_new, device="cuda", **ec_kw):
     from repro_torch.serve import Engine, EngineConfig
 
-    eng = Engine(cfg, params, EngineConfig(max_seqs=4, max_len=2048, page_size=128,
-                                           prefill_chunk=128, **ec_kw), device=device)
+    ec = {"max_seqs": 4, "max_len": 2048, "page_size": 128, "prefill_chunk": 128, **ec_kw}
+    eng = Engine(cfg, params, EngineConfig(**ec), device=device)
     for rid, (p, t) in enumerate(zip(prompts, arrivals)):
         eng.submit(p, max_new, rid=rid, arrival_step=t)
     return eng
@@ -1164,17 +1233,20 @@ def drained_audit(eng):
     return stats
 
 
-def gated_serve(torch, kernels, cfg, params, prompts, arrivals, max_new, decode_kernel):
+def gated_serve(torch, kernels, cfg, params, prompts, arrivals, max_new, decode_kernel,
+                min_cow=1, **ec_kw):
     """The fp32 gates of one model through the continuous engine with the
-    ``"cuda"`` backend, counts set to 0 just before the run and read just
-    after: ``decode_kernel`` launched once per layer and decode step,
-    paged_copy twice per COW copy (>= 1 copy), no other kernel, a clean
-    audit, and greedy tokens equal to ``Server.generate`` under the margin
-    rule; then a ``"reference"`` run on three of the prompts launches no
-    kernel.  Returns the launch counts of the gated run."""
+    ``"cuda"`` backend (engine settings ``ec_kw`` beyond ``run_engine``'s),
+    counts set to 0 just before the run and read just after:
+    ``decode_kernel`` launched once per layer and decode step (None: a
+    family whose decode runs no kernel), paged_copy twice per COW copy (at
+    least ``min_cow`` copies), no other kernel, a clean audit, and greedy
+    tokens equal to ``Server.generate`` under the margin rule; then a
+    ``"reference"`` run on three of the prompts launches no kernel.
+    Returns the launch counts of the gated run."""
     import dataclasses
 
-    eng = run_engine(cfg, params, prompts, arrivals, max_new, backend="cuda")
+    eng = run_engine(cfg, params, prompts, arrivals, max_new, backend="cuda", **ec_kw)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1190,22 +1262,25 @@ def gated_serve(torch, kernels, cfg, params, prompts, arrivals, max_new, decode_
           "prefill_chunks": eng.prefill_chunks, "cow_copies": eng.kv.cow_copies,
           "cached_prompt_tokens": [r.stats.cached_prompt_tokens for r in reqs],
           "launches": counts, "audit": dataclasses.asdict(audit), "wall_s": wall})
-    if counts[decode_kernel] != cfg.n_layers * eng.decode_steps:
+    if decode_kernel is not None and counts[decode_kernel] != cfg.n_layers * eng.decode_steps:
         raise AssertionError(f"{decode_kernel} launched {counts[decode_kernel]} times, not "
                              f"{cfg.n_layers} x {eng.decode_steps} decode steps")
-    if eng.kv.cow_copies < 1 or counts["paged_copy"] != 2 * eng.kv.cow_copies:
+    if eng.kv.cow_copies < min_cow or counts["paged_copy"] != 2 * eng.kv.cow_copies:
         raise AssertionError(f"COW: {eng.kv.cow_copies} copies, paged_copy launched "
-                             f"{counts['paged_copy']} times (want 2 per copy, >= 1 copy)")
+                             f"{counts['paged_copy']} times (want 2 per copy, "
+                             f">= {min_cow} copies)")
     others = {k: n for k, n in counts.items() if n and k not in (decode_kernel, "paged_copy")}
     if others:
         raise AssertionError(f"the xla route launched other kernels: {others}")
-    agreed = agree(cfg, params, prompts, got, max_new,
-                   f"{cfg.name} fp32 engine vs Server.generate")
+    agreed, excused = agree(cfg, params, prompts, got, max_new,
+                            f"{cfg.name} fp32 engine vs Server.generate",
+                            max_len=ec_kw.get("max_len", 2048))
     emit({"phase": "serve", "model": cfg.name, "check": "tokens vs Server.generate (fp32)",
-          "agreed_prefix": agreed, "of": max_new})
+          "agreed_prefix": agreed, "of": max_new, "excused": excused_counts(excused),
+          "excused_divergences": excused})
 
     sub = [prompts[0], prompts[2], prompts[1]]
-    eng = run_engine(cfg, params, sub, [0, 4, 8], 8, backend="reference")
+    eng = run_engine(cfg, params, sub, [0, 4, 8], 8, backend="reference", **ec_kw)
     kernels.reset_launch_counts()
     eng.run()
     torch.cuda.synchronize()
@@ -1213,9 +1288,9 @@ def gated_serve(torch, kernels, cfg, params, prompts, arrivals, max_new, decode_
     drained_audit(eng)
     emit({"phase": "serve", "model": cfg.name, "run": "fp32, backend reference",
           "requests": len(sub), "cow_copies": eng.kv.cow_copies, "launches": ref_counts})
-    if any(ref_counts.values()) or eng.kv.cow_copies < 1:
+    if any(ref_counts.values()) or eng.kv.cow_copies < min_cow:
         raise AssertionError(f"reference backend: launches {ref_counts}, "
-                             f"cow {eng.kv.cow_copies}")
+                             f"cow {eng.kv.cow_copies} (want >= {min_cow})")
     return counts
 
 
@@ -1231,6 +1306,8 @@ def timed_serve(torch, cfg16, params, prompts, arrivals, max_new) -> dict:
     wall = time.perf_counter() - t0
     useful = sum(len(r.out_tokens) for r in reqs)
     drained_audit(eng)
+    shared = {"cached_prompt_tokens": [r.stats.cached_prompt_tokens for r in reqs],
+              "cow_copies": eng.kv.cow_copies}
     eng = run_engine(cfg16, params, prompts, arrivals, max_new)  # one sync per step
     decode_ms, decode_tokens = [], 0
     while eng.sched.has_work():
@@ -1261,7 +1338,8 @@ def timed_serve(torch, cfg16, params, prompts, arrivals, max_new) -> dict:
             "decode_steps_timed": len(decode_ms),
             "decode_tok_s": decode_tokens / (sum(decode_ms) / 1e3),
             "ttft_steps": ttft_steps, "ttft_ms": ttft_ms,
-            "ttft_ms_median": statistics.median(ttft_ms), "profiled_decode_step": prof}
+            "ttft_ms_median": statistics.median(ttft_ms), **shared,
+            "profiled_decode_step": prof}
 
 
 def serve_phase(torch, kernels):
@@ -1291,8 +1369,8 @@ def serve_phase(torch, kernels):
     torch.cuda.synchronize()
     rwma_counts = kernels.launch_counts()
     drained_audit(eng)
-    agreed = agree(cfg4, params4, short, [r.out_tokens for r in reqs], 16,
-                   "rwma engine vs the xla route")
+    agreed, _ = agree(cfg4, params4, short, [r.out_tokens for r in reqs], 16,
+                      "rwma engine vs the xla route")
     emit({"phase": "serve", "run": "fp32, 4 layers, gemm_backend rwma",
           "launches": rwma_counts, "agreed_prefix": agreed, "of": 16})
     if not rwma_counts["rwma_gemm"]:
@@ -1637,6 +1715,135 @@ def mla_serve_phase(torch, kernels):
     return counts
 
 
+def moe_first_token_gates(torch, kernels, cfg, params, prompts, arrivals, max_new,
+                          decode_kernel):
+    """The gates of a MoE model served in bf16 only (too large for fp32 on
+    one card): one run with one-shot prefill, counts set to 0 just before
+    it, every logit finite, a clean audit, ``decode_kernel`` once per layer
+    and decode step and no other kernel, and each
+    request's first token equal to ``Server.generate``'s (both prefill the
+    same one-shot (1, S) group).  Returns the launch counts."""
+    import dataclasses
+
+    from repro_torch.serve import ServeConfig, Server
+
+    eng = run_engine(cfg, params, prompts, arrivals, max_new, chunked_prefill=False)
+    finite = []
+    real_decode, real_prefill = eng._decode, eng._prefill
+
+    def decode(*args):
+        greedy, logits, caches = real_decode(*args)
+        finite.append(torch.isfinite(logits).all())
+        return greedy, logits, caches
+
+    def prefill(*args):
+        logits, caches = real_prefill(*args)
+        finite.append(torch.isfinite(logits).all())
+        return logits, caches
+
+    eng._decode, eng._prefill = decode, prefill
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    reqs = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    audit = drained_audit(eng)
+    all_finite = bool(torch.stack(finite).all())
+    server = Server(cfg, params, ServeConfig(max_len=2048), device="cuda")
+    want = [int(server.generate({"tokens": p[None]}, 1)[0][0]) for p in prompts]
+    got = [r.out_tokens[0] for r in reqs]
+    emit({"phase": "moe_serve", "model": cfg.name, "run": "bf16 gates, one-shot prefill",
+          "layers": cfg.n_layers, "requests": len(reqs), "decode_steps": eng.decode_steps,
+          "launches": counts, "audit": dataclasses.asdict(audit), "logits_finite": all_finite,
+          "first_tokens": got, "first_tokens_generate": want, "wall_s": wall})
+    if counts[decode_kernel] != cfg.n_layers * eng.decode_steps:
+        raise AssertionError(f"{decode_kernel} launched {counts[decode_kernel]} times, not "
+                             f"{cfg.n_layers} x {eng.decode_steps} decode steps")
+    others = {k: n for k, n in counts.items() if n and k != decode_kernel}
+    if others or not all_finite or got != want:
+        raise AssertionError(f"{cfg.name}: other launches {others}, finite {all_finite}, "
+                             f"first tokens {got} vs generate {want}")
+    return counts
+
+
+def moe_serve_phase(torch, kernels):
+    """granite-moe-3b-a800m at full width, then DeepSeek-V3 cut to its three
+    dense layers and one MoE layer at full width, through the continuous
+    engine."""
+    import dataclasses
+
+    import repro_torch.configs as C
+    from repro_torch.models import model as M
+
+    max_new = 64
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    # -- granite, fp32 gates: one-shot prefill dispatches each prompt as the
+    # group Server.generate uses (sharing switches itself off there, so no
+    # copy-on-write is required)
+    cfg = C.get_config("granite-moe-3b-a800m", dtype=torch.float32)
+    prompts, arrivals = serve_traffic(cfg.vocab_size)
+    params = M.init_params(cfg, gen, device="cuda")
+    granite = gated_serve(torch, kernels, cfg, params, prompts, arrivals, max_new,
+                          "paged_attention_decode", min_cow=0, chunked_prefill=False)
+    del params
+    torch.cuda.empty_cache()
+    cfg16 = C.get_config("granite-moe-3b-a800m")
+    params = M.init_params(cfg16, gen, device="cuda")
+    emit(timed_serve(torch, cfg16, params, prompts, arrivals, max_new))
+    del params
+    torch.cuda.empty_cache()
+
+    # -- DeepSeek-V3, 4 layers (3 dense + 1 MoE of 256 routed experts and a
+    # shared one), bf16 only: about 30 GB of weights, 60 GB in fp32
+    cfg16 = dataclasses.replace(C.get_config("deepseek-v3-671b"), n_layers=4)
+    prompts, arrivals = serve_traffic(cfg16.vocab_size)
+    params = M.init_params(cfg16, gen, device="cuda")
+    deepseek = moe_first_token_gates(torch, kernels, cfg16, params, prompts, arrivals,
+                                     max_new, "mla_paged_attention_decode")
+    emit(timed_serve(torch, cfg16, params, prompts, arrivals, max_new))
+    del params
+    torch.cuda.empty_cache()
+    return {"granite": granite, "deepseek": deepseek}
+
+
+def long_traffic(vocab: int):
+    """3 prompts of 4200-4600 tokens from a numpy seed, past a 4096-token
+    window: the ring wraps in prefill.  Arrivals every 4 engine steps."""
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+    lens = rng.integers(4200, 4601, size=3)
+    return ([rng.integers(0, vocab, size=(int(n),)).astype(np.int32) for n in lens],
+            [0, 4, 8])
+
+
+def swa_serve_phase(torch, kernels):
+    """h2o-danube-3-4b at full width through the continuous engine: its
+    sliding-window ring rows, which run no kernel."""
+    import repro_torch.configs as C
+    from repro_torch.models import model as M
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cfg = C.get_config("h2o-danube-3-4b", dtype=torch.float32)
+    prompts, arrivals = long_traffic(cfg.vocab_size)
+    if min(len(p) for p in prompts) <= cfg.window:
+        raise AssertionError("the prompts must pass the window for the ring to wrap")
+    params = M.init_params(cfg, gen, device="cuda")
+    counts = gated_serve(torch, kernels, cfg, params, prompts, arrivals, 16, None,
+                         min_cow=0, max_len=8192)
+    del params
+    torch.cuda.empty_cache()
+    cfg16 = C.get_config("h2o-danube-3-4b")
+    prompts, arrivals = serve_traffic(cfg16.vocab_size)
+    params = M.init_params(cfg16, gen, device="cuda")
+    emit(timed_serve(torch, cfg16, params, prompts, arrivals, 64))
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         raise SystemExit(f"chip_smoke.py: no src/repro_torch beside {__file__}; "
@@ -1672,6 +1879,12 @@ def main() -> int:
           else str(lib_path)})
 
     gen = torch.Generator(device="cpu").manual_seed(0)
+    t0 = time.perf_counter()
+
+    def done(phase: str) -> None:  # each phase's seconds, on a line of its own
+        nonlocal t0
+        emit({"phase": phase, "seconds": time.perf_counter() - t0})
+        t0 = time.perf_counter()
 
     # 3. kernels against their plain versions
     summary = kernel_phase(torch, gen)
@@ -1679,21 +1892,25 @@ def main() -> int:
     layernorm_phase(torch, gen)
     emit({"phase": "kernels", "names": list(LAUNCHES_PER_FORWARD),
           "launches_during_checks": kernels.launch_counts()})
+    done("kernels")
 
     # 4. the encoder path end to end
     counted = encoder_phase(torch, gen, kernels)
+    done("encoder")
 
     # 5. the serving kernels against their plain versions
     serving = serving_kernel_phase(torch, gen)
     bf16_dense_check(torch, gen, kernels)
     emit({"phase": "serving_kernels", "names": list(SERVING_KERNELS),
           "launches_during_checks": kernels.launch_counts()})
+    done("serving_kernels")
 
     # 6. the serving path end to end
     served = serve_phase(torch, kernels)
     counted.update(paged_attention_decode=served["launches"]["paged_attention_decode"],
                    paged_copy=served["launches"]["paged_copy"],
                    rwma_gemm=served["rwma_launches"])
+    done("serve")
 
     # 7. the MLA decode, softmax and transpose kernels, and the blocked-ops path
     mla = mla_kernel_phase(torch, gen)
@@ -1702,11 +1919,36 @@ def main() -> int:
     blocked = blocked_ops_path(torch, gen, kernels)
     counted.update(bwma_softmax=blocked["bwma_softmax"],
                    bwma_transpose=blocked["bwma_transpose"])
+    done("mla_kernels")
 
     # 8. MLA serving end to end
     mla_counts = mla_serve_phase(torch, kernels)
     counted["mla_paged_attention_decode"] = mla_counts["mla_paged_attention_decode"]
     serving.update(mla)
+    done("mla_serve")
+
+    # 9. MoE serving end to end: granite-moe-3b-a800m, DeepSeek-V3's MoE layer
+    moe = moe_serve_phase(torch, kernels)
+    done("moe_serve")
+
+    # 10. the sliding-window ring end to end: h2o-danube-3-4b
+    swa = swa_serve_phase(torch, kernels)
+    done("swa_serve")
+
+    # the decode kernels' launches in each serving run that drives them
+    by_run = {
+        "paged_attention_decode": {
+            "starcoder2-7b fp32": served["launches"]["paged_attention_decode"],
+            "granite-moe-3b-a800m fp32": moe["granite"]["paged_attention_decode"],
+            "h2o-danube-3-4b fp32": swa["paged_attention_decode"]},
+        "paged_copy": {
+            "starcoder2-7b fp32": served["launches"]["paged_copy"],
+            "deepseek-v3 dense prefix fp32": mla_counts["paged_copy"],
+            "granite-moe-3b-a800m fp32": moe["granite"]["paged_copy"]},
+        "mla_paged_attention_decode": {
+            "deepseek-v3 dense prefix fp32": mla_counts["mla_paged_attention_decode"],
+            "deepseek-v3 4 layers (moe) bf16": moe["deepseek"]["mla_paged_attention_decode"]},
+    }
 
     line = []
     for kernel in LAUNCHES_PER_FORWARD:
@@ -1736,6 +1978,8 @@ def main() -> int:
             "host_us": row["host_us"], "library_device_ms": row["library_device_ms"],
             "work": row["work"],
         })
+        if kernel in by_run:
+            line[-1]["launches_by_run"] = by_run[kernel]
         if not all(math.isfinite(row[k]) for k in ("ms", "plain_ms", "bound_ms")):
             raise AssertionError(f"{kernel}: timing not finite")
     emit({"kernels": line})

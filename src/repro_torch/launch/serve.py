@@ -11,10 +11,16 @@ CPU).  Multi-request workload (Poisson-ish staggered arrivals, fixed seeds):
 ``--backend reference`` reads pages through the gather oracle instead of
 the paged-decode kernel; ``--engine static|both`` runs the static-wave
 baseline.  Without ``--num-requests``, one static wave of ``--batch``
-prompts.  The JAX CLI's ``--mesh`` is not ported (ROADMAP.md queue 1 item
-26); families other than the dense stacks with GQA or MLA attention are
-refused before anything is allocated, naming the ROADMAP.md item that ports
-them (DeepSeek-V3 itself is MoE: item 19).
+prompts.  Served: dense and MoE stacks (granite-moe-3b-a800m, DeepSeek-V3)
+over paged GQA K/V, sliding-window GQA rings (h2o-danube-3-4b) and MLA
+latent pages, e.g. on the card in bf16:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-3b-a800m \
+      --num-requests 8 --prompt-len 512 --max-new 64
+
+The JAX CLI's ``--mesh`` is not ported (ROADMAP.md queue 1 item 26); the
+SSM, hybrid, enc-dec and vision families are refused before anything is
+allocated, naming the ROADMAP.md item that ports them.
 """
 from __future__ import annotations
 
@@ -158,7 +164,8 @@ def print_continuous_report(report):
             f"{pool['cow_copies_total']} COW copies, "
             f"{pool['prefix_cache_pages']} pages resident")
     else:
-        lines.append("  prefix cache: off (--no-prefix-sharing)")
+        lines.append("  prefix cache: off (--no-prefix-sharing, or caches that are not "
+                     "shared: SWA rings, MoE under one-shot prefill)")
     _say(*lines)
 
 
@@ -230,6 +237,9 @@ def main(argv=None):
         raise SystemExit(msg)
     # "cuda" resolves like an entry point's default: it raises without CUDA
     device = resolve_device(None if args.device == "cuda" else args.device)
+    kinds = "+".join(f"{n} {kind}" for kind, n in A.layer_segments(cfg))
+    _say(f"serving {cfg.name} ({kinds} layers; caches: "
+         f"{', '.join(ad.family for ad in A.all_adapters(cfg))}) on {device}")
     params = M.init_params(cfg, torch.Generator(device=device).manual_seed(args.seed),
                            device=device)
     if args.num_requests > 0:

@@ -12,12 +12,14 @@ it does not own.  The engine, scheduler and model layers drive adapters
 generically through :func:`adapters_for` -- this module is the ONLY place
 that knows which family uses which cache layout.
 
-This port serves dense layers with full GQA attention
-(:class:`PagedAttnAdapter`, K/V paged) or MLA (:class:`LatentMLAAdapter`,
-the latent c_kv + shared rotary key paged).  The other families' adapters
-wait for their slices, and :func:`unsupported_message` refuses them naming
-the ROADMAP.md item that ports each: the SWA ring, SSM state rows, enc-dec
-cross rows, MoE, and the vision frontend.
+This port serves dense and MoE layers with full GQA attention
+(:class:`PagedAttnAdapter`, K/V paged), sliding-window GQA
+(:class:`RingAttnAdapter`, an O(window) ring row per batch slot) or MLA
+(:class:`LatentMLAAdapter`, the latent c_kv + shared rotary key paged); a
+MoE layer's cache is its attention's.  The other families' adapters wait
+for their slices, and :func:`unsupported_message` refuses them naming the
+ROADMAP.md item that ports each: SSM state rows, enc-dec cross rows and the
+vision frontend.
 """
 from __future__ import annotations
 
@@ -196,6 +198,49 @@ class PagedAttnAdapter(CacheAdapter):
         )
 
 
+class RingAttnAdapter(CacheAdapter):
+    """Sliding-window attention: O(window) ring row per batch slot.
+
+    Not paged and not shareable: a ring is a slot-local summary of the
+    sequence's last ``window`` tokens, so SWA configs serve unshared."""
+
+    key = "attn"
+    param_key = "attn"
+    family = "SWA (ring)"
+
+    def init_pool(self, cfg, geom, device=None):
+        return attn.gqa_cache_init(cfg, geom.max_seqs, geom.max_len, device=device,
+                                   window_only=True)
+
+    def install(self, cfg, dst, src, slot, phys_tok, off_tok):
+        slots_e = dst["k"].shape[2]  # engine ring length: min(window, max_len)
+        got = src["k"].shape[2]  # prefill ring length: min(window, S)
+        assert got <= slots_e, (got, slots_e)
+        # the token at absolute position p lives in ring slot p % slots_e; the
+        # prefill packing already satisfies this for got == window (==
+        # slots_e) and trivially for S < window (identity placement); the
+        # rest of the row is blanked (position -1: masked)
+        for name, empty in (("k", 0), ("v", 0), ("pos", -1)):
+            row = dst[name][:, slot]
+            row.fill_(empty)
+            row[:, :got] = src[name][:, 0].to(row.dtype)
+        return dst
+
+    def chunk(self, p, cfg, h, positions, cache, ctx, pos_offset):
+        # the first chunk resets the row's position labels to -1 (masked
+        # empty) so a re-used slot cannot leak a previous occupant's window
+        row = read_slot_rows(cache, ctx["slot"])
+        if ctx["first"]:
+            row["pos"].fill_(-1)
+        out, _ = attn.gqa_ring_prefill_chunk(p, cfg, h, positions, row, pos_offset,
+                                             window=cfg.window)
+        return out, cache
+
+    def decode(self, p, cfg, h, positions, cache, *, seq_pos, page_table, active):
+        return attn.gqa_ring_decode(p, cfg, h, positions, cache, seq_pos,
+                                    window=cfg.window, active=active)
+
+
 class LatentMLAAdapter(CacheAdapter):
     """MLA (DeepSeek-V3): latent ``c_kv`` + shared rotary key paged.
 
@@ -240,18 +285,20 @@ class LatentMLAAdapter(CacheAdapter):
 # --------------------------------------------------------------------------
 
 PAGED_GQA = PagedAttnAdapter()
+RING_SWA = RingAttnAdapter()
 MLA_LATENT = LatentMLAAdapter()
 
-_ATTN_ADAPTERS = {"full": PAGED_GQA, "mla": MLA_LATENT}
+_ATTN_ADAPTERS = {"full": PAGED_GQA, "swa": RING_SWA, "mla": MLA_LATENT}
 
 
 def adapters_for(cfg: ModelConfig, kind: str) -> List[CacheAdapter]:
-    """Adapters serving one segment kind, in mixer order.  Raises for a
-    family whose adapter is not ported yet."""
+    """Adapters serving one segment kind, in mixer order: a dense or MoE
+    layer's cache is its attention's.  Raises for a family whose adapter is
+    not ported yet."""
     msg = unsupported_message(cfg)
     if msg is not None:
         raise NotImplementedError(msg)
-    if kind != "dense":
+    if kind not in ("dense", "moe"):
         raise NotImplementedError(f"{cfg.name}: no cache adapter for segment kind {kind!r}")
     return [_ATTN_ADAPTERS[cfg.attn_type]]
 
@@ -307,7 +354,7 @@ def prefill_chunk_multiple(cfg: ModelConfig) -> int:
 def supported_families() -> Tuple[str, ...]:
     """Family names the adapter registry serves (the engine error text and
     the launch driver report exactly this list)."""
-    return (PAGED_GQA.family, MLA_LATENT.family)
+    return (PAGED_GQA.family, RING_SWA.family, MLA_LATENT.family)
 
 
 def unsupported_reason(cfg: ModelConfig) -> Optional[str]:
@@ -321,12 +368,7 @@ def unsupported_reason(cfg: ModelConfig) -> Optional[str]:
                 "(ROADMAP.md queue 1 item 22)")
     if cfg.family in ("ssm", "hybrid"):
         return ("SSM state rows are not ported yet (ROADMAP.md queue 1 item 21)")
-    if cfg.family == "moe" or cfg.n_experts:
-        return "MoE layers are not ported yet (ROADMAP.md queue 1 item 19)"
-    if cfg.attn_type == "swa":
-        return ("the sliding-window ring cache is not ported yet "
-                "(ROADMAP.md queue 1 item 20)")
-    if cfg.attn_type not in _ATTN_ADAPTERS or cfg.family != "dense":
+    if cfg.attn_type not in _ATTN_ADAPTERS or cfg.family not in ("dense", "moe"):
         return f"family {cfg.family!r} / attention {cfg.attn_type!r} has no adapter"
     return None
 

@@ -1,13 +1,14 @@
-"""Attention modules: full GQA attention with RoPE and MLA (DeepSeek-V3),
-their static caches, and the block-paged caches of the serving engine.
+"""Attention modules: GQA (full or sliding-window) with RoPE and MLA
+(DeepSeek-V3), their static caches, the block-paged caches of the serving
+engine and the sliding-window ring rows.
 
 Counterpart of ``repro.models.attention``.  Functional style: ``init``
 returns a params dict; :func:`gqa_forward` and :func:`mla_forward` handle
 the three execution modes ``train`` (no cache), ``prefill`` (returns a
-filled cache) and ``decode`` (one token against the cache).  MLA caches the
-*latent* c_kv + the shared rotary key and decodes with the absorbed-matmul
-formulation.  The sliding-window ring cache and M-RoPE wait for their
-slices (ROADMAP.md queue 1 items 20, 24).
+filled cache) and ``decode`` (one token against the cache; a ring buffer
+for sliding-window attention).  MLA caches the *latent* c_kv + the shared
+rotary key and decodes with the absorbed-matmul formulation.  M-RoPE waits
+for the vision slice (ROADMAP.md queue 1 item 24).
 
 Where the JAX package rebuilds a cache functionally (``dynamic_update_slice``,
 ``.at[...].set``) and donates the old one, this port writes into the cache
@@ -51,13 +52,17 @@ def gqa_init(generator: torch.Generator, cfg: ModelConfig, device=None) -> Dict:
     return p
 
 
-def gqa_cache_init(cfg: ModelConfig, batch: int, max_len: int, device=None):
-    """Static cache for one layer: ``max_len`` token slots per sequence."""
+def gqa_cache_init(cfg: ModelConfig, batch: int, max_len: int, device=None,
+                   window_only: bool = False):
+    """Static cache for one layer: ``max_len`` token slots per sequence, or
+    with ``window_only`` (sliding-window attention) a ring of
+    ``min(window, max_len)`` slots.  Empty slots carry position -1."""
+    slots = min(cfg.window, max_len) if window_only else max_len
     dh = cfg.d_head
     return {
-        "k": torch.zeros((batch, max_len, cfg.n_kv_heads, dh), dtype=cfg.dtype, device=device),
-        "v": torch.zeros((batch, max_len, cfg.n_kv_heads, dh), dtype=cfg.dtype, device=device),
-        "pos": torch.full((batch, max_len), -1, dtype=torch.int32, device=device),
+        "k": torch.zeros((batch, slots, cfg.n_kv_heads, dh), dtype=cfg.dtype, device=device),
+        "v": torch.zeros((batch, slots, cfg.n_kv_heads, dh), dtype=cfg.dtype, device=device),
+        "pos": torch.full((batch, slots), -1, dtype=torch.int32, device=device),
     }
 
 
@@ -89,10 +94,14 @@ def gqa_forward(
     pos_offset: int = 0,  # absolute position of x[:, 0] (decode/prefill)
     causal: bool = True,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Full attention.  ``decode`` writes the new token's K/V and position
-    label into ``cache`` in place (slot ``pos_offset``) and attends over it;
-    ``prefill`` returns a new cache holding the sequence's K/V."""
+    """Full or sliding-window attention (an SWA config attends within
+    ``cfg.window``).  ``decode`` writes the new token's
+    K/V and position label into ``cache`` in place (slot ``pos_offset %
+    slots``: a ring for SWA) and attends over it; ``prefill`` returns a new
+    cache holding the sequence's K/V -- for SWA its trailing ``min(window,
+    S)`` tokens, a full ring in ring order (position p in slot p % window)."""
     B, S, _ = x.shape
+    window = cfg.window if cfg.attn_type == "swa" else None  # repro: noqa RPR004 -- the mask's width, not family dispatch
     q, k, v = _project_qkv(p, cfg, x, positions)
     if mode == "decode":
         assert cache is not None and S == 1
@@ -100,15 +109,24 @@ def gqa_forward(
         cache["k"][:, slot] = k[:, 0]
         cache["v"][:, slot] = v[:, 0]
         cache["pos"][:, slot] = pos_offset
-        out = decode_attention(q, cache["k"], cache["v"], cache["pos"], pos_offset)
+        out = decode_attention(q, cache["k"], cache["v"], cache["pos"], pos_offset,
+                               window=window)
         new_cache = cache
     else:
         out = chunked_attention(q, k, v, causal=causal, q_offset=pos_offset,
-                                q_chunk=cfg.q_chunk)
+                                window=window, q_chunk=cfg.q_chunk)
         new_cache = None
         if mode == "prefill":
-            pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
-            new_cache = {"k": k, "v": v, "pos": pos.contiguous()}
+            # populate the cache (SWA: keep the trailing ``window`` tokens)
+            slots = min(cfg.window, S) if window is not None else S
+            ks, vs = k[:, S - slots:], v[:, S - slots:]
+            pos = torch.arange(S - slots, S, dtype=torch.int32, device=x.device)
+            if window is not None and slots == cfg.window:
+                # ring order: the token at absolute position p sits in slot
+                # p % window, where later decode steps look for it
+                inv = torch.argsort(pos % slots)
+                ks, vs, pos = ks[:, inv], vs[:, inv], pos[inv]
+            new_cache = {"k": ks, "v": vs, "pos": pos[None].expand(B, slots).contiguous()}
     out = out.reshape(B, S, cfg.n_heads * cfg.d_head)
     return dense(cfg, out, p["wo"]), new_cache
 
@@ -262,6 +280,93 @@ def gqa_paged_prefill_chunk(
     out = chunked_attention(q, kg, vg, causal=True, q_offset=q_off, k_positions=kpos,
                             q_chunk=cfg.q_chunk)
     out = out.reshape(B, C, cfg.n_heads * cfg.d_head)
+    return dense(cfg, out, p["wo"]), cache
+
+
+# --------------------------------------------------------------------------
+# Sliding-window ring rows (the serving engine's SWA cache)
+# --------------------------------------------------------------------------
+
+def gqa_ring_prefill_chunk(
+    p: Dict,
+    cfg: ModelConfig,
+    x: torch.Tensor,  # (1, C, d)
+    positions: torch.Tensor,  # (1, C) absolute positions q_off + [0, C)
+    cache_row: Dict,  # {"k", "v", "pos"} -- (1, slots, ...) this slot's ring
+    q_off: int,  # absolute position of x[:, 0]
+    *,
+    window: int,
+) -> Tuple[torch.Tensor, Dict]:
+    """One prompt chunk against the O(window) ring buffer (SWA).
+
+    The prefix is gathered from the ring in **ascending position order**
+    (the ring slot of position p is p % slots, so the gather is a
+    rotation); empty or reset entries carry position label -1 and mask out.
+    Attention then runs over [prefix ; chunk] with the same causal + window
+    masking as full prefill, keys in ascending position order.  The chunk's
+    trailing min(C, slots) tokens are then written into ``cache_row`` in
+    place at their p % slots homes, the layout every later chunk and decode
+    step expects; the same row comes back.
+    """
+    B, C, _ = x.shape
+    assert B == 1
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    slots = cache_row["k"].shape[1]
+    # prefix positions q_off - slots .. q_off - 1 in ascending order
+    idx = (q_off - slots + torch.arange(slots, device=x.device)) % slots
+    keys = torch.cat([cache_row["k"][:, idx], k], dim=1)
+    vals = torch.cat([cache_row["v"][:, idx], v], dim=1)
+    kpos = torch.cat([cache_row["pos"][:, idx], positions.to(torch.int32)], dim=1)
+    out = chunked_attention(q, keys, vals, causal=True, q_offset=q_off, k_positions=kpos,
+                            window=window, q_chunk=cfg.q_chunk)
+    # persist the chunk's trailing tokens (older ones fall off the ring)
+    w = min(C, slots)
+    wpos = positions[0, C - w:]  # (w,) distinct ring homes: w <= slots
+    widx = wpos.long() % slots
+    cache_row["k"][:, widx] = k[:, C - w:].to(cache_row["k"].dtype)
+    cache_row["v"][:, widx] = v[:, C - w:].to(cache_row["v"].dtype)
+    cache_row["pos"][:, widx] = wpos[None].to(torch.int32)
+    out = out.reshape(B, C, cfg.n_heads * cfg.d_head)
+    return dense(cfg, out, p["wo"]), cache_row
+
+
+def gqa_ring_decode(
+    p: Dict,
+    cfg: ModelConfig,
+    x: torch.Tensor,  # (B, 1, d)
+    positions: torch.Tensor,  # (B, 1)
+    cache: Dict,  # {"k", "v", "pos"} -- (B, slots, ...) ring buffers
+    seq_pos: torch.Tensor,  # (B,) int32 absolute position of the new token
+    *,
+    window: Optional[int] = None,
+    active: Optional[torch.Tensor] = None,  # (B,) bool slots actually decoding
+) -> Tuple[torch.Tensor, Dict]:
+    """Per-slot-position decode against the O(window) ring buffers (SWA).
+
+    Same layout as the static ring (the token at absolute position p sits in
+    slot p % slots), but each batch slot advances on its own, which is what
+    continuous batching needs.  The JAX package drops an inactive slot's
+    write by scattering it out of bounds; ``index_put_`` raises on such an
+    index, so here an inactive row is written back with the value it
+    already holds: its ring stays bit for bit as it was, and no host sync
+    selects the rows.  Writes the rings in place.
+    """
+    B, S, _ = x.shape
+    assert S == 1
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    slots = cache["k"].shape[1]
+    rows = torch.arange(B, device=x.device)
+    slot = seq_pos.long() % slots  # (B,)
+    new = {"k": k[:, 0], "v": v[:, 0], "pos": seq_pos.to(torch.int32)}
+    for name, val in new.items():
+        ring = cache[name]
+        val = val.to(ring.dtype)
+        if active is not None:
+            keep = active.reshape((B,) + (1,) * (val.dim() - 1))
+            val = torch.where(keep, val, ring[rows, slot])
+        ring[rows, slot] = val
+    out = decode_attention(q, cache["k"], cache["v"], cache["pos"], seq_pos, window=window)
+    out = out.reshape(B, 1, cfg.n_heads * cfg.d_head)
     return dense(cfg, out, p["wo"]), cache
 
 

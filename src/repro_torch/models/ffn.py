@@ -1,11 +1,15 @@
-"""Feed-forward modules, dense part: SwiGLU and the GELU MLP.
+"""Feed-forward modules: dense (SwiGLU / GELU) and token-choice top-k MoE.
 
-Counterpart of the dense half of ``repro.models.ffn``; the token-choice
-top-k MoE waits for the MoE slice (ROADMAP.md queue 1 item 19).
+Counterpart of ``repro.models.ffn``.  The MoE uses the JAX package's
+sort-based capacity dispatch (no (T, E, C) one-hot tensor): tokens are
+ranked within their chosen expert by a stable argsort + searchsorted, then
+gathered into an (E, C, d) buffer.  The router, the dispatch and the expert
+products are plain PyTorch, as they are plain XLA ops outside any Pallas
+kernel in the JAX package.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -13,6 +17,10 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import dense, dense_init
 
+
+# --------------------------------------------------------------------------
+# Dense FFN
+# --------------------------------------------------------------------------
 
 def ffn_init(generator: torch.Generator, cfg: ModelConfig, d_ff: int = 0,
              device=None) -> Dict:
@@ -39,3 +47,129 @@ def ffn_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     # GELU in its tanh form, jax.nn.gelu's default
     h = F.gelu(dense(cfg, x, p["w_up"]) + p["b_up"], approximate="tanh")
     return dense(cfg, h, p["w_down"]) + p["b_down"]
+
+
+# --------------------------------------------------------------------------
+# MoE
+# --------------------------------------------------------------------------
+
+def _expert_init(generator: torch.Generator, shape, fan_in: int, dtype, device):
+    """Stacked expert weights N(0, 1/fan_in), drawn in fp32 one expert at a
+    time (the peak is the stack plus one expert's fp32 draw)."""
+    w = torch.empty(shape, dtype=dtype, device=device)
+    for e in range(shape[0]):
+        draw = torch.randn(shape[1:], generator=generator, dtype=torch.float32,
+                           device=generator.device)
+        w[e].copy_(draw.mul_(fan_in ** -0.5))
+    return w
+
+
+def moe_init(generator: torch.Generator, cfg: ModelConfig, device=None) -> Dict:
+    """The JAX package's MoE parameters: an fp32 router whatever
+    ``cfg.dtype`` is, experts stacked as ``(E, d, f)`` / ``(E, f, d)``, and
+    a dense ``shared`` FFN of width ``moe_d_ff * n_shared_experts``."""
+    d, E, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    p = {
+        "router": dense_init(generator, d, E, torch.float32, device=device),
+        "w_gate": _expert_init(generator, (E, d, f), d, cfg.dtype, device),
+        "w_up": _expert_init(generator, (E, d, f), d, cfg.dtype, device),
+        "w_down": _expert_init(generator, (E, f, d), f, cfg.dtype, device),
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = ffn_init(generator, cfg, cfg.moe_d_ff * cfg.n_shared_experts,
+                               device=device)
+    return p
+
+
+def _moe_groups(T: int) -> int:
+    """Token groups of the capacity dispatch.  The JAX package aligns them
+    to its data-parallel shards; this port has no mesh (``mesh=`` raises,
+    ROADMAP.md queue 1 item 26), so every call dispatches one group."""
+    return 1
+
+
+def moe_capacity(tokens: int, cfg: ModelConfig) -> int:
+    """Slots per expert in one group of ``tokens`` tokens, as the JAX
+    package computes them: ``int()`` truncates before the round-up to a
+    multiple of 8, and never fewer than 8."""
+    return max(8, -(-int(tokens * cfg.top_k * cfg.capacity_factor / cfg.n_experts) // 8) * 8)
+
+
+def _take_rows(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``take_along_axis(a, idx[..., None], axis=1)`` for (G, N, d) rows."""
+    return torch.gather(a, 1, idx[..., None].expand(*idx.shape, a.shape[-1]))
+
+
+def moe_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) -> (out, aux_loss).
+
+    Token-choice top-k with group-limited capacity, the JAX package's
+    dispatch step for step: each group dispatches into an (E, Cg) buffer;
+    overflow tokens drop that expert (their other choices and the shared
+    experts still apply).  ``aux`` is the Switch-style load-balancing loss
+    (serving discards it; training reads it).  The capacity ``Cg`` comes
+    from shapes alone, so the dispatch never waits for the device.
+    """
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    T = B * S
+    G = _moe_groups(T)
+    Tg = T // G
+    dev = x.device
+    xg = x.reshape(G, Tg, d)
+    logits = xg.float() @ p["router"].float()  # (G, Tg, E), fp32 router
+    probs = torch.softmax(logits, -1)
+    gate_vals, idx = torch.topk(probs, k, dim=-1, sorted=True)  # (G, Tg, k)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
+
+    # ---- load-balancing auxiliary loss (Switch-style, global) ----
+    me = probs.mean(dim=(0, 1))  # (E,)
+    ce = F.one_hot(idx, E).float().sum(2).mean(dim=(0, 1))
+    aux = cfg.router_aux_coef * E * torch.sum(me * ce)
+
+    # ---- per-group capacity dispatch (sort-based, gathers only) ----
+    Cg = moe_capacity(Tg, cfg)
+    n = Tg * k
+    flat_e = idx.reshape(G, n)
+    token_of = torch.arange(Tg, device=dev).repeat_interleave(k)[None].expand(G, n)
+    gate_flat = gate_vals.reshape(G, n)
+    order = torch.argsort(flat_e, dim=1, stable=True)
+    sorted_e = torch.gather(flat_e, 1, order)
+    experts = torch.arange(E, device=dev)[None].expand(G, E).contiguous()
+    start = torch.searchsorted(sorted_e, experts)  # left side: first slot of each expert
+    rank = torch.arange(n, device=dev)[None] - torch.gather(start, 1, sorted_e)
+    keep = rank < Cg
+    src_tok = torch.gather(token_of, 1, order)  # (G, n)
+    x_sorted = _take_rows(xg, src_tok)
+    # expert buffer by gather: slot (e, c) reads sorted position start[e] + c
+    ec = torch.arange(E * Cg, device=dev)
+    e_of, c_of = ec // Cg, ec % Cg
+    start_ext = torch.cat([start, torch.full((G, 1), n, dtype=start.dtype, device=dev)], 1)
+    pos = start[:, e_of] + c_of[None]  # (G, E*Cg)
+    counts = start_ext[:, e_of + 1] - start[:, e_of]
+    valid = c_of[None] < torch.clamp(counts, max=Cg)
+    xe = _take_rows(x_sorted, torch.clamp(pos, 0, n - 1)) * valid[..., None].to(cfg.dtype)
+    xe = xe.reshape(G, E, Cg, d)
+
+    # ---- expert computation (one batched product per weight, over E) ----
+    h = F.silu(torch.einsum("gecd,edf->gecf", xe, p["w_gate"]))
+    h = h * torch.einsum("gecd,edf->gecf", xe, p["w_up"])
+    ye = torch.einsum("gecf,efd->gecd", h, p["w_down"])
+
+    # ---- combine back to tokens ----
+    ye = ye.reshape(G, E * Cg, d)
+    slot = torch.where(keep, sorted_e * Cg + rank, 0)
+    y_sorted = _take_rows(ye, slot)  # (G, n, d)
+    gate_sorted = torch.gather(gate_flat, 1, order)
+    # the gate is cast to cfg.dtype before it multiplies, as in the JAX package
+    contrib = y_sorted * (gate_sorted * keep)[..., None].to(cfg.dtype)
+    # undo the sort: the inverse permutation restores (token, choice) order,
+    # so the per-token combine is a reshape and a sum over k, last
+    inv_order = torch.argsort(order, dim=1)
+    contrib = _take_rows(contrib, inv_order)
+    out = contrib.reshape(G, Tg, k, d).sum(dim=2)
+
+    if cfg.n_shared_experts:
+        out = out + ffn_forward(p["shared"], cfg, xg)
+    return out.reshape(B, S, d), aux

@@ -1,12 +1,14 @@
 # repro: noqa-file RPR004 -- the model math itself dispatches per family;
 # the registry rule protects the serving stack, not the layer definitions
-"""Model assembly, dense path: one functional LM for dense configs with
-GQA or MLA attention.
+"""Model assembly: one functional LM for the families this port serves.
 
-Counterpart of ``repro.models.model`` for the families this port serves
-(dense stacks with full GQA attention or DeepSeek-V3's MLA; the others are
-refused with the ROADMAP.md item that ports them,
-:func:`repro_torch.models.adapters.unsupported_message`).
+Counterpart of ``repro.models.model`` for dense and MoE stacks with full
+GQA, sliding-window GQA or DeepSeek-V3's MLA attention; the other families
+are refused with the ROADMAP.md item that ports them
+(:func:`repro_torch.models.adapters.unsupported_message`).  The JAX
+package's training path (``forward_train``, ``loss_fn``, the MTP head)
+waits for ROADMAP.md queue 1 item 25: a DeepSeek-V3 tree carries its
+``mtp`` subtree unread.
 Layers are grouped into homogeneous *segments*; each segment's parameters
 (and caches) are stacked along a leading L axis, as in the JAX package, and
 a Python loop over the layers takes the place of ``jax.lax.scan``.  The
@@ -71,15 +73,27 @@ def _attn_init(generator: torch.Generator, cfg: ModelConfig, device=None) -> Dic
 
 def init_layer(generator: torch.Generator, cfg: ModelConfig, kind: str,
                device=None) -> Dict:
-    if kind != "dense":
+    if kind not in ("dense", "moe"):
         _require_supported(cfg)
         raise NotImplementedError(f"{cfg.name}: no {kind!r} layers in this port")
-    return {
+    p: Dict[str, Any] = {
         "ln1": norm_init(cfg, cfg.d_model, device),
         "attn": _attn_init(generator, cfg, device),
         "ln2": norm_init(cfg, cfg.d_model, device),
-        "ffn": ffnm.ffn_init(generator, cfg, device=device),
     }
+    if kind == "moe":
+        p["moe"] = ffnm.moe_init(generator, cfg, device=device)
+    else:
+        p["ffn"] = ffnm.ffn_init(generator, cfg, device=device)
+    return p
+
+
+def _ffn_block(cfg: ModelConfig, kind: str, p: Dict, h2: torch.Tensor) -> torch.Tensor:
+    """The layer's FFN or MoE.  The MoE's auxiliary loss is discarded: only
+    training reads it (ROADMAP.md queue 1 item 25)."""
+    if kind == "moe":
+        return ffnm.moe_forward(p["moe"], cfg, h2)[0]
+    return ffnm.ffn_forward(p["ffn"], cfg, h2)
 
 
 def layer_forward(
@@ -114,7 +128,7 @@ def layer_forward(
         new_cache["attn"] = a_cache
     x = x + a_out
     h2 = apply_norm(cfg, p["ln2"], x)
-    x = x + ffnm.ffn_forward(p["ffn"], cfg, h2)
+    x = x + _ffn_block(cfg, kind, p, h2)
     return x, (new_cache or None)
 
 
@@ -143,7 +157,7 @@ def _layer_forward_engine(
         outs.append(out)
     x = x + outs[0]
     h2 = apply_norm(cfg, p["ln2"], x)
-    x = x + ffnm.ffn_forward(p["ffn"], cfg, h2)
+    x = x + _ffn_block(cfg, kind, p, h2)
     return x, new_cache
 
 
@@ -160,7 +174,8 @@ def _layer_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int, dev
     _require_supported(cfg)
     if cfg.attn_type == "mla":
         return {"attn": attn.mla_cache_init(cfg, batch, max_len, device=device)}
-    return {"attn": attn.gqa_cache_init(cfg, batch, max_len, device=device)}
+    return {"attn": attn.gqa_cache_init(cfg, batch, max_len, device=device,
+                                        window_only=(cfg.attn_type == "swa"))}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
@@ -222,7 +237,9 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     without CUDA).  The numbers differ from the JAX package's for the same
     seed; parity tests carry the JAX weights across with
     :func:`params_from_numpy`.  Each segment's stack is filled layer by
-    layer, so the peak is the stack plus one layer.
+    layer, so the peak is the stack plus one layer (a one-layer segment is
+    its layer, with no copy).  DeepSeek-V3's MTP head is not drawn: only
+    training reads it (ROADMAP.md queue 1 item 25).
     """
     _require_supported(cfg)
     device = resolve_device(device)
@@ -242,6 +259,9 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         stack = None
         for i in range(n):
             layer = init_layer(generator, cfg, kind, device)
+            if n == 1:
+                stack = _tree_map(lambda a: a.unsqueeze(0), layer)
+                break
             if stack is None:
                 stack = _tree_map(
                     lambda a: torch.empty((n, *a.shape), dtype=a.dtype, device=device), layer)
@@ -270,7 +290,9 @@ def _to_tensor(x, device) -> torch.Tensor:
 def params_from_numpy(tree, device=None) -> Dict:
     """Carry the JAX package's parameter pytree (numpy arrays, stacked per
     segment) over to this port, with the same keys, shapes, layouts and
-    element types, on ``device`` (default ``"cuda"``; raises without CUDA)."""
+    element types, on ``device`` (default ``"cuda"``; raises without CUDA):
+    a MoE router stays fp32 in a bf16 tree, and DeepSeek-V3's ``mtp``
+    subtree is carried, unread by serving."""
     device = resolve_device(device)
     return _tree_map(lambda x: _to_tensor(x, device), tree)
 

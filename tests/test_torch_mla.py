@@ -108,13 +108,16 @@ def _shapes(tree):
     return tuple(tree.shape)
 
 
-def test_dense_mla_cut_is_served_and_the_moe_model_refused():
+def test_dense_mla_cut_and_the_full_moe_model_are_served():
+    """The dense cut shares and skips prefix compute; the full MLA + MoE
+    model is served too (its MoE layers recompute every prefix chunk)."""
     _, tc = _cfgs()
     assert A.unsupported_reason(tc) is None
     assert A.all_adapters(tc) == [A.MLA_LATENT]
     assert A.prefix_shareable(tc) and A.prefix_compute_skippable(tc)
     full = TC.get_config("deepseek-v3-671b")
-    assert "queue 1 item 19" in A.unsupported_message(full)
+    assert A.unsupported_message(full) is None and A.all_adapters(full) == [A.MLA_LATENT]
+    assert A.prefix_shareable(full) and not A.prefix_compute_skippable(full)
     cut = dataclasses.replace(full, n_layers=3, **{k: v for k, v in DENSE.items()
                                                    if k not in ("d_ff", "block")})
     assert A.unsupported_reason(cut) is None and cut.d_ff == 18432

@@ -261,16 +261,35 @@ def test_rwma_dense_runs_its_kernel_at_any_dividing_tile(rows, blk, monkeypatch)
 
 
 SERVED = ("minicpm-2b", "starcoder2-7b", "qwen1.5-110b")  # full-attention dense/GQA
+# MoE stacks (GQA, MLA) and the sliding-window ring, each with its adapter
+MOE_AND_SWA = {"granite-moe-3b-a800m": "PAGED_GQA", "deepseek-v3-671b": "MLA_LATENT",
+               "h2o-danube-3-4b": "RING_SWA"}
 
 
-@pytest.mark.parametrize("arch", sorted(set(JC.arch_ids()) - set(SERVED)))
+@pytest.mark.parametrize("arch", sorted(set(JC.arch_ids()) - set(SERVED) - set(MOE_AND_SWA)))
 def test_other_families_refused_with_their_roadmap_item(arch):
     cfg = TC.get_config(arch, smoke=True, dtype=torch.float32)
     msg = A.unsupported_message(cfg)
     assert msg is not None and "ROADMAP.md queue 1 item" in msg
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
         TM.init_params(cfg, device="cpu")
-    assert A.supported_families() == (A.PAGED_GQA.family, A.MLA_LATENT.family)
+    assert A.supported_families() == (A.PAGED_GQA.family, A.RING_SWA.family,
+                                      A.MLA_LATENT.family)
+
+
+@pytest.mark.parametrize("arch", sorted(MOE_AND_SWA))
+def test_moe_and_swa_families_are_served(arch):
+    """The full configs are served: no refusal, the attention adapter on
+    every segment, and the port's own parameters at smoke size."""
+    full = TC.get_config(arch)
+    assert A.unsupported_message(full) is None
+    adapter = getattr(A, MOE_AND_SWA[arch])
+    assert A.all_adapters(full) == [adapter]
+    cfg = TC.get_config(arch, smoke=True, dtype=torch.float32)
+    params = TM.init_params(cfg, device="cpu")
+    segs = A.layer_segments(cfg)
+    n_moe = sum(n for si, (_, n) in enumerate(segs) if "moe" in params[f"seg{si}"])
+    assert n_moe == (cfg.n_layers - cfg.first_k_dense if cfg.n_experts else 0)
 
 
 def test_slot_row_helpers_read_and_write_one_slot():
