@@ -27,7 +27,10 @@ Phases, each printing one JSON line:
    device time per launch from torch.profiler (``device_ms``; the event
    time of a kernel of a few microseconds is mostly the wrapper's Python),
    the library call's (``library_device_ms``) and the wrapper's host time
-   per call with no synchronise between calls (``host_us``).
+   per call with no synchronise between calls (``host_us``).  Where five
+   profiler sessions in a row record no event of the kernel, its CUDA-event
+   time per launch stands in (``device_ms_from``), and a line before the
+   kernels line counts the sessions, the empty ones and these fallbacks.
 4. encoder -- the 12-layer BERT-base encoder, blocks 16 and 128, on a batch
    of 4 sequences of 512 and on one unbatched sequence, through the
    ``"cuda"`` backend, held against the ``"reference"`` backend and
@@ -117,6 +120,22 @@ Phases, each printing one JSON line:
    128.  Gates, in fp32: greedy tokens under the margin rule, no kernel
    launched (the ring path runs none), a clean audit.  Timed in bf16 on the
    traffic of phase 6.
+11. ssm serve -- mamba2-130m at full width (24 layers, d_model 768, SSM
+   state 128, 24 heads of 64, vocab 50280), then hymba-1.5b (32 layers,
+   d_model 1600, 25 heads over 5 kv heads with a window of 1024 beside 50
+   SSM heads of 64, d_ff 5504), each on the traffic of phase 6 (prompt 0
+   of 1200 tokens passes Hymba's window) with 128-token chunks on the SSD
+   chunk grid.  Gates, in fp32: greedy tokens under the margin rule, no
+   kernel launched (the SSM path runs none), no prompt token served from a
+   cache (sharing is off), a clean audit.  Then timed in bf16.
+12. encdec serve -- whisper-tiny at full width (4 encoder + 4 decoder
+   layers, 1500 audio frames, d_model 384, 6 heads of 64) on the traffic
+   of phase 6 with prompt 2 equal to prompt 0's tokens; each request
+   brings its own (1, 1500, 384) audio embedding from a numpy seed.
+   Gates, in fp32: paged_attention_decode launches == 4 x decode steps, no
+   paged_copy, no prompt token served from a cache, greedy tokens equal
+   ``Server.generate`` with the same audio under the margin rule, a clean
+   audit, a ``"reference"`` run launches nothing.  Then timed in bf16.
 
 Each phase's seconds follow it on a line of their own.  Then the per-kernel
 summary line (the decode kernels' and the page copy's launches per serving
@@ -199,6 +218,83 @@ MARGIN = 1e-3
 ROUTER_GAP = 1e-6
 
 
+# paged_attention_decode's decode shapes (B, H, Hkv, dh, page, maxp) on the
+# serving paths: four slots at the ragged positions below (whisper's within
+# its 448-token context), maxp from each run's max_len
+STARCODER_DECODE = (4, 36, 4, 128, 128, 16)
+GRANITE_DECODE = (4, 24, 8, 64, 128, 16)
+WHISPER_DECODE = (4, 6, 6, 64, 128, 4)
+DECODE_SEQ = [0, 127, 1000, 1900]
+WHISPER_SEQ = [0, 127, 300, 447]
+# whisper's decoder context (n_text_ctx of the published checkpoints): its
+# serving runs hold prompt plus generated tokens within it
+WHISPER_CONTEXT = 448
+
+
+def paged_decode_case(torch, gen, shape, seq, dtype, label):
+    """paged_attention_decode against decode_plain at one decode shape
+    ``(B, H, Hkv, dh, page, maxp)``, its slots at positions ``seq`` on a
+    scattered page table (unmapped entries on the null page): within
+    PAGED_TOL for fp32 pools, one bf16 rounding plus PAGED_TOL for bf16;
+    each slot batch invariant (alone, and behind maxp doubled by null-page
+    columns), and the call bit-identical run to run.  Raises on a failure;
+    returns the operands and the max abs error."""
+    import numpy as np
+
+    from repro_torch.kernels.paged_attention import decode_plain, paged_attention_decode
+
+    B, H, hkv, dh, page, maxp = shape
+    num_pages = B * maxp + 1
+    rng = np.random.default_rng(0)
+    table = np.zeros((B, maxp), np.int32)
+    phys = rng.permutation(np.arange(1, num_pages))
+    for b, pos in enumerate(seq):
+        used = pos // page + 1
+        table[b, :used] = phys[b * maxp:b * maxp + used]  # unmapped: the null page
+    table_t = torch.from_numpy(table).to("cuda")
+    seq_t = torch.tensor(seq, dtype=torch.int32, device="cuda")
+    q = torch.randn(B, 1, H, dh, generator=gen, device=gen.device).to("cuda", dtype)
+    kp = torch.randn(num_pages, page, hkv, dh, generator=gen, device=gen.device).to(
+        "cuda", dtype)
+    vp = torch.randn(num_pages, page, hkv, dh, generator=gen, device=gen.device).to(
+        "cuda", dtype)
+    args = (q, kp, vp, table_t, seq_t)
+    what = f"paged_attention_decode {label} {shape} {dtype}"
+    got = paged_attention_decode(*args).float()
+    want = decode_plain(*args).float()
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    ok = err <= PAGED_TOL if dtype == torch.float32 else bool(
+        torch.all((got - want).abs() <= BF16_ROUNDING * want.abs() + PAGED_TOL))
+    if not ok:
+        raise AssertionError(f"{what}: max err {err}")
+    full = paged_attention_decode(*args)
+    wide = paged_attention_decode(q, kp, vp, torch.cat([table_t, torch.zeros_like(table_t)], 1),
+                                  seq_t)
+    for b in range(B):
+        alone = paged_attention_decode(q[b:b + 1], kp, vp, table_t[b:b + 1], seq_t[b:b + 1])
+        if not (torch.equal(alone[0], full[b]) and torch.equal(wide[b], full[b])):
+            raise AssertionError(f"{what}: slot {b} is not batch invariant")
+    if not torch.equal(paged_attention_decode(*args), full):
+        raise AssertionError(f"{what}: not bit-identical run to run")
+    return args, err
+
+
+def paged_decode_checks(torch, shape, seq, label) -> dict:
+    """:func:`paged_decode_case` in fp32 and bf16 at a serving run's decode
+    shape, one line each.  Returns {dtype: max abs error}."""
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        _, errs[name] = paged_decode_case(torch, gen, shape, seq, dtype, label)
+        emit({"phase": "serve", "model": label, "kernel": "paged_attention_decode",
+              "check": "against decode_plain, batch invariant, bit-identical run to run",
+              "shape": list(shape), "seq_pos": seq, "dtype": name,
+              "max_abs_err": errs[name]})
+    return errs
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -253,21 +349,28 @@ def host_us(fn, calls: int = 50, repeats: int = 10) -> float:
 FOLLOW_UP_KERNELS = ("paged_decode_combine_kernel", "mla_decode_combine_kernel")
 
 
-def device_profile(fn, calls: int = 20, want: str = "all") -> dict:
+# What the profiler missed: each session that recorded no event of the
+# kernel it was asked for, and each time the CUDA events had to stand in
+# (main prints both on a line of their own).
+PROFILER_MISSES = {"sessions": 0, "empty_sessions": 0, "fallbacks": []}
+
+
+def device_profile(fn, calls: int = 20, want: str = "all", sessions: int = 5):
     """``calls`` calls of ``fn`` under torch.profiler, after a warm-up:
     ``{key: (device ms, launches)}`` with the port's kernels by name
     (:func:`kernel_of`; a follow-up kernel's time counts, its event is not a
     launch), ``"follow-up"`` for the follow-up kernels alone and ``"all"``
-    for every device event.  A session
-    that records no ``want`` event is run again, up to three sessions: the
-    profiler sometimes returns one without the device events of work that
-    ran."""
+    for every device event.  A session that records no ``want`` event is
+    run again, up to ``sessions`` sessions: the profiler sometimes returns
+    one without the device events of work that ran.  None if every session
+    missed it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(sessions):
+        PROFILER_MISSES["sessions"] += 1
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
@@ -283,12 +386,19 @@ def device_profile(fn, calls: int = 20, want: str = "all") -> dict:
                 by[key] = (t + ms, n + launch)
         if want in by:
             return by
-    raise AssertionError(f"the profiler recorded no {want} event in three sessions")
+        PROFILER_MISSES["empty_sessions"] += 1
+        time.sleep(0.1)
+    return None
 
 
-def call_device_ms(fn, calls: int = 20) -> float:
-    """The device time per call of ``fn``, every kernel and copy it runs."""
-    return device_profile(fn, calls)["all"][0] / calls
+def call_device_ms(fn, calls: int = 20, what: str = "a call") -> float:
+    """The device time per call of ``fn``, every kernel and copy it runs;
+    from CUDA events where the profiler recorded no device event."""
+    by = device_profile(fn, calls)
+    if by is None:
+        PROFILER_MISSES["fallbacks"].append(what)
+        return time_ms(fn)
+    return by["all"][0] / calls
 
 
 def device_and_host(kernel: str, call, library=None) -> dict:
@@ -297,13 +407,25 @@ def device_and_host(kernel: str, call, library=None) -> dict:
     follow-up kernels', also given alone where it has any), without the
     host's time between launches that the CUDA-event times of a short
     kernel include; its wrapper's host µs per call; and the library call's
-    device ms per call (None without one)."""
+    device ms per call (None without one).  ``device_ms_from`` says where
+    the device times came from: where the profiler recorded no event of the
+    kernel, the CUDA-event time per launch stands in for them."""
+    from repro_torch.kernels import launch_counts
+
     by = device_profile(call, want=kernel)
-    t, n = by[kernel]
-    row = {"device_ms": t / n, "host_us": host_us(call),
-           "library_device_ms": None if library is None else call_device_ms(library)}
-    if "follow-up" in by:
-        row["follow_up_device_ms"] = by["follow-up"][0] / n
+    if by is None:
+        PROFILER_MISSES["fallbacks"].append(kernel)
+        before = launch_counts()[kernel]
+        call()
+        n = launch_counts()[kernel] - before
+        row = {"device_ms": time_ms(call) / n, "device_ms_from": "cuda events"}
+    else:
+        t, n = by[kernel]
+        row = {"device_ms": t / n, "device_ms_from": "profiler"}
+        if "follow-up" in by:
+            row["follow_up_device_ms"] = by["follow-up"][0] / n
+    row.update(host_us=host_us(call), library_device_ms=None if library is None
+               else call_device_ms(library, what=f"{kernel}'s library call"))
     return row
 
 
@@ -523,6 +645,8 @@ def kernel_phase(torch, gen):
                     row["per_layer"][key] = tot[key] if has_library else None
                 row["per_layer"]["bound_by"] = (
                     "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations")
+                froms = {c["device_ms_from"] for c in row["cases"]}
+                row["per_layer"]["device_ms_from"] = " and ".join(sorted(froms))
             emit(row)
             summary.setdefault(kernel, {})[cfg_name] = row
         del cases
@@ -614,7 +738,7 @@ def attention_phase(torch, gen) -> dict:
             def library16():
                 return F.scaled_dot_product_attention(*qkv16, scale=scale)
 
-            row.update(ms=time_ms(call16), call_device_ms=call_device_ms(call16),
+            row.update(ms=time_ms(call16), call_device_ms=call_device_ms(call16, what="bf16 bwma_attention"),
                        library_ms=time_ms(library16),
                        **device_and_host("bwma_attention", call16, library16))
             emit(row)
@@ -906,7 +1030,6 @@ def serving_kernel_phase(torch, gen):
     versions at this slice's full-width shapes, timed.  Returns {kernel:
     summary row}; the rows' times are for the timed configuration named in
     their ``work`` key."""
-    import numpy as np
     import torch.nn.functional as F
 
     from repro_torch.kernels import _build
@@ -931,6 +1054,7 @@ def serving_kernel_phase(torch, gen):
         lo = BlockLayout(block, block)
         tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
                "bwma_ms": 0.0, "device_ms": 0.0, "host_us": 0.0, "library_device_ms": 0.0}
+        froms = set()
         worst = bytes_ms = ops_ms = 0.0
         tiles = {}  # equal tiling: the blocked GEMM's plan for the same blocks
         for name, (k, n) in products.items():
@@ -953,10 +1077,12 @@ def serving_kernel_phase(torch, gen):
             tot["library_ms"] += time_ms(lambda: torch.matmul(a, w))
             tot["bwma_ms"] += time_ms(lambda: bwma_gemm(ab, wb))
             tot["bound_ms"] += b
-            for key, t in device_and_host("rwma_gemm",
-                                          lambda: rwma_gemm(a, w, bm=block, bk=block, bn=block),
-                                          lambda: torch.matmul(a, w)).items():
-                tot[key] += t
+            dh = device_and_host("rwma_gemm",
+                                 lambda: rwma_gemm(a, w, bm=block, bk=block, bn=block),
+                                 lambda: torch.matmul(a, w))
+            for key in ("device_ms", "host_us", "library_device_ms"):
+                tot[key] += dh[key]
+            froms.add(dh["device_ms_from"])
             tiles[name] = list(rwma_route(M, k, n, block, block)[1])
             del a, w, got, want, ab, wb
         row = {"phase": "serving_kernels", "kernel": "rwma_gemm", "block": block,
@@ -964,7 +1090,7 @@ def serving_kernel_phase(torch, gen):
                "peak_share": ops_ms / tot["ms"], "bwma_peak_share": ops_ms / tot["bwma_ms"],
                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                "work": f"one BERT-base layer's six projections, M = 2048, block {block}",
-               **tot}
+               "device_ms_from": " and ".join(sorted(froms)), **tot}
         emit(row)
         if block == 16:
             out["rwma_gemm"] = row
@@ -1013,46 +1139,13 @@ def serving_kernel_phase(torch, gen):
             emit(row)
             del a, w, got, want
     # -- paged_attention_decode at starcoder2-7b decode shapes
-    B, H, hkv, dh, page, maxp = 4, 36, 4, 128, 128, 16
-    seq = [0, 127, 1000, 1900]
-    num_pages = B * maxp + 1
-    rng = np.random.default_rng(0)
-    table = np.zeros((B, maxp), np.int32)
-    phys = rng.permutation(np.arange(1, num_pages))
-    for b, pos in enumerate(seq):
-        used = pos // page + 1
-        table[b, :used] = phys[b * maxp:b * maxp + used]  # unmapped: the null page
-    table_t = torch.from_numpy(table).to("cuda")
-    seq_t = torch.tensor(seq, dtype=torch.int32, device="cuda")
+    B, H, hkv, dh, page, maxp = shape = STARCODER_DECODE
+    seq = DECODE_SEQ
     n_keys = sum(p + 1 for p in seq)
+    num_pages = B * maxp + 1
     for dtype in (torch.float32, torch.bfloat16):
-        q = torch.randn(B, 1, H, dh, generator=gen, device=gen.device).to("cuda", dtype)
-        kp = torch.randn(num_pages, page, hkv, dh, generator=gen, device=gen.device).to(
-            "cuda", dtype)
-        vp = torch.randn(num_pages, page, hkv, dh, generator=gen, device=gen.device).to(
-            "cuda", dtype)
-        args = (q, kp, vp, table_t, seq_t)
-        got = paged_attention_decode(*args).float()
-        want = decode_plain(*args).float()
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        tol = PAGED_TOL if dtype == torch.float32 else None
-        ok = (err <= tol) if tol is not None else bool(
-            torch.all((got - want).abs() <= BF16_ROUNDING * want.abs() + PAGED_TOL))
-        if not ok:
-            raise AssertionError(f"paged_attention_decode {dtype}: max err {err}")
-        # batch invariance (each slot alone, and behind maxp doubled by
-        # null-page columns) and run-to-run bit identity
-        full = paged_attention_decode(*args)
-        wide = paged_attention_decode(q, kp, vp, torch.cat([table_t, torch.zeros_like(table_t)],
-                                                           1), seq_t)
-        for b in range(B):
-            alone = paged_attention_decode(q[b:b + 1], kp, vp, table_t[b:b + 1], seq_t[b:b + 1])
-            if not (torch.equal(alone[0], full[b]) and torch.equal(wide[b], full[b])):
-                raise AssertionError(f"paged_attention_decode {dtype}: slot {b} is not "
-                                     "batch invariant")
-        if not torch.equal(paged_attention_decode(*args), full):
-            raise AssertionError(f"paged_attention_decode {dtype}: not bit-identical run to run")
+        args, err = paged_decode_case(torch, gen, shape, seq, dtype, "starcoder2-7b")
+        q, kp, vp, table_t, seq_t = args
         split_keys, splits = decode_plan(page, maxp)
         ctas = sum(-(-(p + 1) // split_keys) for p in seq) * hkv  # G = 9: one CTA per kv head
         # the library yardstick: SDPA over the keys gathered per slot
@@ -1082,7 +1175,7 @@ def serving_kernel_phase(torch, gen):
                                  lambda: paged_attention_decode(*args), library)}
         emit(row)
         out.setdefault("paged_attention_decode", row)
-        del q, kp, vp, kg, vg, full, wide
+        del q, kp, vp, kg, vg, args
     # -- paged_copy: one COW event's copy of one pool, all 32 layers
     for dtype in (torch.float32, torch.bfloat16):
         pool = torch.randn(32, num_pages, page, hkv, dh, generator=gen,
@@ -1127,14 +1220,16 @@ def serve_traffic(vocab: int):
     return prompts, [4 * i for i in range(len(prompts))]
 
 
-def margin_at(cfg, params, server, prompt, want, i, device="cuda"):
+def margin_at(cfg, params, server, prompt, want, i, device="cuda", extras=None):
     """The baseline's top-2 logit margin at generated step ``i``, from
     stepping the port's ``model.prefill`` and ``model.decode_step`` along the
     baseline's own tokens, as ``Server.generate`` does.  Also returns the
     router gaps on that path: ``(step, layer, gap)`` for every MoE layer of
     every decode step ``1..i`` (the forward that produces token ``step``),
     ``gap`` the k-th minus the (k+1)-th router probability; none for a
-    dense stack."""
+    dense stack.  ``extras``: the request's modality inputs (an enc-dec
+    config's audio), given to the prefill as ``Server.generate`` gives
+    them."""
     import numpy as np
     import torch
 
@@ -1162,8 +1257,9 @@ def margin_at(cfg, params, server, prompt, want, i, device="cuda"):
     padded[0, :S] = prompt
     ffn.moe_forward = recording
     try:
-        logits, caches = M.prefill(cfg, params,
-                                   {"tokens": torch.from_numpy(padded).to(device)}, S - 1)
+        batch = {"tokens": torch.from_numpy(padded).to(device),
+                 **{k: torch.from_numpy(v).to(device) for k, v in (extras or {}).items()}}
+        logits, caches = M.prefill(cfg, params, batch, S - 1)
         caches = server._grow_cache(caches, 1, S)
         for j in range(i):
             at.update(step=j + 1, layer=cfg.first_k_dense)
@@ -1175,14 +1271,17 @@ def margin_at(cfg, params, server, prompt, want, i, device="cuda"):
     return (top2[0] - top2[1]).item(), [(s, l, float(g)) for s, l, g in gaps]
 
 
-def agree(cfg, params, prompts, got, max_new, label, device="cuda", max_len=2048):
+def agree(cfg, params, prompts, got, max_new, label, device="cuda", max_len=2048,
+          extras=None):
     """Greedy tokens ``got`` against the single-request ``Server.generate``
     under the margin rule: a divergence at step ``i`` is excused where the
     baseline's top-2 logit margin there is below ``MARGIN``, or (a MoE
     stack) where some MoE layer at a decode step ``<= i`` of the baseline's
     own path had its k-th and (k+1)-th router probabilities within
-    ``ROUTER_GAP``.  Returns the agreed prefix lengths and the excused
-    divergences, each with its rule (and the near-ties: step, layer, gap)."""
+    ``ROUTER_GAP``.  ``extras`` (one dict or None per prompt) are each
+    request's modality inputs.  Returns the agreed prefix lengths and the
+    excused divergences, each with its rule (and the near-ties: step,
+    layer, gap)."""
     import numpy as np
 
     from repro_torch.serve import ServeConfig, Server
@@ -1190,13 +1289,14 @@ def agree(cfg, params, prompts, got, max_new, label, device="cuda", max_len=2048
     server = Server(cfg, params, ServeConfig(max_len=max_len), device=device)
     agreed, excused = [], []
     for rid, prompt in enumerate(prompts):
-        want = server.generate({"tokens": prompt[None]}, max_new)[0]
+        extra = extras[rid] if extras else None
+        want = server.generate({"tokens": prompt[None], **(extra or {})}, max_new)[0]
         mine = np.asarray(got[rid])
         if np.array_equal(mine, want):
             agreed.append(len(want))
             continue
         i = int(np.argmax(mine != want))
-        margin, gaps = margin_at(cfg, params, server, prompt, want, i, device)
+        margin, gaps = margin_at(cfg, params, server, prompt, want, i, device, extra)
         agreed.append(i)
         near = [{"step": s, "layer": l, "gap": g} for s, l, g in gaps if g <= ROUTER_GAP]
         if margin < MARGIN:
@@ -1216,13 +1316,15 @@ def excused_counts(excused) -> dict:
     return {rule: sum(e["rule"] == rule for e in excused) for rule in ("margin", "router")}
 
 
-def run_engine(cfg, params, prompts, arrivals, max_new, device="cuda", **ec_kw):
+def run_engine(cfg, params, prompts, arrivals, max_new, device="cuda", extras=None,
+               **ec_kw):
     from repro_torch.serve import Engine, EngineConfig
 
     ec = {"max_seqs": 4, "max_len": 2048, "page_size": 128, "prefill_chunk": 128, **ec_kw}
     eng = Engine(cfg, params, EngineConfig(**ec), device=device)
     for rid, (p, t) in enumerate(zip(prompts, arrivals)):
-        eng.submit(p, max_new, rid=rid, arrival_step=t)
+        eng.submit(p, max_new, rid=rid, arrival_step=t,
+                   extras=extras[rid] if extras else None)
     return eng
 
 
@@ -1234,19 +1336,22 @@ def drained_audit(eng):
 
 
 def gated_serve(torch, kernels, cfg, params, prompts, arrivals, max_new, decode_kernel,
-                min_cow=1, **ec_kw):
+                min_cow=1, extras=None, **ec_kw):
     """The fp32 gates of one model through the continuous engine with the
     ``"cuda"`` backend (engine settings ``ec_kw`` beyond ``run_engine``'s),
     counts set to 0 just before the run and read just after:
     ``decode_kernel`` launched once per layer and decode step (None: a
     family whose decode runs no kernel), paged_copy twice per COW copy (at
-    least ``min_cow`` copies), no other kernel, a clean audit, and greedy
+    least ``min_cow`` copies), no other kernel, a clean audit, no prompt
+    token served from a prefix cache where sharing is off, and greedy
     tokens equal to ``Server.generate`` under the margin rule; then a
     ``"reference"`` run on three of the prompts launches no kernel.
-    Returns the launch counts of the gated run."""
+    ``extras`` (one dict or None per prompt): each request's modality
+    inputs.  Returns the launch counts of the gated run."""
     import dataclasses
 
-    eng = run_engine(cfg, params, prompts, arrivals, max_new, backend="cuda", **ec_kw)
+    eng = run_engine(cfg, params, prompts, arrivals, max_new, backend="cuda", extras=extras,
+                     **ec_kw)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1272,15 +1377,20 @@ def gated_serve(torch, kernels, cfg, params, prompts, arrivals, max_new, decode_
     others = {k: n for k, n in counts.items() if n and k not in (decode_kernel, "paged_copy")}
     if others:
         raise AssertionError(f"the xla route launched other kernels: {others}")
+    cached = [r.stats.cached_prompt_tokens for r in reqs]
+    if not eng.kv.sharing and (any(cached) or eng.kv.pages_aliased):
+        raise AssertionError(f"sharing is off, yet cached prompt tokens {cached}, "
+                             f"{eng.kv.pages_aliased} pages aliased")
     agreed, excused = agree(cfg, params, prompts, got, max_new,
                             f"{cfg.name} fp32 engine vs Server.generate",
-                            max_len=ec_kw.get("max_len", 2048))
+                            max_len=ec_kw.get("max_len", 2048), extras=extras)
     emit({"phase": "serve", "model": cfg.name, "check": "tokens vs Server.generate (fp32)",
           "agreed_prefix": agreed, "of": max_new, "excused": excused_counts(excused),
           "excused_divergences": excused})
 
     sub = [prompts[0], prompts[2], prompts[1]]
-    eng = run_engine(cfg, params, sub, [0, 4, 8], 8, backend="reference", **ec_kw)
+    eng = run_engine(cfg, params, sub, [0, 4, 8], 8, backend="reference",
+                     extras=extras and [extras[0], extras[2], extras[1]], **ec_kw)
     kernels.reset_launch_counts()
     eng.run()
     torch.cuda.synchronize()
@@ -1294,11 +1404,15 @@ def gated_serve(torch, kernels, cfg, params, prompts, arrivals, max_new, decode_
     return counts
 
 
-def timed_serve(torch, cfg16, params, prompts, arrivals, max_new) -> dict:
+def timed_serve(torch, cfg16, params, prompts, arrivals, max_new, extras=None,
+                **ec_kw) -> dict:
     """The bf16 serving numbers: the run's wall time with the deferred sync
     (as served), decode step times with one sync per step, TTFT, and one
-    profiled decode step with 4 slots decoding."""
-    eng = run_engine(cfg16, params, prompts, arrivals, max_new)  # deferred sync, as served
+    profiled decode step with 4 slots decoding.  ``extras`` and ``ec_kw``:
+    each request's modality inputs and the engine settings, as in
+    :func:`gated_serve`."""
+    eng = run_engine(cfg16, params, prompts, arrivals, max_new, extras=extras,
+                     **ec_kw)  # deferred sync, as served
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     reqs = eng.run()
@@ -1308,7 +1422,8 @@ def timed_serve(torch, cfg16, params, prompts, arrivals, max_new) -> dict:
     drained_audit(eng)
     shared = {"cached_prompt_tokens": [r.stats.cached_prompt_tokens for r in reqs],
               "cow_copies": eng.kv.cow_copies}
-    eng = run_engine(cfg16, params, prompts, arrivals, max_new)  # one sync per step
+    eng = run_engine(cfg16, params, prompts, arrivals, max_new, extras=extras,
+                     **ec_kw)  # one sync per step
     decode_ms, decode_tokens = [], 0
     while eng.sched.has_work():
         chunks, steps = eng.prefill_chunks, eng.decode_steps
@@ -1327,7 +1442,8 @@ def timed_serve(torch, cfg16, params, prompts, arrivals, max_new) -> dict:
     ttft_steps = [r.stats.ttft_steps for r in reqs]
     ttft_ms = [r.stats.ttft_s * 1e3 for r in reqs]
     # one profiled decode step: 4 slots decoding, no admission pending
-    eng = run_engine(cfg16, params, prompts[3:7], [0, 0, 0, 0], max_new)
+    eng = run_engine(cfg16, params, prompts[3:7], [0, 0, 0, 0], max_new,
+                     extras=extras and extras[3:7], **ec_kw)
     while len(eng.sched.decoding) < 4:
         eng.step()
     prof = profile_forward(torch, eng.step)
@@ -1784,6 +1900,7 @@ def moe_serve_phase(torch, kernels):
     # copy-on-write is required)
     cfg = C.get_config("granite-moe-3b-a800m", dtype=torch.float32)
     prompts, arrivals = serve_traffic(cfg.vocab_size)
+    decode_errs = paged_decode_checks(torch, GRANITE_DECODE, DECODE_SEQ, cfg.name)
     params = M.init_params(cfg, gen, device="cuda")
     granite = gated_serve(torch, kernels, cfg, params, prompts, arrivals, max_new,
                           "paged_attention_decode", min_cow=0, chunked_prefill=False)
@@ -1805,7 +1922,23 @@ def moe_serve_phase(torch, kernels):
     emit(timed_serve(torch, cfg16, params, prompts, arrivals, max_new))
     del params
     torch.cuda.empty_cache()
-    return {"granite": granite, "deepseek": deepseek}
+    return {"granite": granite, "granite_decode_errs": decode_errs, "deepseek": deepseek}
+
+
+def whisper_traffic(vocab: int):
+    """8 decoder prompts of 100-384 tokens from a numpy seed, each with room
+    for 64 new tokens inside whisper's 448-token context; prompt 2 repeats
+    prompt 0's tokens (under other audio: nothing may be shared).  Arrivals
+    every 4 engine steps."""
+    import numpy as np
+
+    longest = WHISPER_CONTEXT - 64
+    rng = np.random.default_rng(0)
+    lens = rng.integers(100, longest + 1, size=8)
+    lens[0] = longest  # its slot fills the context
+    prompts = [rng.integers(0, vocab, size=(int(n),)).astype(np.int32) for n in lens]
+    prompts[2] = prompts[0].copy()
+    return prompts, [4 * i for i in range(len(prompts))]
 
 
 def long_traffic(vocab: int):
@@ -1842,6 +1975,65 @@ def swa_serve_phase(torch, kernels):
     del params
     torch.cuda.empty_cache()
     return counts
+
+
+def ssm_serve_phase(torch, kernels):
+    """mamba2-130m, then hymba-1.5b, at full width through the continuous
+    engine: SSM state rows (and, in Hymba, the sliding-window ring beside
+    them), which run no kernel."""
+    import repro_torch.configs as C
+    from repro_torch.models import model as M
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    counts = {}
+    for arch in ("mamba2-130m", "hymba-1.5b"):
+        cfg = C.get_config(arch, dtype=torch.float32)
+        prompts, arrivals = serve_traffic(cfg.vocab_size)
+        if cfg.attn_type == "swa" and max(len(p) for p in prompts) <= cfg.window:
+            raise AssertionError("a prompt must pass the window for the ring to wrap")
+        params = M.init_params(cfg, gen, device="cuda")
+        # chunks of 128 sit on the SSD chunk grid (lcm of the adapters' grids)
+        counts[arch] = gated_serve(torch, kernels, cfg, params, prompts, arrivals, 64, None,
+                                   min_cow=0)
+        del params
+        torch.cuda.empty_cache()
+        cfg16 = C.get_config(arch)
+        params = M.init_params(cfg16, gen, device="cuda")
+        emit(timed_serve(torch, cfg16, params, prompts, arrivals, 64))
+        del params
+        torch.cuda.empty_cache()
+    return counts
+
+
+def encdec_serve_phase(torch, kernels):
+    """whisper-tiny at full width through the continuous engine, each
+    request with its own audio and within whisper's decoder context:
+    immutable cross rows installed at admission and the decoder's paged
+    self-attention through paged_attention_decode, first checked against
+    its plain version at the run's decode shape.  Returns the gated run's
+    launch counts and the kernel check's errors."""
+    import repro_torch.configs as C
+    from repro_torch.launch.serve import audio_extras
+    from repro_torch.models import model as M
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cfg = C.get_config("whisper-tiny", dtype=torch.float32)
+    prompts, arrivals = whisper_traffic(cfg.vocab_size)
+    extras = audio_extras(cfg, len(prompts), seed=0)  # (1, 1500, 384) each
+    decode_errs = paged_decode_checks(torch, WHISPER_DECODE, WHISPER_SEQ, cfg.name)
+    params = M.init_params(cfg, gen, device="cuda")
+    counts = gated_serve(torch, kernels, cfg, params, prompts, arrivals, 64,
+                         "paged_attention_decode", min_cow=0, extras=extras,
+                         max_len=WHISPER_CONTEXT)
+    del params
+    torch.cuda.empty_cache()
+    cfg16 = C.get_config("whisper-tiny")
+    params = M.init_params(cfg16, gen, device="cuda")
+    emit(timed_serve(torch, cfg16, params, prompts, arrivals, 64, extras=extras,
+                     max_len=WHISPER_CONTEXT))
+    del params
+    torch.cuda.empty_cache()
+    return counts, decode_errs
 
 
 def main() -> int:
@@ -1935,20 +2127,35 @@ def main() -> int:
     swa = swa_serve_phase(torch, kernels)
     done("swa_serve")
 
+    # 11. SSM state rows end to end: mamba2-130m, hymba-1.5b
+    ssm_serve_phase(torch, kernels)
+    done("ssm_serve")
+
+    # 12. enc-dec end to end: whisper-tiny with per-request audio
+    encdec, whisper_errs = encdec_serve_phase(torch, kernels)
+    done("encdec_serve")
+
     # the decode kernels' launches in each serving run that drives them
     by_run = {
         "paged_attention_decode": {
             "starcoder2-7b fp32": served["launches"]["paged_attention_decode"],
             "granite-moe-3b-a800m fp32": moe["granite"]["paged_attention_decode"],
-            "h2o-danube-3-4b fp32": swa["paged_attention_decode"]},
+            "h2o-danube-3-4b fp32": swa["paged_attention_decode"],
+            "whisper-tiny fp32": encdec["paged_attention_decode"]},
         "paged_copy": {
             "starcoder2-7b fp32": served["launches"]["paged_copy"],
             "deepseek-v3 dense prefix fp32": mla_counts["paged_copy"],
-            "granite-moe-3b-a800m fp32": moe["granite"]["paged_copy"]},
+            "granite-moe-3b-a800m fp32": moe["granite"]["paged_copy"],
+            "whisper-tiny fp32": encdec["paged_copy"]},
         "mla_paged_attention_decode": {
             "deepseek-v3 dense prefix fp32": mla_counts["mla_paged_attention_decode"],
             "deepseek-v3 4 layers (moe) bf16": moe["deepseek"]["mla_paged_attention_decode"]},
     }
+
+    # the decode kernel's checks at the other serving runs' decode shapes
+    checked_at = {"paged_attention_decode": {
+        f"granite-moe-3b-a800m {list(GRANITE_DECODE)}": moe["granite_decode_errs"],
+        f"whisper-tiny {list(WHISPER_DECODE)}": whisper_errs}}
 
     line = []
     for kernel in LAUNCHES_PER_FORWARD:
@@ -1960,8 +2167,8 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in summary[kernel].values()),
             "ms": per["ms"], "plain_ms": per["plain_ms"], "bound_ms": per["bound_ms"],
             "bound_by": per["bound_by"], "library_ms": per["library_ms"],
-            "device_ms": per["device_ms"], "host_us": per["host_us"],
-            "library_device_ms": per["library_device_ms"],
+            "device_ms": per["device_ms"], "device_ms_from": per["device_ms_from"],
+            "host_us": per["host_us"], "library_device_ms": per["library_device_ms"],
             "work": "one encoder layer's launches, BERT-base block 16, batch 4",
             "block_128": summary[kernel]["bert-base block 128"]["per_layer"],
         })
@@ -1975,13 +2182,18 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "device_ms": row["device_ms"],
-            "host_us": row["host_us"], "library_device_ms": row["library_device_ms"],
-            "work": row["work"],
+            "device_ms_from": row["device_ms_from"], "host_us": row["host_us"],
+            "library_device_ms": row["library_device_ms"], "work": row["work"],
         })
         if kernel in by_run:
             line[-1]["launches_by_run"] = by_run[kernel]
+        if kernel in checked_at:
+            line[-1]["max_abs_err_at"] = checked_at[kernel]
+            line[-1]["max_abs_err"] = max(row["max_abs_err"], *(
+                e["float32"] for e in checked_at[kernel].values()))
         if not all(math.isfinite(row[k]) for k in ("ms", "plain_ms", "bound_ms")):
             raise AssertionError(f"{kernel}: timing not finite")
+    emit({"phase": "profiler", **PROFILER_MISSES})
     emit({"kernels": line})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -12,15 +12,19 @@ CPU).  Multi-request workload (Poisson-ish staggered arrivals, fixed seeds):
 the paged-decode kernel; ``--engine static|both`` runs the static-wave
 baseline.  Without ``--num-requests``, one static wave of ``--batch``
 prompts.  Served: dense and MoE stacks (granite-moe-3b-a800m, DeepSeek-V3)
-over paged GQA K/V, sliding-window GQA rings (h2o-danube-3-4b) and MLA
-latent pages, e.g. on the card in bf16:
+over paged GQA K/V, sliding-window GQA rings (h2o-danube-3-4b), MLA latent
+pages, SSM state rows (mamba2-130m), hybrid ring + state rows (hymba-1.5b)
+and enc-dec cross rows (whisper-tiny), e.g. on the card in bf16:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-3b-a800m \
       --num-requests 8 --prompt-len 512 --max-new 64
 
-The JAX CLI's ``--mesh`` is not ported (ROADMAP.md queue 1 item 26); the
-SSM, hybrid, enc-dec and vision families are refused before anything is
-allocated, naming the ROADMAP.md item that ports them.
+An audio config (whisper-tiny) gives every request its own (1,
+encoder_seq, d_model) audio embedding, drawn from ``--seed``; the JAX
+CLI's stub of zeros stands in only where a caller gives none.  The JAX
+CLI's ``--mesh`` is not ported (ROADMAP.md queue 1 item 26); the vision
+frontend is refused before anything is allocated, naming the ROADMAP.md
+item that ports it.
 """
 from __future__ import annotations
 
@@ -58,6 +62,17 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def audio_extras(cfg, n: int, seed: int):
+    """``n`` per-request audio inputs, each a (1, encoder_seq, d_model)
+    standard-normal ``audio_embeds`` from a numpy seed; None for a config
+    without an audio frontend."""
+    if cfg.frontend != "audio":
+        return [None] * n
+    rng = np.random.default_rng([seed, 1])
+    return [{"audio_embeds": rng.standard_normal((1, cfg.encoder_seq, cfg.d_model),
+                                                 dtype=np.float32)} for _ in range(n)]
+
+
 def run_single_wave(cfg, params, args, device):
     """One batch, one static wave."""
     srv = Server(cfg, params, ServeConfig(
@@ -65,8 +80,12 @@ def run_single_wave(cfg, params, args, device):
         seed=args.seed), device=device)
     toks = np.random.default_rng(1).integers(
         0, cfg.vocab_size, size=(args.batch, args.prompt_len)).astype(np.int32)
+    batch = {"tokens": toks}
+    extras = audio_extras(cfg, args.batch, args.seed)
+    if extras[0] is not None:
+        batch["audio_embeds"] = np.concatenate([e["audio_embeds"] for e in extras])
     t0 = time.perf_counter()
-    out = srv.generate({"tokens": toks}, max_new_tokens=args.max_new)
+    out = srv.generate(batch, max_new_tokens=args.max_new)
     dt = time.perf_counter() - t0
     _say(f"generated {out.shape} tokens in {dt:.2f}s on {device} "
          f"({out.size / dt:.1f} tok/s)", str(out[:, :16]))
@@ -79,6 +98,8 @@ def run_workload(cfg, params, args, device):
         prompt_len=args.prompt_len, max_new=args.max_new,
         mean_interarrival=args.mean_interarrival, seed=args.seed,
     )
+    for r, extras in zip(reqs, audio_extras(cfg, len(reqs), args.seed)):
+        r["extras"] = extras
     max_len = args.prompt_len + args.max_new + 1
     useful = sum(r["max_new_tokens"] for r in reqs)
 
@@ -109,7 +130,7 @@ def run_workload(cfg, params, args, device):
         ), device=device)
         for r in reqs:
             eng.submit(r["prompt"], r["max_new_tokens"],
-                       rid=r["rid"], arrival_step=r["arrival_step"])
+                       rid=r["rid"], arrival_step=r["arrival_step"], extras=r["extras"])
         t0 = time.perf_counter()
         done = eng.run()
         _sync(device)
@@ -165,7 +186,8 @@ def print_continuous_report(report):
             f"{pool['prefix_cache_pages']} pages resident")
     else:
         lines.append("  prefix cache: off (--no-prefix-sharing, or caches that are not "
-                     "shared: SWA rings, MoE under one-shot prefill)")
+                     "shared: SWA rings, SSM states, audio side inputs, MoE under "
+                     "one-shot prefill)")
     _say(*lines)
 
 

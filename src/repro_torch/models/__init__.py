@@ -1,7 +1,8 @@
-"""Model zoo, dense/GQA part: configs' layers, caches and forward passes.
+"""Model zoo: configs' layers, caches and forward passes.
 
 Counterpart of ``repro.models``: ``common`` (norms, RoPE, attention math,
-``dense``), ``attention`` (GQA and its static and block-paged caches),
-``ffn`` (dense feed-forward), ``adapters`` (the paged-cache registry) and
-``model`` (assembly, parameters, prefill and decode steps).
+``dense``), ``attention`` (GQA, MLA and cross-attention, their static and
+block-paged caches), ``ffn`` (dense feed-forward and MoE), ``ssm`` (the
+Mamba-2 SSD block), ``adapters`` (the paged-cache registry) and ``model``
+(assembly, parameters, prefill and decode steps).
 """

@@ -16,10 +16,13 @@ This port serves dense and MoE layers with full GQA attention
 (:class:`PagedAttnAdapter`, K/V paged), sliding-window GQA
 (:class:`RingAttnAdapter`, an O(window) ring row per batch slot) or MLA
 (:class:`LatentMLAAdapter`, the latent c_kv + shared rotary key paged); a
-MoE layer's cache is its attention's.  The other families' adapters wait
-for their slices, and :func:`unsupported_message` refuses them naming the
-ROADMAP.md item that ports each: SSM state rows, enc-dec cross rows and the
-vision frontend.
+MoE layer's cache is its attention's.  SSM layers (mamba2) carry O(1) state
+and conv rows per slot (:class:`SSMStateAdapter`), a hybrid layer (Hymba)
+its attention's cache and those rows, and an enc-dec decoder (whisper) its
+paged self-attention and immutable encoder-side rows
+(:class:`CrossAttnAdapter`), installed once at admission.  The vision
+frontend waits for its slice, and :func:`unsupported_message` refuses it
+naming the ROADMAP.md item that ports it.
 """
 from __future__ import annotations
 
@@ -27,9 +30,12 @@ import dataclasses
 import math
 from typing import Dict, List, Optional, Tuple
 
+import torch
+
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.backend import resolve_backend
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssmm
 
 
 # --------------------------------------------------------------------------
@@ -126,6 +132,9 @@ class CacheAdapter:
     # beyond the token ids (enc-dec audio): token-keyed page aliasing is
     # then unsound for every co-resident adapter.
     side_inputs: bool = False
+    # True when the adapter installs request-level context once at
+    # admission (:meth:`admission_src`), outside the token-chunk loop.
+    installs_at_admission: bool = False
 
     def copy_page(self, cfg: ModelConfig, seg_cache: Dict, src: int, dst: int) -> Dict:
         """Copy physical page ``src`` -> ``dst`` in this adapter's pools, in
@@ -280,6 +289,94 @@ class LatentMLAAdapter(CacheAdapter):
         )
 
 
+class SSMStateAdapter(CacheAdapter):
+    """SSM (mamba2, the hybrid's SSM branch): O(1) state + conv rows per slot.
+
+    Not paged and not shareable: the rows are a slot-local summary of the
+    whole sequence."""
+
+    key = "ssm"
+    param_key = "ssm"
+    family = "SSM (state rows)"
+
+    def chunk_multiple(self, cfg):
+        # chunk boundaries sit on the SSD chunk grid -- the grid the one-shot
+        # prefill uses -- so every chunk runs the one-shot path's exact
+        # per-chunk ops (bit-exactness)
+        return cfg.ssm_chunk
+
+    def init_pool(self, cfg, geom, device=None):
+        return ssmm.ssm_state_init(cfg, geom.max_seqs, device=device)
+
+    def install(self, cfg, dst, src, slot, phys_tok, off_tok):
+        return write_slot_rows(dst, src, slot, axis=1)
+
+    def chunk(self, p, cfg, h, positions, cache, ctx, pos_offset):
+        # the first chunk zeroes the row (it may hold a previous occupant's
+        # state): zero state and history are exactly the one-shot prefill's
+        row = read_slot_rows(cache, ctx["slot"])
+        if ctx["first"]:
+            for t in row.values():
+                t.zero_()
+        out, st = ssmm.ssm_forward(p, cfg, h, mode="prefill", state=row)
+        return out, write_slot_rows(cache, st, ctx["slot"])
+
+    def decode(self, p, cfg, h, positions, cache, *, seq_pos, page_table, active):
+        out, st = ssmm.ssm_step(p, cfg, h, cache)
+        for name, new in st.items():
+            old = cache[name]
+            new = new.to(old.dtype)
+            if active is not None:  # an inactive slot keeps its rows bit for bit
+                new = torch.where(active.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
+            old.copy_(new)
+        return out, cache
+
+
+class CrossAttnAdapter(CacheAdapter):
+    """Encoder-decoder cross-attention: immutable encoder-side K/V rows.
+
+    The encoder runs ONCE per request at admission; its projected K/V are
+    installed into the slot's rows and never written again -- chunked
+    decoder prefill and decode both read the same rows, so preemption with
+    recompute only re-runs the encoder.
+    """
+
+    key = "cross"
+    param_key = "cross"
+    family = "enc-dec (cross rows + paged self-attn)"
+    installs_at_admission = True
+    side_inputs = True  # the rows depend on the request's audio
+
+    def init_pool(self, cfg, geom, device=None):
+        shape = (geom.max_seqs, cfg.encoder_seq, cfg.n_kv_heads, cfg.d_head)
+        return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+                "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+
+    def install(self, cfg, dst, src, slot, phys_tok, off_tok):
+        return write_slot_rows(dst, src, slot, axis=1)
+
+    def admission_src(self, cfg, params, batch: Dict) -> Dict:
+        """Encoder-side K/V of one request as a partial install source, the
+        stacked per-layer rows split along the segment boundaries."""
+        from repro_torch.models import model as M
+
+        kv = M.encdec_cross_kv(cfg, params, batch["audio_embeds"])
+        src, off = {}, 0
+        for si, (kind, n) in enumerate(layer_segments(cfg)):
+            if self in adapters_for(cfg, kind):
+                src[f"seg{si}"] = {"cross": {k: v[off:off + n] for k, v in kv.items()}}
+            off += n
+        return src
+
+    def chunk(self, p, cfg, h, positions, cache, ctx, pos_offset):
+        rows = read_slot_rows(cache, ctx["slot"])
+        return attn.cross_attention(p, cfg, h, rows["k"], rows["v"]), cache
+
+    def decode(self, p, cfg, h, positions, cache, *, seq_pos, page_table, active):
+        # read only: inactive slots' outputs are discarded, nothing to mask
+        return attn.cross_attention(p, cfg, h, cache["k"], cache["v"]), cache
+
+
 # --------------------------------------------------------------------------
 # Registry
 # --------------------------------------------------------------------------
@@ -287,20 +384,29 @@ class LatentMLAAdapter(CacheAdapter):
 PAGED_GQA = PagedAttnAdapter()
 RING_SWA = RingAttnAdapter()
 MLA_LATENT = LatentMLAAdapter()
+SSM_STATE = SSMStateAdapter()
+CROSS_ENC = CrossAttnAdapter()
 
 _ATTN_ADAPTERS = {"full": PAGED_GQA, "swa": RING_SWA, "mla": MLA_LATENT}
 
 
 def adapters_for(cfg: ModelConfig, kind: str) -> List[CacheAdapter]:
-    """Adapters serving one segment kind, in mixer order: a dense or MoE
-    layer's cache is its attention's.  Raises for a family whose adapter is
-    not ported yet."""
+    """Adapters serving one segment kind, in mixer order (attention first:
+    the hybrid fusion averages outputs in this order; the cross rows after
+    the self mixer).  Raises for a family whose adapter is not ported yet."""
     msg = unsupported_message(cfg)
     if msg is not None:
         raise NotImplementedError(msg)
-    if kind not in ("dense", "moe"):
+    ads: List[CacheAdapter] = []
+    if kind in ("dense", "moe", "hybrid"):
+        ads.append(_ATTN_ADAPTERS[cfg.attn_type])
+        if cfg.n_encoder_layers:
+            ads.append(CROSS_ENC)
+    if kind in ("ssm", "hybrid"):
+        ads.append(SSM_STATE)
+    if not ads:
         raise NotImplementedError(f"{cfg.name}: no cache adapter for segment kind {kind!r}")
-    return [_ATTN_ADAPTERS[cfg.attn_type]]
+    return ads
 
 
 def all_adapters(cfg: ModelConfig) -> List[CacheAdapter]:
@@ -315,12 +421,8 @@ def all_adapters(cfg: ModelConfig) -> List[CacheAdapter]:
 
 def admission_adapters(cfg: ModelConfig) -> List[CacheAdapter]:
     """Adapters that install request-level context once at admission,
-    outside the token-chunk loop (enc-dec encoder K/V in the JAX package;
-    none of the ported families)."""
-    return [
-        ad for ad in all_adapters(cfg)
-        if getattr(ad, "installs_at_admission", False)
-    ]
+    outside the token-chunk loop (enc-dec encoder K/V)."""
+    return [ad for ad in all_adapters(cfg) if ad.installs_at_admission]
 
 
 def prefix_shareable(cfg: ModelConfig) -> bool:
@@ -354,7 +456,8 @@ def prefill_chunk_multiple(cfg: ModelConfig) -> int:
 def supported_families() -> Tuple[str, ...]:
     """Family names the adapter registry serves (the engine error text and
     the launch driver report exactly this list)."""
-    return (PAGED_GQA.family, RING_SWA.family, MLA_LATENT.family)
+    return (PAGED_GQA.family, RING_SWA.family, MLA_LATENT.family, SSM_STATE.family,
+            CROSS_ENC.family)
 
 
 def unsupported_reason(cfg: ModelConfig) -> Optional[str]:
@@ -363,12 +466,8 @@ def unsupported_reason(cfg: ModelConfig) -> Optional[str]:
     if cfg.frontend == "vision" or cfg.mrope_sections:
         return ("the vision frontend (M-RoPE position streams + image prefix) "
                 "is not ported yet (ROADMAP.md queue 1 item 24)")
-    if cfg.n_encoder_layers:
-        return ("enc-dec cross-attention rows are not ported yet "
-                "(ROADMAP.md queue 1 item 22)")
-    if cfg.family in ("ssm", "hybrid"):
-        return ("SSM state rows are not ported yet (ROADMAP.md queue 1 item 21)")
-    if cfg.attn_type not in _ATTN_ADAPTERS or cfg.family not in ("dense", "moe"):
+    if cfg.attn_type not in _ATTN_ADAPTERS or cfg.family not in (
+            "dense", "moe", "ssm", "hybrid", "encdec"):
         return f"family {cfg.family!r} / attention {cfg.attn_type!r} has no adapter"
     return None
 

@@ -1,6 +1,6 @@
 """Attention modules: GQA (full or sliding-window) with RoPE and MLA
 (DeepSeek-V3), their static caches, the block-paged caches of the serving
-engine and the sliding-window ring rows.
+engine, the sliding-window ring rows and the enc-dec cross-attention.
 
 Counterpart of ``repro.models.attention``.  Functional style: ``init``
 returns a params dict; :func:`gqa_forward` and :func:`mla_forward` handle
@@ -328,6 +328,20 @@ def gqa_ring_prefill_chunk(
     cache_row["pos"][:, widx] = wpos[None].to(torch.int32)
     out = out.reshape(B, C, cfg.n_heads * cfg.d_head)
     return dense(cfg, out, p["wo"]), cache_row
+
+
+def cross_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                    k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Non-causal attention over a fixed encoder-side K/V (enc-dec cross).
+
+    The ONE implementation both the static decoder layer and the engine's
+    cross adapter call, so their query, softmax and output math cannot
+    drift apart.  x: (B, S, d); k, v: (B, encoder_seq, Hkv, dh).
+    """
+    B, S, _ = x.shape
+    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, cfg.d_head)
+    out = chunked_attention(q, k, v, causal=False, q_chunk=cfg.q_chunk)
+    return out.reshape(B, S, -1) @ p["wo"]
 
 
 def gqa_ring_decode(

@@ -3,10 +3,12 @@
 """Model assembly: one functional LM for the families this port serves.
 
 Counterpart of ``repro.models.model`` for dense and MoE stacks with full
-GQA, sliding-window GQA or DeepSeek-V3's MLA attention; the other families
-are refused with the ROADMAP.md item that ports them
-(:func:`repro_torch.models.adapters.unsupported_message`).  The JAX
-package's training path (``forward_train``, ``loss_fn``, the MTP head)
+GQA, sliding-window GQA or DeepSeek-V3's MLA attention, SSM stacks
+(mamba2), hybrid attention + SSM stacks (Hymba) and the enc-dec family
+(whisper: an audio encoder, a decoder with cross-attention and learned
+positions); the vision frontend is refused with the ROADMAP.md item that
+ports it (:func:`repro_torch.models.adapters.unsupported_message`).  The
+JAX package's training path (``forward_train``, ``loss_fn``, the MTP head)
 waits for ROADMAP.md queue 1 item 25: a DeepSeek-V3 tree carries its
 ``mtp`` subtree unread.
 Layers are grouped into homogeneous *segments*; each segment's parameters
@@ -35,6 +37,7 @@ from repro_torch.core.encoder import resolve_device
 from repro_torch.models import adapters as A
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffnm
+from repro_torch.models import ssm as ssmm
 from repro_torch.models.common import apply_norm, default_positions, dense_init, norm_init
 
 # Segment structure lives with the cache-adapter registry, re-exported here
@@ -73,14 +76,16 @@ def _attn_init(generator: torch.Generator, cfg: ModelConfig, device=None) -> Dic
 
 def init_layer(generator: torch.Generator, cfg: ModelConfig, kind: str,
                device=None) -> Dict:
-    if kind not in ("dense", "moe"):
-        _require_supported(cfg)
-        raise NotImplementedError(f"{cfg.name}: no {kind!r} layers in this port")
-    p: Dict[str, Any] = {
-        "ln1": norm_init(cfg, cfg.d_model, device),
-        "attn": _attn_init(generator, cfg, device),
-        "ln2": norm_init(cfg, cfg.d_model, device),
-    }
+    """One layer: an ``"ssm"`` layer is its norm and SSM only; a
+    ``"hybrid"`` layer adds the SSM branch to a dense layer."""
+    p: Dict[str, Any] = {"ln1": norm_init(cfg, cfg.d_model, device)}
+    if kind == "ssm":
+        p["ssm"] = ssmm.ssm_init(generator, cfg, device)
+        return p
+    p["attn"] = _attn_init(generator, cfg, device)
+    if kind == "hybrid":
+        p["ssm"] = ssmm.ssm_init(generator, cfg, device)
+    p["ln2"] = norm_init(cfg, cfg.d_model, device)
     if kind == "moe":
         p["moe"] = ffnm.moe_init(generator, cfg, device=device)
     else:
@@ -94,6 +99,18 @@ def _ffn_block(cfg: ModelConfig, kind: str, p: Dict, h2: torch.Tensor) -> torch.
     if kind == "moe":
         return ffnm.moe_forward(p["moe"], cfg, h2)[0]
     return ffnm.ffn_forward(p["ffn"], cfg, h2)
+
+
+def _ssm_mixer(cfg: ModelConfig, p: Dict, h, mode: str, cache: Optional[Dict]):
+    """The SSM branch of a static-cache layer: ``decode`` writes the new
+    state and conv rows into ``cache["ssm"]`` in place and returns them."""
+    state = cache.get("ssm") if cache else None
+    out, st = ssmm.ssm_forward(p["ssm"], cfg, h, mode=mode, state=state)
+    if mode == "decode":
+        for name, t in st.items():
+            state[name].copy_(t)
+        st = state
+    return out, st
 
 
 def layer_forward(
@@ -119,6 +136,11 @@ def layer_forward(
         )
     new_cache: Dict[str, Any] = {}
     h = apply_norm(cfg, p["ln1"], x)
+    if kind == "ssm":
+        out, st = _ssm_mixer(cfg, p, h, mode, cache)
+        if st is not None:
+            new_cache["ssm"] = st
+        return x + out, (new_cache or None)
     forward = attn.mla_forward if cfg.attn_type == "mla" else attn.gqa_forward
     a_out, a_cache = forward(
         p["attn"], cfg, h, positions, mode=mode,
@@ -126,6 +148,11 @@ def layer_forward(
     )
     if a_cache is not None:
         new_cache["attn"] = a_cache
+    if kind == "hybrid":
+        s_out, st = _ssm_mixer(cfg, p, h, mode, cache)
+        if st is not None:
+            new_cache["ssm"] = st
+        a_out = 0.5 * (a_out + s_out)  # Hymba: fused parallel heads
     x = x + a_out
     h2 = apply_norm(cfg, p["ln2"], x)
     x = x + _ffn_block(cfg, kind, p, h2)
@@ -141,21 +168,34 @@ def _layer_forward_engine(
     The cache semantics -- pool layout, slot addressing, chunk scatter,
     decode read, active masking -- live entirely in the family's
     :class:`~repro_torch.models.adapters.CacheAdapter`; this function only
-    wires adapter outputs into the residual stream.
+    wires adapter outputs into the residual stream (attention first, the
+    hybrid fusion, cross-attention after the self mixer, then FFN/MoE).
     """
     new_cache: Dict[str, Any] = {}
     h = apply_norm(cfg, p["ln1"], x)
+
+    def run(ad, sub_p, hh):
+        if mode == "chunk":
+            return ad.chunk(sub_p, cfg, hh, positions, cache[ad.key], chunk, pos_offset)
+        return ad.decode(sub_p, cfg, hh, positions, cache[ad.key],
+                         seq_pos=seq_pos, page_table=page_table, active=active)
+
+    cross = None
     outs = []
     for ad in A.adapters_for(cfg, kind):
-        if mode == "chunk":
-            out, c_new = ad.chunk(p[ad.param_key], cfg, h, positions, cache[ad.key],
-                                  chunk, pos_offset)
-        else:
-            out, c_new = ad.decode(p[ad.param_key], cfg, h, positions, cache[ad.key],
-                                   seq_pos=seq_pos, page_table=page_table, active=active)
-        new_cache[ad.key] = c_new
+        if ad.key == "cross":
+            cross = ad  # applies after the self mixer's residual add
+            continue
+        out, new_cache[ad.key] = run(ad, p[ad.param_key], h)
         outs.append(out)
-    x = x + outs[0]
+    if kind == "ssm":
+        return x + outs[0], new_cache
+    # hybrid (Hymba) fuses parallel attention + SSM heads by mean
+    x = x + (outs[0] if len(outs) == 1 else 0.5 * (outs[0] + outs[1]))
+    if cross is not None:
+        hc = apply_norm(cfg, p["cross"]["ln"], x)
+        out_c, new_cache["cross"] = run(cross, p["cross"]["attn"], hc)
+        x = x + out_c
     h2 = apply_norm(cfg, p["ln2"], x)
     x = x + _ffn_block(cfg, kind, p, h2)
     return x, new_cache
@@ -172,19 +212,33 @@ def _stacked(one: Dict, n: int) -> Dict:
 
 def _layer_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int, device=None):
     _require_supported(cfg)
-    if cfg.attn_type == "mla":
-        return {"attn": attn.mla_cache_init(cfg, batch, max_len, device=device)}
-    return {"attn": attn.gqa_cache_init(cfg, batch, max_len, device=device,
-                                        window_only=(cfg.attn_type == "swa"))}
+    c: Dict[str, Any] = {}
+    if kind in ("dense", "moe", "hybrid"):
+        if cfg.attn_type == "mla":
+            c["attn"] = attn.mla_cache_init(cfg, batch, max_len, device=device)
+        else:
+            c["attn"] = attn.gqa_cache_init(cfg, batch, max_len, device=device,
+                                            window_only=(cfg.attn_type == "swa"))
+    if kind in ("ssm", "hybrid"):
+        c["ssm"] = ssmm.ssm_state_init(cfg, batch, device=device)
+    return c
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
-    """Stacked-per-segment static cache for decode."""
+    """Stacked-per-segment static cache for decode (enc-dec: the decoder's
+    cross-attention K/V too, filled at prefill)."""
     device = resolve_device(device)
-    return {
+    segs = {
         f"seg{si}": _stacked(_layer_cache_init(cfg, kind, batch, max_len, device), n)
         for si, (kind, n) in enumerate(layer_segments(cfg))
     }
+    if cfg.n_encoder_layers:
+        shape = (cfg.n_layers, batch, cfg.encoder_seq, cfg.n_kv_heads, cfg.d_head)
+        segs["seg0"]["cross"] = {
+            "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
+        }
+    return segs
 
 
 def supports_padded_prefill(cfg: ModelConfig) -> bool:
@@ -210,8 +264,9 @@ def init_paged_cache(cfg: ModelConfig, max_seqs: int, num_pages: int, page_size:
     """Stacked-per-segment decode cache for the continuous-batching engine.
 
     Each segment's cache is whatever its family's adapters declare (K/V
-    pages for GQA, latent pages for MLA): paged pools share physical page
-    ids across layers (page ids are pool-wide).
+    pages for GQA, latent pages for MLA, per-slot rows for SWA rings, SSM
+    states and enc-dec cross K/V): paged pools share physical page ids
+    across layers (page ids are pool-wide).
     """
     _require_supported(cfg)
     device = resolve_device(device)
@@ -234,7 +289,8 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
     Drawn from ``generator`` (seed 0 on ``device`` when None) on the
     generator's device and placed on ``device`` (default ``"cuda"``; raises
-    without CUDA).  The numbers differ from the JAX package's for the same
+    without CUDA); an enc-dec config also draws its encoder, its decoder's
+    cross-attention and both learned position tables.  The numbers differ from the JAX package's for the same
     seed; parity tests carry the JAX weights across with
     :func:`params_from_numpy`.  Each segment's stack is filled layer by
     layer, so the peak is the stack plus one layer (a one-layer segment is
@@ -269,7 +325,36 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 dst[i].copy_(src)
             del layer
         params[f"seg{si}"] = stack
+    if cfg.n_encoder_layers:
+        params["encoder"] = _tree_stack([_enc_layer_init(generator, cfg, device)
+                                         for _ in range(cfg.n_encoder_layers)])
+        params["enc_final_norm"] = norm_init(cfg, d, device)
+        params["enc_pos"] = _pos_table(generator, cfg, cfg.encoder_seq, device)
+        params["cross"] = _tree_stack([_cross_init(generator, cfg, device)
+                                       for _ in range(cfg.n_layers)])
+        params["dec_pos"] = _pos_table(generator, cfg, cfg.max_decoder_positions, device)
     return params
+
+
+def _pos_table(generator: torch.Generator, cfg: ModelConfig, n: int, device) -> torch.Tensor:
+    """A learned position table, N(0, 0.02^2) drawn in fp32."""
+    t = torch.randn((n, cfg.d_model), generator=generator, dtype=torch.float32,
+                    device=generator.device)
+    return t.mul_(0.02).to(device=device, dtype=cfg.dtype)
+
+
+def _enc_layer_init(generator: torch.Generator, cfg: ModelConfig, device) -> Dict:
+    return {
+        "ln1": norm_init(cfg, cfg.d_model, device),
+        "attn": attn.gqa_init(generator, cfg, device),
+        "ln2": norm_init(cfg, cfg.d_model, device),
+        "ffn": ffnm.ffn_init(generator, cfg, device=device),
+    }
+
+
+def _cross_init(generator: torch.Generator, cfg: ModelConfig, device) -> Dict:
+    return {"ln": norm_init(cfg, cfg.d_model, device),
+            "attn": attn.gqa_init(generator, cfg, device)}
 
 
 def _leaves(tree):
@@ -291,8 +376,10 @@ def params_from_numpy(tree, device=None) -> Dict:
     """Carry the JAX package's parameter pytree (numpy arrays, stacked per
     segment) over to this port, with the same keys, shapes, layouts and
     element types, on ``device`` (default ``"cuda"``; raises without CUDA):
-    a MoE router stays fp32 in a bf16 tree, and DeepSeek-V3's ``mtp``
-    subtree is carried, unread by serving."""
+    a MoE router and an SSM's ``A_log``, ``D`` and ``dt_bias`` stay fp32 in
+    a bf16 tree, whisper's stacked ``encoder`` and ``cross`` subtrees come
+    along, and DeepSeek-V3's ``mtp`` subtree is carried, unread by
+    serving."""
     device = resolve_device(device)
     return _tree_map(lambda x: _to_tensor(x, device), tree)
 
@@ -300,6 +387,17 @@ def params_from_numpy(tree, device=None) -> Dict:
 # --------------------------------------------------------------------------
 # Forward passes
 # --------------------------------------------------------------------------
+
+def frontend_extras(cfg: ModelConfig, batch: Dict, B: int, device) -> Dict:
+    """Fill a *missing* audio input with a stub of zero embeddings, (B,
+    encoder_seq, d_model) on ``device``.  An input already present (a
+    request's real ``audio_embeds``) is left as it is.  The vision frontend
+    is refused (ROADMAP.md queue 1 item 24)."""
+    if cfg.frontend == "audio" and "audio_embeds" not in batch:
+        batch["audio_embeds"] = torch.zeros((B, cfg.encoder_seq, cfg.d_model),
+                                            dtype=cfg.dtype, device=device)
+    return batch
+
 
 def _embed_inputs(cfg: ModelConfig, params, batch: Dict) -> Tuple[torch.Tensor, Any]:
     tokens = batch["tokens"]
@@ -319,8 +417,17 @@ def _run_segments(
     stacked caches in place and the same tensors come back."""
     _require_supported(cfg)
     new_caches = {}
+    engine = chunk is not None or (mode == "decode" and seq_pos is not None)
+    seg_off = 0
     for si, (kind, n) in enumerate(layer_segments(cfg)):
         stacked = params[f"seg{si}"]
+        if engine and cfg.n_encoder_layers:
+            # the enc-dec engine path: each decoder layer's cross-attention
+            # params ride with it (this segment's share of the stack, as the
+            # cross adapter splits its admission install)
+            stacked = dict(stacked, cross=_tree_map(lambda a: a[seg_off:seg_off + n],
+                                                    params["cross"]))
+        seg_off += n
         cache_seg = caches.get(f"seg{si}") if caches else None
         layer_caches = []
         for i in range(n):
@@ -354,7 +461,10 @@ def prefill(cfg: ModelConfig, params, batch: Dict, last_idx: Optional[int] = Non
     ``last_idx`` selects which position's logits to return -- the
     bucketed-prefill path right-pads the prompt to a shared shape and reads
     the logits at the last *real* token (:func:`supports_padded_prefill`).
+    An enc-dec config reads the batch's ``audio_embeds``.
     """
+    if cfg.n_encoder_layers:
+        return _prefill_encdec(cfg, params, batch)
     h, positions = _embed_inputs(cfg, params, batch)
     h, caches = _run_segments(cfg, params, h, positions, mode="prefill")
     h = h[:, -1:] if last_idx is None else h[:, last_idx:last_idx + 1]
@@ -368,6 +478,8 @@ def decode_step(cfg: ModelConfig, params, caches, tokens, pos: int):
     B = tokens.shape[0]
     h = params["embed"][tokens.long()]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=h.device)
+    if cfg.n_encoder_layers:
+        return _decode_encdec(cfg, params, caches, h, positions, pos)
     h, new_caches = _run_segments(
         cfg, params, h, positions, mode="decode", caches=caches, pos_offset=pos,
     )
@@ -389,6 +501,9 @@ def decode_step_paged(cfg: ModelConfig, params, caches, tokens, seq_pos,
     slot.  Returns (logits (B, 1, V), caches), the caches written in place.
     """
     h = params["embed"][tokens.long()]
+    if cfg.n_encoder_layers:
+        # learned decoder positions, gathered per slot (enc-dec decode)
+        h = h + params["dec_pos"][seq_pos.long()][:, None]
     positions = seq_pos[:, None]  # (B, 1) per-slot RoPE positions
     h, new_caches = _run_segments(
         cfg, params, h, positions, mode="decode", caches=caches,
@@ -417,6 +532,9 @@ def prefill_chunk(cfg: ModelConfig, params, caches, tokens, slot: int, q_off: in
     assert B == 1
     h = params["embed"][tokens.long()]
     positions = (q_off + torch.arange(C, dtype=torch.int32, device=h.device))[None]
+    if cfg.n_encoder_layers:
+        # learned decoder positions for this chunk's absolute range
+        h = h + params["dec_pos"][positions[0].long()][None]
     chunk = {
         "slot": slot, "first": q_off == 0, "table_row": table_row,
         "phys_tok": phys_tok, "off_tok": off_tok,
@@ -427,3 +545,96 @@ def prefill_chunk(cfg: ModelConfig, params, caches, tokens, slot: int, q_off: in
     )
     h_last = apply_norm(cfg, params["final_norm"], h[:, last_idx:last_idx + 1])
     return _lm_logits(cfg, params, h_last), new_caches
+
+
+# --------------------------------------------------------------------------
+# Encoder-decoder (whisper)
+# --------------------------------------------------------------------------
+
+def _encoder_forward(cfg: ModelConfig, params, audio_embeds: torch.Tensor) -> torch.Tensor:
+    """The audio encoder: learned positions, non-causal self-attention
+    layers, the final norm.  (B, encoder_seq, d) in, same shape out."""
+    h = audio_embeds.to(cfg.dtype) + params["enc_pos"][None]
+    positions = default_positions(h.shape[0], h.shape[1], device=h.device)
+    for i in range(cfg.n_encoder_layers):
+        p = _tree_index(params["encoder"], i)
+        a, _ = attn.gqa_forward(p["attn"], cfg, apply_norm(cfg, p["ln1"], h), positions,
+                                mode="train", causal=False)
+        h = h + a
+        h = h + ffnm.ffn_forward(p["ffn"], cfg, apply_norm(cfg, p["ln2"], h))
+    return apply_norm(cfg, params["enc_final_norm"], h)
+
+
+def _cross_kv(cfg: ModelConfig, pc: Dict, enc_out: torch.Tensor):
+    """One decoder layer's cross-attention K/V over the encoder output."""
+    B = enc_out.shape[0]
+    ck = (enc_out @ pc["wk"]).reshape(B, -1, cfg.n_kv_heads, cfg.d_head)
+    cv = (enc_out @ pc["wv"]).reshape(B, -1, cfg.n_kv_heads, cfg.d_head)
+    return ck, cv
+
+
+def _dec_layer(cfg: ModelConfig, p_layer, p_cross, x, positions, enc_out, *, mode,
+               cache, pos_offset):
+    """One static-cache decoder layer: causal self-attention, cross-attention
+    over the encoder (its K/V from ``cache["cross"]`` in decode), the FFN."""
+    new_cache = {}
+    h = apply_norm(cfg, p_layer["ln1"], x)
+    a, c = attn.gqa_forward(p_layer["attn"], cfg, h, positions, mode=mode,
+                            cache=cache.get("attn") if cache else None,
+                            pos_offset=pos_offset)
+    if c is not None:
+        new_cache["attn"] = c
+    x = x + a
+    hc = apply_norm(cfg, p_cross["ln"], x)
+    pc = p_cross["attn"]
+    if mode == "decode" and cache is not None and "cross" in cache:
+        ck, cv = cache["cross"]["k"], cache["cross"]["v"]
+    else:
+        ck, cv = _cross_kv(cfg, pc, enc_out)
+    x = x + attn.cross_attention(pc, cfg, hc, ck, cv)
+    x = x + ffnm.ffn_forward(p_layer["ffn"], cfg, apply_norm(cfg, p_layer["ln2"], x))
+    return x, new_cache, (ck, cv)
+
+
+def _prefill_encdec(cfg: ModelConfig, params, batch: Dict):
+    enc_out = _encoder_forward(cfg, params, batch["audio_embeds"])
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    h = params["embed"][tokens.long()] + params["dec_pos"][None, :S]
+    positions = default_positions(B, S, device=h.device)
+    layer_caches = []
+    for i in range(cfg.n_layers):
+        h, c_new, (ck, cv) = _dec_layer(
+            cfg, _tree_index(params["seg0"], i), _tree_index(params["cross"], i), h,
+            positions, enc_out, mode="prefill", cache=None, pos_offset=0)
+        c_new["cross"] = {"k": ck, "v": cv}
+        layer_caches.append(c_new)
+    h = apply_norm(cfg, params["final_norm"], h[:, -1:])
+    return _lm_logits(cfg, params, h), {"seg0": _tree_stack(layer_caches)}
+
+
+def _decode_encdec(cfg: ModelConfig, params, caches, h, positions, pos: int):
+    h = h + params["dec_pos"][pos:pos + 1][None]
+    for i in range(cfg.n_layers):
+        h, _, _ = _dec_layer(
+            cfg, _tree_index(params["seg0"], i), _tree_index(params["cross"], i), h,
+            positions, None, mode="decode", cache=_tree_index(caches["seg0"], i),
+            pos_offset=pos)
+    h = apply_norm(cfg, params["final_norm"], h)
+    return _lm_logits(cfg, params, h), caches
+
+
+def encdec_cross_kv(cfg: ModelConfig, params, audio_embeds: torch.Tensor) -> Dict:
+    """Encoder forward + every decoder layer's cross K/V projections.
+
+    The continuous-batching engine runs this ONCE per admission and installs
+    the result into the slot's immutable cross rows.  Returns stacked
+    {"k", "v"} of shape (n_layers, B, encoder_seq, n_kv_heads, d_head).
+    """
+    enc_out = _encoder_forward(cfg, params, audio_embeds)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        ck, cv = _cross_kv(cfg, _tree_index(params["cross"], i)["attn"], enc_out)
+        ks.append(ck)
+        vs.append(cv)
+    return {"k": torch.stack(ks), "v": torch.stack(vs)}

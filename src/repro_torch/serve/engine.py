@@ -156,6 +156,12 @@ def _paged_step(cfg: ModelConfig, params, caches, tokens, seq_pos, page_table, a
     return greedy.to(torch.int32), logits, new_caches
 
 
+def _extras_on(extras: Dict, device: torch.device) -> Dict:
+    """Modality inputs (numpy arrays or tensors) as tensors on ``device``."""
+    return {k: v.to(device) if isinstance(v, torch.Tensor) else to_device(np.asarray(v), device)
+            for k, v in extras.items()}
+
+
 def _check_params_device(params, device: torch.device) -> None:
     where = params["embed"].device
     if where.type != device.type or (device.index is not None and where != device):
@@ -199,12 +205,17 @@ class Server:
         return full
 
     def generate(self, batch: Dict, max_new_tokens: int = 32) -> np.ndarray:
-        """batch: prompt inputs (tokens (B, S), numpy or a tensor)."""
+        """batch: prompt inputs (tokens (B, S), numpy or a tensor) and any
+        frontend extras (an enc-dec config's (B, encoder_seq, d_model)
+        ``audio_embeds``; a stub of zeros where missing)."""
         cfg, sc = self.cfg, self.sc
         tokens = np.asarray(batch["tokens"].cpu() if isinstance(batch["tokens"], torch.Tensor)
                             else batch["tokens"], np.int32)
         B, S = tokens.shape
         assert S + max_new_tokens <= sc.max_len, "increase ServeConfig.max_len"
+        extras = M.frontend_extras(
+            cfg, _extras_on({k: v for k, v in batch.items() if k != "tokens"}, self.device),
+            B, self.device)
         if sc.prefill_bucket >= 0 and M.supports_padded_prefill(cfg):
             # bucket the prompt length to power-of-two pages; pad keys are
             # causally masked during prefill and overwritten by decode before
@@ -215,10 +226,10 @@ class Server:
             padded = np.zeros((B, Sp), np.int32)
             padded[:, :S] = tokens
             logits, caches = self._prefill(
-                self.params, {"tokens": to_device(padded, self.device)}, S - 1)
+                self.params, {"tokens": to_device(padded, self.device), **extras}, S - 1)
         else:
             logits, caches = self._prefill(
-                self.params, {"tokens": to_device(tokens, self.device)})
+                self.params, {"tokens": to_device(tokens, self.device), **extras})
         caches = self._grow_cache(caches, B, S)
         generator = torch.Generator(device=self.device).manual_seed(sc.seed)
         out = []
@@ -362,6 +373,9 @@ class Engine:
         self.tokens_per_step = (
             ec.prefill_tokens_per_step or chunks_alias * self.chunk_size
         )
+        # adapters installing request-level context once at admission
+        # (enc-dec encoder K/V) -- resolved from the registry, not by family
+        self._admission_ads = A.admission_adapters(cfg)
         self._prefill = functools.partial(M.prefill, cfg)
         self._chunk_fn = functools.partial(M.prefill_chunk, cfg)
         self._decode = functools.partial(_paged_step, cfg)
@@ -380,15 +394,26 @@ class Engine:
     # -- request intake -----------------------------------------------------
 
     def submit(self, prompt: np.ndarray, max_new_tokens: int, *, rid: Optional[int] = None,
-               arrival_step: int = 0) -> Request:
+               arrival_step: int = 0, extras: Optional[Dict] = None) -> Request:
+        """``extras``: per-request modality inputs beyond the token prompt
+        (an enc-dec config's (1, encoder_seq, d_model) ``audio_embeds``,
+        numpy or a tensor).  Missing entries are stub-filled at prefill
+        time, as in the static-wave baseline; extras survive preemption
+        (re-admission re-runs the encoder)."""
         if rid is None:
             rid = self._rid_counter
         self._rid_counter = max(self._rid_counter, rid) + 1
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         req = Request(rid=rid, prompt=prompt, max_new_tokens=max_new_tokens,
-                      arrival_step=arrival_step)
+                      arrival_step=arrival_step, extras=extras)
         self.sched.submit(req)
         return req
+
+    def _extras_batch(self, req: Request) -> Dict:
+        """The request's modality inputs on the device, stub-filled where
+        missing."""
+        return M.frontend_extras(self.cfg, _extras_on(req.extras or {}, self.device), 1,
+                                 self.device)
 
     # -- sampling -----------------------------------------------------------
 
@@ -428,6 +453,14 @@ class Engine:
 
     # -- prefill ------------------------------------------------------------
 
+    def _install_admission_context(self, slot: int, req: Request) -> None:
+        """Run the registry's admission-time installs for a fresh slot
+        (enc-dec: one encoder pass -> immutable cross rows).  Happens again
+        after a preemption: recompute discipline."""
+        for ad in self._admission_ads:
+            src = ad.admission_src(self.cfg, self.params, self._extras_batch(req))
+            self.kv.install_partial(slot, src)
+
     def _prefill_one_chunk(self, slot: int, req: Request) -> int:  # repro: hot-loop
         """Feed the next chunk of a slot's prompt through the paged caches,
         in place, and on the final chunk sample the request's first token.
@@ -465,6 +498,7 @@ class Engine:
         """One-shot prefill + in-place install (unchunked path)."""
         prompt = req.effective_prompt
         S = len(prompt)
+        extras = self._extras_batch(req)
         if M.supports_padded_prefill(self.cfg):
             # clamp to the per-slot capacity: positions past max_len can
             # never be used
@@ -473,11 +507,11 @@ class Engine:
             toks[0, :S] = prompt
             with self.obs.device_span("prefill_full"):
                 logits, caches = self._prefill(
-                    self.params, {"tokens": to_device(toks, self.device)}, S - 1)
+                    self.params, {"tokens": to_device(toks, self.device), **extras}, S - 1)
         else:
             with self.obs.device_span("prefill_full"):
                 logits, caches = self._prefill(
-                    self.params, {"tokens": to_device(prompt[None], self.device)})
+                    self.params, {"tokens": to_device(prompt[None], self.device), **extras})
         self.kv.install_prefill(slot, caches)
         req.prefill_pos = req.prefill_target
         self.prefill_tokens += S
@@ -493,6 +527,10 @@ class Engine:
             for slot, req in admitted:
                 self._prefill_full(slot, req)
             return
+        # request-level admission context (enc-dec encoder K/V) installs at
+        # admission, not on the first chunk
+        for slot, req in admitted:
+            self._install_admission_context(slot, req)
         # token budget, oldest admission first (FIFO toward first token);
         # whatever is left waits for the next engine step, with the decode
         # batch stepping in between.  Spending is page-granular: a chunk may
@@ -592,13 +630,16 @@ class Engine:
         return self.obs.export_chrome_trace(path)
 
     def generate(self, batch: Dict, max_new_tokens: int = 32) -> np.ndarray:
-        """Drop-in for Server.generate: all prompts arrive at step 0.  With
+        """Drop-in for Server.generate: all prompts arrive at step 0.
+        Non-token batch entries with a leading batch axis (enc-dec
+        ``audio_embeds``) are split into per-request extras.  With
         ``eos_id`` set, requests that stop early are right-padded with the
         eos token so the result stays rectangular."""
         tokens = batch["tokens"]
         tokens = np.asarray(tokens.cpu() if isinstance(tokens, torch.Tensor) else tokens)
         for b in range(tokens.shape[0]):
-            self.submit(tokens[b], max_new_tokens)
+            extras = {k: v[b:b + 1] for k, v in batch.items() if k != "tokens"}
+            self.submit(tokens[b], max_new_tokens, extras=extras or None)
         reqs = self.run()
         pad = self.ec.eos_id if self.ec.eos_id is not None else 0
         out = np.full((len(reqs), max_new_tokens), pad, np.int32)
@@ -616,8 +657,10 @@ def run_static_waves(
     Requests are grouped in arrival order into waves of ``max_seqs``; each
     wave prefills together and decodes in lockstep for the wave's
     **longest** generation length, and the next wave waits for the drain.
-    Requests must share one prompt length.  Returns {rid: generated tokens,
-    trimmed to the request's own ``max_new_tokens``}.
+    Requests must share one prompt length; a request's ``extras`` (each
+    entry with a leading batch axis of 1) join its wave's batch.  Returns
+    {rid: generated tokens, trimmed to the request's own
+    ``max_new_tokens``}.
     """
     order = sorted(requests, key=lambda r: (r["arrival_step"], r["rid"]))
     lens = {len(r["prompt"]) for r in order}
@@ -626,8 +669,10 @@ def run_static_waves(
     outs: Dict[int, np.ndarray] = {}
     for w in range(0, len(order), max_seqs):
         wave = order[w : w + max_seqs]
-        toks = np.stack([r["prompt"] for r in wave])
-        out = server.generate({"tokens": toks}, max(r["max_new_tokens"] for r in wave))
+        batch = {"tokens": np.stack([r["prompt"] for r in wave])}
+        for k in wave[0].get("extras") or {}:
+            batch[k] = np.concatenate([np.asarray(r["extras"][k]) for r in wave])
+        out = server.generate(batch, max(r["max_new_tokens"] for r in wave))
         for r, row in zip(wave, out):
             outs[r["rid"]] = np.asarray(row[: r["max_new_tokens"]], np.int32)
     return outs

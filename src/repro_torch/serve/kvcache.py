@@ -575,6 +575,12 @@ class PagedKVCache:
         phys_tok, off_tok = self.token_targets(slot, 0, src_len)
         self._install(self.data, prefill_caches, slot, phys_tok, off_tok)
 
+    def install_partial(self, slot: int, src) -> None:
+        """Install a partial source (only the segments and keys it carries)
+        into a slot, in place -- the enc-dec admission's cross rows, written
+        once before any prompt chunk runs.  Rows take no token targets."""
+        self._install(self.data, src, slot, None, None)
+
     def _src_token_count(self, prefill_caches) -> int:
         """Token count of the (possibly padded) paged prefill source."""
         for si, (kind, _n) in enumerate(M.layer_segments(self.cfg)):

@@ -266,7 +266,13 @@ MOE_AND_SWA = {"granite-moe-3b-a800m": "PAGED_GQA", "deepseek-v3-671b": "MLA_LAT
                "h2o-danube-3-4b": "RING_SWA"}
 
 
-@pytest.mark.parametrize("arch", sorted(set(JC.arch_ids()) - set(SERVED) - set(MOE_AND_SWA)))
+# SSM, hybrid and enc-dec stacks, each with its adapters in mixer order
+STATE_AND_CROSS = {"mamba2-130m": ("SSM_STATE",), "hymba-1.5b": ("RING_SWA", "SSM_STATE"),
+                   "whisper-tiny": ("PAGED_GQA", "CROSS_ENC")}
+
+
+@pytest.mark.parametrize("arch", sorted(set(JC.arch_ids()) - set(SERVED) - set(MOE_AND_SWA)
+                                        - set(STATE_AND_CROSS)))
 def test_other_families_refused_with_their_roadmap_item(arch):
     cfg = TC.get_config(arch, smoke=True, dtype=torch.float32)
     msg = A.unsupported_message(cfg)
@@ -274,7 +280,26 @@ def test_other_families_refused_with_their_roadmap_item(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
         TM.init_params(cfg, device="cpu")
     assert A.supported_families() == (A.PAGED_GQA.family, A.RING_SWA.family,
-                                      A.MLA_LATENT.family)
+                                      A.MLA_LATENT.family, A.SSM_STATE.family,
+                                      A.CROSS_ENC.family)
+
+
+@pytest.mark.parametrize("arch", sorted(STATE_AND_CROSS))
+def test_ssm_hybrid_and_encdec_families_are_served(arch):
+    """The full configs are served with their adapters in mixer order, and
+    the port's own parameters at smoke size carry the family's subtrees."""
+    full = TC.get_config(arch)
+    assert A.unsupported_message(full) is None
+    assert A.all_adapters(full) == [getattr(A, name) for name in STATE_AND_CROSS[arch]]
+    assert not A.prefix_shareable(full) and not A.prefix_compute_skippable(full)
+    cfg = TC.get_config(arch, smoke=True, dtype=torch.float32)
+    params = TM.init_params(cfg, device="cpu")
+    ads, layer = A.all_adapters(cfg), params["seg0"]
+    assert ("ssm" in layer) == (A.SSM_STATE in ads)
+    assert ("ffn" in layer) == (ads != [A.SSM_STATE])
+    assert ("encoder" in params) == ("cross" in params) == (A.CROSS_ENC in ads)
+    if "ssm" in layer:
+        assert layer["ssm"]["A_log"].dtype == torch.float32
 
 
 @pytest.mark.parametrize("arch", sorted(MOE_AND_SWA))
