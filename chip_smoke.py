@@ -96,17 +96,17 @@ Phases, each printing one JSON line:
    launches == 3 x decode steps; paged_copy launches == 2 x COW copies >= 2;
    a clean pool audit; a ``"reference"`` engine run launches no kernel.
    Timed in bf16 as in phase 6.
-9. moe serve -- granite-moe-3b-a800m at full width (32 layers, d_model
-   1536, 24 heads over 8 kv heads, 40 experts top-8, vocab 49155) on the
-   traffic of phase 6 with one-shot prefill (each prompt dispatched as the
+9. moe serve -- granite-moe-3b-a800m at full width (8 of its 32 layers,
+   ``CUT_DEPTH``; d_model 1536, 24 heads over 8 kv heads, 40 experts
+   top-8, vocab 49155) on the traffic of phase 6 with one-shot prefill (each prompt dispatched as the
    group ``Server.generate`` uses).  Gates, in fp32: greedy tokens equal
    ``Server.generate`` where the margin rule or the router rule excuses no
    divergence (the rule: the baseline's top-2 logit margin below 1e-3 at
    the divergence, or some MoE layer at a decode step up to it with its
    k-th and (k+1)-th router probabilities within 1e-6 on the baseline's
    path; the count each rule excused is printed, with step, layer and gap);
-   paged_attention_decode launches == 32 x decode steps; paged_copy == 2 x
-   COW copies (sharing is off under one-shot prefill); no other kernel; a
+   paged_attention_decode launches == layers x decode steps; paged_copy ==
+   2 x COW copies (sharing is off under one-shot prefill); no other kernel; a
    clean audit; a ``"reference"`` run launches nothing.  Timed in bf16 with
    128-token chunks, as phase 6.  Then DeepSeek-V3 cut to 4 layers, its 3
    dense ones and one MoE layer at full width (256 routed experts top-8 and
@@ -114,16 +114,16 @@ Phases, each printing one JSON line:
    equal to ``Server.generate``'s, mla_paged_attention_decode launches == 4
    x decode steps and no other kernel, finite logits, a clean audit; then
    timed as phase 6.
-10. swa serve -- h2o-danube-3-4b at full width (24 layers, d_model 3840,
-   32 heads over 8 kv heads of 120, window 4096): 3 requests of 4200-4600
-   prompt tokens (the ring wraps), 16 new tokens, max_len 8192, chunks of
-   128.  Gates, in fp32: greedy tokens under the margin rule, no kernel
+10. swa serve -- h2o-danube-3-4b at full width (8 of its 24 layers,
+   ``CUT_DEPTH``; d_model 3840, 32 heads over 8 kv heads of 120, window
+   4096): 3 requests of 4200-4600 prompt tokens (the ring wraps), 16 new
+   tokens, max_len 8192, chunks of 128.  Gates, in fp32: greedy tokens under the margin rule, no kernel
    launched (the ring path runs none), a clean audit.  Timed in bf16 on the
    traffic of phase 6.
 11. ssm serve -- mamba2-130m at full width (24 layers, d_model 768, SSM
-   state 128, 24 heads of 64, vocab 50280), then hymba-1.5b (32 layers,
-   d_model 1600, 25 heads over 5 kv heads with a window of 1024 beside 50
-   SSM heads of 64, d_ff 5504), each on the traffic of phase 6 (prompt 0
+   state 128, 24 heads of 64, vocab 50280), then hymba-1.5b (8 of its 32
+   layers, ``CUT_DEPTH``; d_model 1600, 25 heads over 5 kv heads with a
+   window of 1024 beside 50 SSM heads of 64, d_ff 5504), each on the traffic of phase 6 (prompt 0
    of 1200 tokens passes Hymba's window) with 128-token chunks on the SSD
    chunk grid.  Gates, in fp32: greedy tokens under the margin rule, no
    kernel launched (the SSM path runs none), no prompt token served from a
@@ -136,6 +136,34 @@ Phases, each printing one JSON line:
    paged_copy, no prompt token served from a cache, greedy tokens equal
    ``Server.generate`` with the same audio under the margin rule, a clean
    audit, a ``"reference"`` run launches nothing.  Then timed in bf16.
+13. vision serve -- qwen2-vl-72b at full width (d_model 8192, 64 heads
+   over 8 kv heads, d_ff 29568, vocab 152064, M-RoPE sections 16/24/24),
+   cut to 4 of its 80 layers, through the static ``Server`` (the engine
+   has no cache adapter for it, in the JAX package as here): a wave of 4
+   requests, each a (1, 1024, 8192) image from a numpy seed over its first
+   1024 tokens and 256 text tokens after it, on Qwen2-VL's grid positions
+   (three different streams), 64 new tokens.  Gates, in fp32: the wave's
+   greedy tokens equal each request's own ``Server.generate`` under the
+   margin rule; two requests with the same tokens and other images differ
+   in their first logits, and the grid streams differ from equal streams,
+   each by at least 1e-3; no kernel launched.  Timed in bf16: the wave's
+   prefill, decode step median and p90, decode tok/s, one profiled step.
+14. train -- minicpm-2b at full width cut to 2 layers, fp32, batch 2 x
+   128: ``loss_fn`` and its gradients on the card against the same call on
+   the CPU (loss within 1e-5 relative, each gradient leaf within 1e-4 of
+   its max |g|), then 3 AdamW steps on each (parameters within 1e-5,
+   except elements whose gradient lay within that 1e-4 of zero, which move
+   by at most 2.5 x the summed learning rates); no kernel launched;
+   ``gemm_backend="bwma"`` refuses autograd.  Then minicpm-2b at full
+   width and depth (40 layers) in bf16 with fp32 moments, batch 4 x 512,
+   WSD, through ``Trainer.fit``: 30 uninterrupted steps (every loss
+   finite, the mean of the last 5 at least ``LOSS_DROP`` below step 0;
+   step ms median and p90, tokens/s, peak memory, one profiled step, the
+   share of the bf16 peak by 6 x parameters x tokens), then 20 steps that
+   end in a checkpoint, which restores bit for bit, and 10 steps resumed
+   from it by the trainer's restore and step (one checkpoint of 27 GB: a
+   call may write 45 GiB to the machine's disk), each loss within
+   ``RESUME_RTOL`` of the uninterrupted run's.
 
 Each phase's seconds follow it on a line of their own.  Then the per-kernel
 summary line (the decode kernels' and the page copy's launches per serving
@@ -148,6 +176,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -229,6 +258,9 @@ WHISPER_SEQ = [0, 127, 300, 447]
 # whisper's decoder context (n_text_ctx of the published checkpoints): its
 # serving runs hold prompt plus generated tokens within it
 WHISPER_CONTEXT = 448
+# the script's time limit stays while it grows: these serving runs, the
+# slowest on the host, keep their full width and 8 of their layers
+CUT_DEPTH = {"granite-moe-3b-a800m": 8, "h2o-danube-3-4b": 8, "hymba-1.5b": 8}
 
 
 def paged_decode_case(torch, gen, shape, seq, dtype, label):
@@ -1898,7 +1930,8 @@ def moe_serve_phase(torch, kernels):
     # -- granite, fp32 gates: one-shot prefill dispatches each prompt as the
     # group Server.generate uses (sharing switches itself off there, so no
     # copy-on-write is required)
-    cfg = C.get_config("granite-moe-3b-a800m", dtype=torch.float32)
+    layers = CUT_DEPTH["granite-moe-3b-a800m"]
+    cfg = C.get_config("granite-moe-3b-a800m", dtype=torch.float32, n_layers=layers)
     prompts, arrivals = serve_traffic(cfg.vocab_size)
     decode_errs = paged_decode_checks(torch, GRANITE_DECODE, DECODE_SEQ, cfg.name)
     params = M.init_params(cfg, gen, device="cuda")
@@ -1906,7 +1939,7 @@ def moe_serve_phase(torch, kernels):
                           "paged_attention_decode", min_cow=0, chunked_prefill=False)
     del params
     torch.cuda.empty_cache()
-    cfg16 = C.get_config("granite-moe-3b-a800m")
+    cfg16 = C.get_config("granite-moe-3b-a800m", n_layers=layers)
     params = M.init_params(cfg16, gen, device="cuda")
     emit(timed_serve(torch, cfg16, params, prompts, arrivals, max_new))
     del params
@@ -1959,7 +1992,8 @@ def swa_serve_phase(torch, kernels):
     from repro_torch.models import model as M
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cfg = C.get_config("h2o-danube-3-4b", dtype=torch.float32)
+    layers = CUT_DEPTH["h2o-danube-3-4b"]
+    cfg = C.get_config("h2o-danube-3-4b", dtype=torch.float32, n_layers=layers)
     prompts, arrivals = long_traffic(cfg.vocab_size)
     if min(len(p) for p in prompts) <= cfg.window:
         raise AssertionError("the prompts must pass the window for the ring to wrap")
@@ -1968,7 +2002,7 @@ def swa_serve_phase(torch, kernels):
                          min_cow=0, max_len=8192)
     del params
     torch.cuda.empty_cache()
-    cfg16 = C.get_config("h2o-danube-3-4b")
+    cfg16 = C.get_config("h2o-danube-3-4b", n_layers=layers)
     prompts, arrivals = serve_traffic(cfg16.vocab_size)
     params = M.init_params(cfg16, gen, device="cuda")
     emit(timed_serve(torch, cfg16, params, prompts, arrivals, 64))
@@ -1987,7 +2021,8 @@ def ssm_serve_phase(torch, kernels):
     gen = torch.Generator(device="cuda").manual_seed(0)
     counts = {}
     for arch in ("mamba2-130m", "hymba-1.5b"):
-        cfg = C.get_config(arch, dtype=torch.float32)
+        depth = {"n_layers": CUT_DEPTH[arch]} if arch in CUT_DEPTH else {}
+        cfg = C.get_config(arch, dtype=torch.float32, **depth)
         prompts, arrivals = serve_traffic(cfg.vocab_size)
         if cfg.attn_type == "swa" and max(len(p) for p in prompts) <= cfg.window:
             raise AssertionError("a prompt must pass the window for the ring to wrap")
@@ -1997,7 +2032,7 @@ def ssm_serve_phase(torch, kernels):
                                    min_cow=0)
         del params
         torch.cuda.empty_cache()
-        cfg16 = C.get_config(arch)
+        cfg16 = C.get_config(arch, **depth)
         params = M.init_params(cfg16, gen, device="cuda")
         emit(timed_serve(torch, cfg16, params, prompts, arrivals, 64))
         del params
@@ -2034,6 +2069,357 @@ def encdec_serve_phase(torch, kernels):
     del params
     torch.cuda.empty_cache()
     return counts, decode_errs
+
+
+# the vision frontend (phase 13): Qwen2-VL's image grid, 32 x 32 patches
+VISION_TEXT = 256
+VISION_GRID = 32
+# a logit difference that an image or a position stream must exceed
+CHANGED = 1e-3
+# phase 14: the 2-layer fp32 gate's tolerances (loss relative; each gradient
+# leaf against its own max |g|; parameters after 3 AdamW steps absolute)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4
+TRAIN_PARAM_TOL = 1e-5
+# the full-depth bf16 run: the resumed run's losses against the uninterrupted
+# run's, relative (bf16, the card's reductions may run in another order)
+RESUME_RTOL = 1e-2
+# the mean of the last 5 losses must lie this far below step 0 (nats): half
+# the fall of a cut run (2 layers at full width, the same batches: 11.92 ->
+# 5.20 on an H100, PERF.md), rounded down
+LOSS_DROP = 3.0
+
+
+def vision_traffic(cfg):
+    """4 requests of a (1, 1024, d_model) standard-normal image from a numpy
+    seed over the first 1024 tokens and 256 text tokens after it, all on
+    Qwen2-VL's grid positions: the image at t = 0, h = i // 32, w = i % 32,
+    the text from 32 on all three streams.  Request 1 has request 0's tokens
+    (another image)."""
+    import numpy as np
+
+    n = cfg.n_frontend_tokens
+    S = n + VISION_TEXT
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(S,)).astype(np.int32) for _ in range(4)]
+    prompts[1] = prompts[0].copy()
+    i = np.arange(n)
+    img = np.stack([np.zeros(n), i // VISION_GRID, i % VISION_GRID])
+    text = np.broadcast_to(img.max() + 1 + np.arange(VISION_TEXT), (3, VISION_TEXT))
+    p3 = np.concatenate([img, text], 1).astype(np.int32)[:, None]  # (3, 1, S)
+    extras = [{"vis_embeds": rng.standard_normal((1, n, cfg.d_model), dtype=np.float32),
+               "positions3": p3} for _ in prompts]
+    return prompts, extras
+
+
+def _wave(torch, prompts, extras, device="cuda"):
+    import numpy as np
+
+    return {"tokens": torch.from_numpy(np.stack(prompts)).to(device),
+            "vis_embeds": torch.from_numpy(np.concatenate(
+                [e["vis_embeds"] for e in extras])).to(device),
+            "positions3": torch.from_numpy(np.concatenate(
+                [e["positions3"] for e in extras], axis=1)).to(device)}
+
+
+def vision_serve_phase(torch, kernels):
+    """qwen2-vl-72b at full width, cut to 4 of its 80 layers, through the
+    static ``Server``: an image prefix per request and M-RoPE over three
+    different position streams.  No kernel runs on this path (the JAX
+    package serves it with plain XLA, no Pallas call)."""
+    import dataclasses
+
+    import repro_torch.configs as C
+    from repro_torch.models import model as M
+    from repro_torch.serve import ServeConfig, Server
+
+    max_new, layers = 64, 4
+    cfg = C.get_config("qwen2-vl-72b", dtype=torch.float32, n_layers=layers)
+    prompts, extras = vision_traffic(cfg)
+    S = len(prompts[0])
+    max_len = S + max_new
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = M.init_params(cfg, gen, device="cuda")
+    srv = Server(cfg, params, ServeConfig(max_len=max_len), device="cuda")
+    wave = _wave(torch, prompts, extras)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    got = srv.generate(wave, max_new)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"the vision path launched kernels: {counts}")
+    agreed, excused = agree(cfg, params, prompts, got, max_new,
+                            "qwen2-vl-72b fp32 wave vs Server.generate", max_len=max_len,
+                            extras=extras)
+    # the image and the streams reach the logits
+    with torch.no_grad():
+        first = M.prefill(cfg, params, {k: v[:2] for k, v in wave.items()
+                                        if k != "positions3"}
+                          | {"positions3": wave["positions3"][:, :2]})[0]
+        image_diff = (first[0] - first[1]).abs().max().item()  # same tokens, two images
+        flat = torch.arange(S, device="cuda", dtype=torch.int32)[None, None].expand(3, 1, S)
+        equal_streams = M.prefill(cfg, params, {"tokens": wave["tokens"][:1],
+                                                "vis_embeds": wave["vis_embeds"][:1],
+                                                "positions3": flat})[0]
+        stream_diff = (equal_streams[0] - first[0]).abs().max().item()
+    emit({"phase": "vision", "model": cfg.name, "run": "fp32 gates, static Server",
+          "layers": layers, "requests": len(prompts), "prompt_len": S,
+          "image_tokens": cfg.n_frontend_tokens, "max_new": max_new, "launches": counts,
+          "agreed_prefix": agreed, "of": max_new, "excused": excused_counts(excused),
+          "excused_divergences": excused,
+          "first_logits_two_images_max_abs_diff": image_diff,
+          "first_logits_grid_vs_equal_streams_max_abs_diff": stream_diff})
+    if image_diff < CHANGED or stream_diff < CHANGED:
+        raise AssertionError(f"the image ({image_diff}) or the streams ({stream_diff}) do "
+                             f"not move the logits by {CHANGED}")
+    del params, srv, first, equal_streams
+    torch.cuda.empty_cache()
+
+    # -- timed, bf16 (the config's type)
+    cfg16 = dataclasses.replace(C.get_config("qwen2-vl-72b"), n_layers=layers)
+    params = M.init_params(cfg16, gen, device="cuda")
+    srv = Server(cfg16, params, ServeConfig(max_len=max_len), device="cuda")
+    wave = _wave(torch, prompts, extras)
+    prefill_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, caches = M.prefill(cfg16, params, wave)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t) * 1e3)
+    caches = srv._grow_cache(caches, len(prompts), S)
+    tok = torch.argmax(logits[:, -1].float(), -1).to(torch.int32)[:, None]
+    decode_ms = []
+    for i in range(max_new):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, caches = M.decode_step(cfg16, params, caches, tok, S + i)
+        tok = torch.argmax(logits[:, -1].float(), -1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        decode_ms.append((time.perf_counter() - t) * 1e3)
+    prof = profile_forward(torch, lambda: M.decode_step(cfg16, params, caches, tok, S))
+    decode_ms.sort()
+    emit({"phase": "vision", "model": cfg16.name, "run": "bf16 timed, static Server",
+          "layers": layers, "batch": len(prompts), "prompt_len": S,
+          "prefill_ms": prefill_ms, "prefill_ms_median": statistics.median(prefill_ms),
+          "decode_step_ms_median": statistics.median(decode_ms),
+          "decode_step_ms_p90": decode_ms[int(0.9 * (len(decode_ms) - 1))],
+          "decode_tok_s": len(prompts) * len(decode_ms) / (sum(decode_ms) / 1e3),
+          "profiled_decode_step": prof})
+    del params, srv, caches, logits
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _leaf_rel_errors(torch, got, want):
+    """Each leaf's max |got - want| over that leaf's max |want| (CPU side)."""
+    out = []
+    for g, w in zip(got, want):
+        scale = w.abs().max().item()
+        out.append((g.cpu() - w).abs().max().item() / max(scale, 1e-30))
+    return out
+
+
+def train_gate(torch, kernels):
+    """minicpm-2b at full width cut to 2 layers, fp32, batch 2 x 128: one
+    ``loss_fn`` and its gradients on the card against the same call on the
+    CPU (the port's own code, same weights and batch), then 3 AdamW steps
+    on each; no kernel launch; the bwma route refuses autograd."""
+    import dataclasses
+
+    import repro_torch.configs as C
+    from repro_torch import tree as T
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import model as M
+    from repro_torch.optim import OptConfig, adamw_init, adamw_update, wsd_schedule
+
+    cfg = C.get_config("minicpm-2b", dtype=torch.float32, n_layers=2)
+    cpu = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = T.tree_map(lambda x: x.to("cuda"), cpu)
+    data = SyntheticLMData(cfg, global_batch=2, seq_len=128)
+    oc = OptConfig(lr=1e-3)
+    lr_fn = wsd_schedule(oc.lr, 3, 21, 6)  # the full run's schedule
+    opt_cpu, opt_card = adamw_init(cpu, oc), adamw_init(card, oc)
+    kernels.reset_launch_counts()
+    losses, worst, near_zero, lr_sum = [], [], [], 0.0
+    for step in range(3):
+        batch = data.batch(step)
+        t = time.perf_counter()
+        l_card, _, g_card = loss_and_grads(cfg, card, {k: v.cuda() for k, v in batch.items()})
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t
+        l_cpu, _, g_cpu = loss_and_grads(cfg, cpu, batch)
+        losses.append({"step": step, "card": l_card.item(), "cpu": l_cpu.item(),
+                       "card_s": card_s})
+        errs = _leaf_rel_errors(torch, g_card, g_cpu)
+        worst.append(max(errs))
+        if step == 0:
+            i = max(range(len(errs)), key=errs.__getitem__)
+            worst_leaf = T.paths(cpu)[i]
+        # elements whose gradient lies inside the gate's tolerance of zero:
+        # there the sign of AdamW's first moves is not fixed by the gradient
+        near = [(g.abs() <= TRAIN_GRAD_TOL * g.abs().max()) for g in g_cpu]
+        near_zero = near if not near_zero else [a | b for a, b in zip(near_zero, near)]
+        lr_now = lr_fn(step)
+        lr_sum += float(lr_now)
+        cpu, opt_cpu = adamw_update(T.unflatten(cpu, g_cpu), opt_cpu, cpu, oc, lr_now)
+        card, opt_card = adamw_update(T.unflatten(card, g_card), opt_card, card, oc,
+                                      lr_fn(torch.tensor(step, device="cuda")))
+        del g_card, g_cpu
+    counts = kernels.launch_counts()
+    excused, beyond, param_err = 0, 0.0, 0.0
+    for p_card, p_cpu, near in zip(T.leaves(card), T.leaves(cpu), near_zero):
+        diff = (p_card.cpu() - p_cpu).abs()
+        over = diff > TRAIN_PARAM_TOL
+        param_err = max(param_err, diff[~near].max().item() if (~near).any() else 0.0)
+        excused += int((over & near).sum())
+        if (over & near).any():
+            beyond = max(beyond, diff[over & near].max().item())
+    bwma = dataclasses.replace(cfg, gemm_backend="bwma")
+    try:
+        loss_and_grads(bwma, card, {k: v.cuda() for k, v in data.batch(0).items()})
+        refused = None
+    except RuntimeError as e:
+        refused = str(e)
+    row = {"phase": "train", "model": cfg.name, "run": "fp32 gate, card vs CPU",
+           "layers": cfg.n_layers, "batch": [2, 128], "losses": losses,
+           "grad_max_rel_err_by_step": worst, "worst_leaf_step0": worst_leaf,
+           "param_max_abs_err_after_3_steps": param_err,
+           "params_past_tol_with_near_zero_grad": excused,
+           "their_max_abs_err": beyond, "their_bound": 2.5 * lr_sum,
+           "launches": counts, "bwma_under_autograd": refused}
+    emit(row)
+    if any(abs(r["card"] - r["cpu"]) > TRAIN_LOSS_RTOL * abs(r["cpu"]) for r in losses):
+        raise AssertionError(f"card loss vs CPU loss beyond {TRAIN_LOSS_RTOL}: {losses}")
+    if max(worst) > TRAIN_GRAD_TOL:
+        raise AssertionError(f"a gradient leaf is {max(worst)} of its max |g| off")
+    if param_err > TRAIN_PARAM_TOL or beyond > 2.5 * lr_sum:
+        raise AssertionError(f"parameters after 3 steps: {param_err} (tol {TRAIN_PARAM_TOL}); "
+                             f"near-zero-gradient elements {beyond} (bound {2.5 * lr_sum})")
+    if any(counts.values()):
+        raise AssertionError(f"the training step launched kernels: {counts}")
+    if refused is None or "no backward" not in refused:
+        raise AssertionError("gemm_backend='bwma' did not refuse autograd")
+    return row
+
+
+def _trees_equal(torch, a, b) -> bool:
+    from repro_torch import tree as T
+
+    return all(x.dtype == y.dtype and torch.equal(x, y)
+               for x, y in zip(T.leaves(a), T.leaves(b)))
+
+
+def train_phase(torch, kernels):
+    """The fp32 gate (:func:`train_gate`), then minicpm-2b at full width and
+    depth in bf16 with fp32 moments, batch 4 x 512, WSD, through
+    ``Trainer.fit``: 30 uninterrupted steps (timed; one step profiled), then
+    20 steps that end in a checkpoint, which must restore bit for bit, and
+    the 10 steps resumed from it (``restore_or_init`` and ``step_fn``: fit's
+    loop without its closing save), whose losses must lie within
+    ``RESUME_RTOL`` of the uninterrupted run's."""
+    import shutil
+    import tempfile
+
+    import repro_torch.configs as C
+    from repro_torch import tree as T
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.optim import OptConfig, wsd_schedule
+    from repro_torch.train import Trainer, TrainerConfig
+
+    gate = train_gate(torch, kernels)
+    torch.cuda.empty_cache()
+    steps, batch, seq = 30, 4, 512
+    cfg = C.get_config("minicpm-2b")
+    data = SyntheticLMData(cfg, global_batch=batch, seq_len=seq)
+    oc = OptConfig(lr=1e-3)
+
+    def trainer(n, **tc_kw):  # the CLI's WSD split of the 30 steps
+        return Trainer(cfg, None, TrainerConfig(steps=n, checkpoint_every=0, log_every=1,
+                                                **tc_kw),
+                       oc, wsd_schedule(oc.lr, steps // 10, steps * 7 // 10, steps // 5),
+                       device="cuda")
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    tr = trainer(steps)
+    params, opt, hist = tr.fit(data)
+    counts = kernels.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(p.numel() for p in T.leaves(params))
+    on_card = {k: v.cuda() for k, v in data.batch(steps).items()}
+    prof = profile_forward(torch, lambda: tr.step_fn(params, opt, on_card))
+    del params, opt, tr
+    torch.cuda.empty_cache()
+    losses = [h["loss"] for h in hist]
+    step_ms = sorted(h["s"] * 1e3 for h in hist[1:])  # step 0 warms up
+    median = statistics.median(step_ms)
+    tokens = batch * seq
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        tr = trainer(20, checkpoint_dir=d)
+        t = time.perf_counter()
+        params, opt, hist_a = tr.fit(data)  # its last act: the step-20 checkpoint
+        first_s = time.perf_counter() - t
+        t = time.perf_counter()
+        _, restored = tr.ckpt.restore((params, opt), step=20, device="cuda")
+        restore_s = time.perf_counter() - t
+        bit_exact = _trees_equal(torch, restored, (params, opt))
+        ckpt_gb = sum(os.path.getsize(os.path.join(d, "step_00000020", f))
+                      for f in os.listdir(os.path.join(d, "step_00000020"))) / 1e9
+        del params, opt, restored, tr
+        torch.cuda.empty_cache()
+        # the resume: the trainer's own restore and step, fit's loop without
+        # its closing save (a call may write 45 GiB to the machine's disk;
+        # a second 27 GB checkpoint would pass that)
+        t = time.perf_counter()
+        tr = trainer(steps, checkpoint_dir=d)
+        step0, params, opt = tr.restore_or_init()
+        hist_b = []
+        for step in range(step0, steps):
+            on_card = {k: v.cuda() for k, v in data.batch(step).items()}
+            params, opt, metrics = tr.step_fn(params, opt, on_card)
+            hist_b.append({"step": step, "loss": float(metrics["loss"])})
+        resume_s = time.perf_counter() - t
+        del params, opt, tr
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+    resumed = [h["loss"] for h in hist_b]
+    first = [h["loss"] for h in hist_a]
+    resume_err = max(abs(a - b) / abs(b) for a, b in zip(resumed, losses[20:]))
+    first_err = max(abs(a - b) / abs(b) for a, b in zip(first, losses[:20]))
+    row = {"phase": "train", "model": cfg.name, "run": "bf16, fp32 moments, Trainer.fit",
+           "layers": cfg.n_layers, "batch": [batch, seq], "steps": steps,
+           "parameters": n_params, "losses": losses,
+           "loss_step0": losses[0], "loss_last5_mean": statistics.mean(losses[-5:]),
+           "step_ms_median": median, "step_ms_p90": step_ms[int(0.9 * (len(step_ms) - 1))],
+           "step0_ms": hist[0]["s"] * 1e3, "tokens_per_s": tokens / (median / 1e3),
+           "max_memory_allocated_gb": peak_gb,
+           "bf16_peak_share_spec": 6 * n_params * tokens / (median / 1e3) / PEAK_BF16_FLOPS,
+           "profiled_step": prof, "launches": counts,
+           "checkpoint_gb": ckpt_gb, "first_20_steps_and_save_s": first_s,
+           "restore_s": restore_s, "restore_bit_exact": bit_exact,
+           "resume_10_steps_s": resume_s, "resumed_from": step0, "resumed_losses": resumed,
+           "resumed_max_rel_err": resume_err, "first_20_max_rel_err": first_err}
+    emit(row)
+    if not all(math.isfinite(x) for x in losses + resumed + first):
+        raise AssertionError("a loss is not finite")
+    if row["loss_last5_mean"] > losses[0] - LOSS_DROP:
+        raise AssertionError(f"the loss fell from {losses[0]} to {row['loss_last5_mean']}, "
+                             f"not by {LOSS_DROP}")
+    if not bit_exact:
+        raise AssertionError("the step-20 checkpoint did not restore bit for bit")
+    if [h["step"] for h in hist_b] != list(range(20, steps)) or resume_err > RESUME_RTOL \
+            or first_err > RESUME_RTOL:
+        raise AssertionError(f"resumed losses off by {resume_err} (first 20: {first_err}), "
+                             f"tol {RESUME_RTOL}")
+    if any(counts.values()):
+        raise AssertionError(f"the training run launched kernels: {counts}")
+    return {"gate": gate, "run": row}
 
 
 def main() -> int:
@@ -2134,6 +2520,14 @@ def main() -> int:
     # 12. enc-dec end to end: whisper-tiny with per-request audio
     encdec, whisper_errs = encdec_serve_phase(torch, kernels)
     done("encdec_serve")
+
+    # 13. the vision frontend: qwen2-vl-72b's image prefix and M-RoPE
+    vision_serve_phase(torch, kernels)
+    done("vision_serve")
+
+    # 14. training: minicpm-2b, the card against the CPU, then full depth
+    train_phase(torch, kernels)
+    done("train")
 
     # the decode kernels' launches in each serving run that drives them
     by_run = {

@@ -167,9 +167,23 @@ def check(code: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {code} ({msg})")
 
 
+def refuse_autograd(kernel: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise when grad mode is on and an operand requires a gradient: a
+    kernel launched through ``ctypes`` returns a tensor with no
+    ``grad_fn``, so its operands would silently get no gradient (and the
+    plain version on the CPU would differentiate where the card cannot)."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{kernel}: the hand-written kernels have no backward; "
+                           "differentiate through gemm_backend='xla', or run under "
+                           "torch.no_grad()")
+
+
 def on_cuda(kernel: str, *tensors: torch.Tensor) -> bool:
     """True when every tensor is on one CUDA device, False when all are on
-    the CPU; raise on a mix or on any other device."""
+    the CPU; raise on a mix or on any other device, and (every wrapper asks
+    here before it runs) on an operand that autograd would track
+    (:func:`refuse_autograd`)."""
+    refuse_autograd(kernel, *tensors)
     devices = {t.device for t in tensors}
     if devices == {torch.device("cpu")}:
         return False

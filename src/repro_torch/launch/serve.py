@@ -21,10 +21,19 @@ and enc-dec cross rows (whisper-tiny), e.g. on the card in bf16:
 
 An audio config (whisper-tiny) gives every request its own (1,
 encoder_seq, d_model) audio embedding, drawn from ``--seed``; the JAX
-CLI's stub of zeros stands in only where a caller gives none.  The JAX
-CLI's ``--mesh`` is not ported (ROADMAP.md queue 1 item 26); the vision
-frontend is refused before anything is allocated, naming the ROADMAP.md
-item that ports it.
+CLI's stub of zeros stands in only where a caller gives none.  A vision
+config (qwen2-vl-72b) runs on the static ``Server`` with the JAX CLI's
+stubs (zero image rows over the prompt's first ``n_frontend_tokens``
+tokens, ``arange`` on all three M-RoPE streams; ``--prompt-len`` at least
+1024 at full width):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-72b \
+      --batch 4 --prompt-len 1280 --max-new 64
+
+its multi-request workload takes ``--engine static``: the continuous
+engine has no cache adapter for it and refuses it before anything is
+allocated, as the JAX CLI does.  The JAX CLI's ``--mesh`` is not ported
+(ROADMAP.md queue 1 item 26).
 """
 from __future__ import annotations
 
@@ -74,7 +83,8 @@ def audio_extras(cfg, n: int, seed: int):
 
 
 def run_single_wave(cfg, params, args, device):
-    """One batch, one static wave."""
+    """One batch, one static wave (``Server.generate`` fills a vision
+    config's stubs, as the JAX CLI does)."""
     srv = Server(cfg, params, ServeConfig(
         max_len=args.prompt_len + args.max_new + 8, temperature=args.temperature,
         seed=args.seed), device=device)
@@ -252,16 +262,18 @@ def main(argv=None):
         warn_prefill_chunks_deprecated()
     cfg = C.get_config(args.arch, smoke=args.smoke,
                        dtype=torch.float32 if args.smoke else torch.bfloat16)
-    # refuse BEFORE any pool (or even params) is allocated, with the exact
-    # family list the adapter registry reports
-    msg = A.unsupported_message(cfg)
-    if msg is not None:
-        raise SystemExit(msg)
+    if args.num_requests > 0 and args.engine != "static":
+        # refuse BEFORE any pool (or even params) is allocated, with the
+        # exact family list the adapter registry reports
+        msg = A.unsupported_message(cfg, hint="rerun with --engine static")
+        if msg is not None:
+            raise SystemExit(msg)
     # "cuda" resolves like an entry point's default: it raises without CUDA
     device = resolve_device(None if args.device == "cuda" else args.device)
     kinds = "+".join(f"{n} {kind}" for kind, n in A.layer_segments(cfg))
-    _say(f"serving {cfg.name} ({kinds} layers; caches: "
-         f"{', '.join(ad.family for ad in A.all_adapters(cfg))}) on {device}")
+    caches = ("static (no cache adapter)" if A.unsupported_reason(cfg)
+              else ", ".join(ad.family for ad in A.all_adapters(cfg)))
+    _say(f"serving {cfg.name} ({kinds} layers; caches: {caches}) on {device}")
     params = M.init_params(cfg, torch.Generator(device=device).manual_seed(args.seed),
                            device=device)
     if args.num_requests > 0:

@@ -21,8 +21,9 @@ and conv rows per slot (:class:`SSMStateAdapter`), a hybrid layer (Hymba)
 its attention's cache and those rows, and an enc-dec decoder (whisper) its
 paged self-attention and immutable encoder-side rows
 (:class:`CrossAttnAdapter`), installed once at admission.  The vision
-frontend waits for its slice, and :func:`unsupported_message` refuses it
-naming the ROADMAP.md item that ports it.
+frontend has no cache adapter, in the JAX package as here:
+:func:`unsupported_message` refuses it for the engine and the paged pool,
+and the static ``Server`` serves it.
 """
 from __future__ import annotations
 
@@ -461,11 +462,11 @@ def supported_families() -> Tuple[str, ...]:
 
 
 def unsupported_reason(cfg: ModelConfig) -> Optional[str]:
-    """Why the port cannot serve this config yet, naming the ROADMAP.md item
-    that ports it (None = it can)."""
+    """Why the continuous-batching engine cannot serve this config (None =
+    it can): the vision frontend's M-RoPE prefix, as in the JAX package."""
     if cfg.frontend == "vision" or cfg.mrope_sections:
         return ("the vision frontend (M-RoPE position streams + image prefix) "
-                "is not ported yet (ROADMAP.md queue 1 item 24)")
+                "has no cache adapter yet")
     if cfg.attn_type not in _ATTN_ADAPTERS or cfg.family not in (
             "dense", "moe", "ssm", "hybrid", "encdec"):
         return f"family {cfg.family!r} / attention {cfg.attn_type!r} has no adapter"

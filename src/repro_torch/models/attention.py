@@ -7,8 +7,9 @@ returns a params dict; :func:`gqa_forward` and :func:`mla_forward` handle
 the three execution modes ``train`` (no cache), ``prefill`` (returns a
 filled cache) and ``decode`` (one token against the cache; a ring buffer
 for sliding-window attention).  MLA caches the *latent* c_kv + the shared
-rotary key and decodes with the absorbed-matmul formulation.  M-RoPE waits
-for the vision slice (ROADMAP.md queue 1 item 24).
+rotary key and decodes with the absorbed-matmul formulation.  A config with
+``mrope_sections`` (Qwen2-VL) rotates q and k by M-RoPE over its (3, B, S)
+position streams.
 
 Where the JAX package rebuilds a cache functionally (``dynamic_update_slice``,
 ``.at[...].set``) and donates the old one, this port writes into the cache
@@ -25,6 +26,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.backend import resolve_backend
 from repro_torch.models.common import (
     MASK,
+    apply_mrope,
     apply_rope,
     chunked_attention,
     decode_attention,
@@ -78,8 +80,12 @@ def _project_qkv(p, cfg: ModelConfig, x, positions):
     k = k.reshape(B, S, Hkv, dh)
     v = v.reshape(B, S, Hkv, dh)
     if cfg.use_rope:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        if cfg.mrope_sections:  # positions: (3, B, S) position streams
+            q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+            k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+        else:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -87,7 +93,7 @@ def gqa_forward(
     p: Dict,
     cfg: ModelConfig,
     x: torch.Tensor,  # (B, S, d)
-    positions,  # (B, S)
+    positions,  # (B, S), or (3, B, S) for M-RoPE
     *,
     mode: str = "train",
     cache: Optional[Dict] = None,

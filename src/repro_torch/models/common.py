@@ -1,7 +1,7 @@
 """Shared building blocks: norms, RoPE, chunked attention math, and ``dense``.
 
-Counterpart of ``repro.models.common``.  ``apply_mrope`` (the vision
-frontend's M-RoPE) waits for the vision slice (ROADMAP.md queue 1 item 24).
+Counterpart of ``repro.models.common``, the vision frontend's M-RoPE
+(:func:`apply_mrope`) included.
 """
 from __future__ import annotations
 
@@ -82,9 +82,16 @@ def dense(cfg: ModelConfig, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     it does not, as in the JAX package; ``bwma`` pads its blocks, so it runs
     at the largest tile its kernel takes (8..128, powers of two) not above
     the JAX one.
+
+    The kernel routes have no backward: with grad mode on, an operand that
+    requires a gradient raises, as the JAX package's Pallas route cannot be
+    differentiated either.  Training runs ``xla``.
     """
     if cfg.gemm_backend == "xla" or w.dim() != 2:
         return x @ w
+    from repro_torch.kernels._build import refuse_autograd
+
+    refuse_autograd(f"dense (gemm_backend={cfg.gemm_backend!r})", x, w)
     from repro_torch.core import blockwise as bw
     from repro_torch.core.backend import resolve_backend
     from repro_torch.core.layout import BlockLayout
@@ -123,7 +130,38 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     """Standard RoPE.  x: (B, S, H, D); positions: (B, S) integer."""
     d = x.shape[-1]
     inv = rope_freqs(d, theta, device=x.device)  # (d/2,)
-    ang = positions.float()[..., None] * inv  # (B, S, d/2)
+    return _rotate(x, positions.float()[..., None] * inv)  # angles (B, S, d/2)
+
+
+def mrope_streams(sections, half: int) -> list:
+    """The position stream (0 temporal, 1 height, 2 width) that drives each
+    of the ``half`` frequency pairs: ``jnp.repeat(arange(len(sections)),
+    sections, total_repeat_length=half)``, so a split that sums short of
+    ``half`` repeats its last stream and one that sums past it is cut."""
+    ids = [i for i, n in enumerate(sections) for _ in range(n)][:half]
+    return ids + [ids[-1]] * (half - len(ids))
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.  x: (B, S, H, D); positions3: (3, B, S) --
+    the temporal, height and width position streams; ``sections`` splits
+    the D/2 frequency pairs among them (sum(sections) == D//2).
+
+    Frequency ``i`` takes its angle from stream ``sec_id[i]`` by an index.
+    The JAX package selects with a one-hot einsum over the three streams;
+    in fp32 the two are equal, since the one-hot adds the chosen angle
+    times 1 to the others times 0, which is exact."""
+    d = x.shape[-1]
+    inv = rope_freqs(d, theta, device=x.device)  # (d/2,)
+    sec_id = torch.tensor(mrope_streams(sections, d // 2), device=x.device)
+    pos = positions3.float()[sec_id]  # (d/2, B, S): each frequency's stream
+    return _rotate(x, pos.permute(1, 2, 0) * inv)  # angles (B, S, d/2)
+
+
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """Rotate the two halves of x's last axis by the angles (B, S, D/2), in
+    fp32; the result in ``x.dtype``."""
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)

@@ -4,22 +4,24 @@
 
 Counterpart of ``repro.models.model`` for dense and MoE stacks with full
 GQA, sliding-window GQA or DeepSeek-V3's MLA attention, SSM stacks
-(mamba2), hybrid attention + SSM stacks (Hymba) and the enc-dec family
+(mamba2), hybrid attention + SSM stacks (Hymba), the enc-dec family
 (whisper: an audio encoder, a decoder with cross-attention and learned
-positions); the vision frontend is refused with the ROADMAP.md item that
-ports it (:func:`repro_torch.models.adapters.unsupported_message`).  The
-JAX package's training path (``forward_train``, ``loss_fn``, the MTP head)
-waits for ROADMAP.md queue 1 item 25: a DeepSeek-V3 tree carries its
-``mtp`` subtree unread.
+positions) and the vision frontend (Qwen2-VL: image embeddings over the
+prompt's prefix, M-RoPE over three position streams; the static path only,
+as in the JAX package).
 Layers are grouped into homogeneous *segments*; each segment's parameters
 (and caches) are stacked along a leading L axis, as in the JAX package, and
 a Python loop over the layers takes the place of ``jax.lax.scan``.  The
 JAX package's sharding constraints have no counterpart without a mesh.
 
-Execution modes: ``prefill`` (populate a static cache), ``decode`` (one
-token against it), and the serving engine's ``chunk`` (one prompt chunk
-into the paged cache) and paged ``decode``.  Cache tensors are updated in
-place: the decode and chunk steps return the caches they were given.
+Execution modes: ``train`` (:func:`forward_train` and :func:`loss_fn`: the
+LM loss, the MoE auxiliary loss and DeepSeek-V3's MTP head, each layer
+recomputed in the backward pass with ``remat``), ``prefill`` (populate a
+static cache), ``decode`` (one token against it), and the serving engine's
+``chunk`` (one prompt chunk into the paged cache) and paged ``decode``.
+Cache tensors are updated in place: the decode and chunk steps return the
+caches they were given; ``train`` writes no cache, so autograd can follow
+it.
 
 Entry points run on the CUDA device unless the caller passes ``device``:
 :func:`init_params` and :func:`params_from_numpy` default to ``"cuda"``
@@ -31,7 +33,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tree as T
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.encoder import resolve_device
 from repro_torch.models import adapters as A
@@ -45,12 +49,6 @@ from repro_torch.models.common import apply_norm, default_positions, dense_init,
 layer_segments = A.layer_segments
 
 
-def _require_supported(cfg: ModelConfig) -> None:
-    msg = A.unsupported_message(cfg)
-    if msg is not None:
-        raise NotImplementedError(msg)
-
-
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
@@ -58,8 +56,16 @@ def _tree_map(fn, tree):
 
 
 def _tree_index(tree, i: int):
-    """Layer ``i`` of a stacked tree: views, so in-place writes reach the stack."""
+    """Layer ``i`` of a stacked tree: views, so in-place writes reach the
+    stack (or, where a leaf is a list of per-layer tensors, as the train
+    step hands them to autograd, the list's ``i``-th)."""
     return _tree_map(lambda a: a[i], tree)
+
+
+def is_layer_stack(key: str) -> bool:
+    """Whether the top-level parameter ``key`` holds leaves stacked per
+    layer (the model reads layer ``i`` of each as ``a[i]``)."""
+    return key.startswith("seg") or key in ("encoder", "cross")
 
 
 def _tree_stack(trees):
@@ -93,12 +99,12 @@ def init_layer(generator: torch.Generator, cfg: ModelConfig, kind: str,
     return p
 
 
-def _ffn_block(cfg: ModelConfig, kind: str, p: Dict, h2: torch.Tensor) -> torch.Tensor:
-    """The layer's FFN or MoE.  The MoE's auxiliary loss is discarded: only
-    training reads it (ROADMAP.md queue 1 item 25)."""
+def _ffn_block(cfg: ModelConfig, kind: str, p: Dict, h2: torch.Tensor):
+    """The layer's FFN or MoE: (out, aux), the MoE's auxiliary loss or 0.0
+    for a dense FFN (a float: the serving steps allocate no zero tensor)."""
     if kind == "moe":
-        return ffnm.moe_forward(p["moe"], cfg, h2)[0]
-    return ffnm.ffn_forward(p["ffn"], cfg, h2)
+        return ffnm.moe_forward(p["moe"], cfg, h2)
+    return ffnm.ffn_forward(p["ffn"], cfg, h2), 0.0
 
 
 def _ssm_mixer(cfg: ModelConfig, p: Dict, h, mode: str, cache: Optional[Dict]):
@@ -127,7 +133,8 @@ def layer_forward(
     page_table=None,  # (B, max_pages) physical page ids (paged KV cache)
     active=None,  # (B,) bool: slots whose decode writes may land
     chunk: Optional[Dict] = None,  # chunked-prefill context (mode "chunk")
-) -> Tuple[torch.Tensor, Optional[Dict]]:
+) -> Tuple[torch.Tensor, Optional[Dict], Any]:
+    """One layer: (x, its cache or None, the MoE auxiliary loss or 0.0)."""
     if chunk is not None or (mode == "decode" and seq_pos is not None):
         return _layer_forward_engine(
             cfg, kind, p, x, positions, mode=mode, cache=cache,
@@ -140,7 +147,7 @@ def layer_forward(
         out, st = _ssm_mixer(cfg, p, h, mode, cache)
         if st is not None:
             new_cache["ssm"] = st
-        return x + out, (new_cache or None)
+        return x + out, (new_cache or None), 0.0
     forward = attn.mla_forward if cfg.attn_type == "mla" else attn.gqa_forward
     a_out, a_cache = forward(
         p["attn"], cfg, h, positions, mode=mode,
@@ -154,9 +161,8 @@ def layer_forward(
             new_cache["ssm"] = st
         a_out = 0.5 * (a_out + s_out)  # Hymba: fused parallel heads
     x = x + a_out
-    h2 = apply_norm(cfg, p["ln2"], x)
-    x = x + _ffn_block(cfg, kind, p, h2)
-    return x, (new_cache or None)
+    f_out, aux = _ffn_block(cfg, kind, p, apply_norm(cfg, p["ln2"], x))
+    return x + f_out, (new_cache or None), aux
 
 
 def _layer_forward_engine(
@@ -189,16 +195,15 @@ def _layer_forward_engine(
         out, new_cache[ad.key] = run(ad, p[ad.param_key], h)
         outs.append(out)
     if kind == "ssm":
-        return x + outs[0], new_cache
+        return x + outs[0], new_cache, 0.0
     # hybrid (Hymba) fuses parallel attention + SSM heads by mean
     x = x + (outs[0] if len(outs) == 1 else 0.5 * (outs[0] + outs[1]))
     if cross is not None:
         hc = apply_norm(cfg, p["cross"]["ln"], x)
         out_c, new_cache["cross"] = run(cross, p["cross"]["attn"], hc)
         x = x + out_c
-    h2 = apply_norm(cfg, p["ln2"], x)
-    x = x + _ffn_block(cfg, kind, p, h2)
-    return x, new_cache
+    f_out, aux = _ffn_block(cfg, kind, p, apply_norm(cfg, p["ln2"], x))
+    return x + f_out, new_cache, aux
 
 
 # --------------------------------------------------------------------------
@@ -211,7 +216,6 @@ def _stacked(one: Dict, n: int) -> Dict:
 
 
 def _layer_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int, device=None):
-    _require_supported(cfg)
     c: Dict[str, Any] = {}
     if kind in ("dense", "moe", "hybrid"):
         if cfg.attn_type == "mla":
@@ -268,7 +272,9 @@ def init_paged_cache(cfg: ModelConfig, max_seqs: int, num_pages: int, page_size:
     states and enc-dec cross K/V): paged pools share physical page ids
     across layers (page ids are pool-wide).
     """
-    _require_supported(cfg)
+    msg = A.unsupported_message(cfg)  # the vision frontend has no cache adapter
+    if msg is not None:
+        raise NotImplementedError(msg)
     device = resolve_device(device)
     geom = A.CacheGeometry(max_seqs, num_pages, page_size, max_len)
     segs = {}
@@ -294,10 +300,10 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     seed; parity tests carry the JAX weights across with
     :func:`params_from_numpy`.  Each segment's stack is filled layer by
     layer, so the peak is the stack plus one layer (a one-layer segment is
-    its layer, with no copy).  DeepSeek-V3's MTP head is not drawn: only
-    training reads it (ROADMAP.md queue 1 item 25).
+    its layer, with no copy).  DeepSeek-V3 also draws its MTP head (``mtp``:
+    a projection, two norms, one dense layer and a final norm), which only
+    training reads.
     """
-    _require_supported(cfg)
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
@@ -321,10 +327,18 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
             if stack is None:
                 stack = _tree_map(
                     lambda a: torch.empty((n, *a.shape), dtype=a.dtype, device=device), layer)
-            for dst, src in zip(_leaves(stack), _leaves(layer)):
+            for dst, src in zip(T.leaves(stack), T.leaves(layer)):
                 dst[i].copy_(src)
             del layer
         params[f"seg{si}"] = stack
+    if cfg.mtp_depth:
+        params["mtp"] = {
+            "proj": dense_init(generator, 2 * d, d, cfg.dtype, device=device),
+            "norm_h": norm_init(cfg, d, device),
+            "norm_e": norm_init(cfg, d, device),
+            "layer": init_layer(generator, cfg, "dense", device),
+            "final_norm": norm_init(cfg, d, device),
+        }
     if cfg.n_encoder_layers:
         params["encoder"] = _tree_stack([_enc_layer_init(generator, cfg, device)
                                          for _ in range(cfg.n_encoder_layers)])
@@ -357,14 +371,6 @@ def _cross_init(generator: torch.Generator, cfg: ModelConfig, device) -> Dict:
             "attn": attn.gqa_init(generator, cfg, device)}
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _leaves(tree[k])
-    else:
-        yield tree
-
-
 def _to_tensor(x, device) -> torch.Tensor:
     a = np.array(x, copy=True, order="C")
     if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16, as JAX hands it out
@@ -378,8 +384,8 @@ def params_from_numpy(tree, device=None) -> Dict:
     element types, on ``device`` (default ``"cuda"``; raises without CUDA):
     a MoE router and an SSM's ``A_log``, ``D`` and ``dt_bias`` stay fp32 in
     a bf16 tree, whisper's stacked ``encoder`` and ``cross`` subtrees come
-    along, and DeepSeek-V3's ``mtp`` subtree is carried, unread by
-    serving."""
+    along, and DeepSeek-V3's ``mtp`` subtree is carried (training reads
+    it)."""
     device = resolve_device(device)
     return _tree_map(lambda x: _to_tensor(x, device), tree)
 
@@ -388,11 +394,19 @@ def params_from_numpy(tree, device=None) -> Dict:
 # Forward passes
 # --------------------------------------------------------------------------
 
-def frontend_extras(cfg: ModelConfig, batch: Dict, B: int, device) -> Dict:
-    """Fill a *missing* audio input with a stub of zero embeddings, (B,
-    encoder_seq, d_model) on ``device``.  An input already present (a
-    request's real ``audio_embeds``) is left as it is.  The vision frontend
-    is refused (ROADMAP.md queue 1 item 24)."""
+def frontend_extras(cfg: ModelConfig, batch: Dict, B: int, S: int, device) -> Dict:
+    """Fill *missing* modality inputs with stubs on ``device``: a vision
+    config's zero ``vis_embeds`` (B, n_frontend_tokens, d_model) and
+    ``positions3`` of ``arange(S)`` on all three streams, an audio config's
+    zero ``audio_embeds`` (B, encoder_seq, d_model).  Inputs already present
+    (a request's real image or audio) are left as they are."""
+    if cfg.frontend == "vision":
+        if "vis_embeds" not in batch:
+            batch["vis_embeds"] = torch.zeros((B, cfg.n_frontend_tokens, cfg.d_model),
+                                              dtype=cfg.dtype, device=device)
+        if "positions3" not in batch:
+            batch["positions3"] = torch.arange(S, dtype=torch.int32, device=device)[
+                None, None].expand(3, B, S)
     if cfg.frontend == "audio" and "audio_embeds" not in batch:
         batch["audio_embeds"] = torch.zeros((B, cfg.encoder_seq, cfg.d_model),
                                             dtype=cfg.dtype, device=device)
@@ -400,22 +414,47 @@ def frontend_extras(cfg: ModelConfig, batch: Dict, B: int, device) -> Dict:
 
 
 def _embed_inputs(cfg: ModelConfig, params, batch: Dict) -> Tuple[torch.Tensor, Any]:
+    """Token embeddings, the image rows over the first ``vis_embeds.shape[1]``
+    of them (a vision config), and the positions: ``positions3`` for an
+    M-RoPE config that has them, else ``arange(S)`` per row."""
     tokens = batch["tokens"]
     h = params["embed"][tokens.long()]
-    positions = default_positions(tokens.shape[0], tokens.shape[1], device=h.device)
+    if cfg.frontend == "vision" and "vis_embeds" in batch:
+        v = batch["vis_embeds"].to(h.dtype)
+        if v.shape[0] != h.shape[0] or v.shape[1] > h.shape[1] or v.shape[2] != h.shape[2]:
+            # the JAX package's dynamic_update_slice refuses the same shapes
+            raise ValueError(f"vis_embeds of shape {tuple(v.shape)} do not fit in the "
+                             f"prompt's embeddings {tuple(h.shape)}: the image prefix "
+                             "must not be longer than the prompt")
+        h = torch.cat([v, h[:, v.shape[1]:]], dim=1)  # not in place: autograd follows
+    if cfg.mrope_sections and "positions3" in batch:
+        positions = batch["positions3"]
+    else:
+        positions = default_positions(tokens.shape[0], tokens.shape[1], device=h.device)
     return h, positions
+
+
+def _train_layer(cfg: ModelConfig, kind: str, p: Dict, x, positions):
+    x, _, aux = layer_forward(cfg, kind, p, x, positions, mode="train", cache=None)
+    return x, aux
 
 
 def _run_segments(
     cfg: ModelConfig, params, h, positions, *, mode: str, caches=None,
-    pos_offset=0, seq_pos=None, page_table=None, active=None, chunk=None,
+    pos_offset=0, remat: bool = False, seq_pos=None, page_table=None, active=None,
+    chunk=None,
 ):
-    """Run each stacked segment layer by layer; returns (h, new_caches).
+    """Run each stacked segment layer by layer; returns (h, new_caches,
+    aux_sum), the MoE layers' auxiliary losses summed per segment (0.0
+    where there is none).
 
     In ``prefill`` mode the per-layer caches are stacked into new tensors;
     in the decode and chunk modes each layer writes its share of the
-    stacked caches in place and the same tensors come back."""
-    _require_supported(cfg)
+    stacked caches in place and the same tensors come back.  ``remat`` (in
+    ``train`` mode) keeps only each layer's input for the backward pass and
+    recomputes the rest there (``torch.utils.checkpoint``), the counterpart
+    of the JAX package's ``jax.checkpoint(nothing_saveable)``."""
+    aux_total = 0.0
     new_caches = {}
     engine = chunk is not None or (mode == "decode" and seq_pos is not None)
     seg_off = 0
@@ -429,30 +468,124 @@ def _run_segments(
                                                     params["cross"]))
         seg_off += n
         cache_seg = caches.get(f"seg{si}") if caches else None
-        layer_caches = []
+        layer_caches, auxes = [], []
         for i in range(n):
-            h, c_new = layer_forward(
-                cfg, kind, _tree_index(stacked, i), h, positions,
-                mode=mode, cache=_tree_index(cache_seg, i) if cache_seg is not None else None,
-                pos_offset=pos_offset, seq_pos=seq_pos, page_table=page_table,
-                active=active, chunk=chunk,
-            )
-            if mode == "prefill":
-                layer_caches.append(c_new)
+            p_layer = _tree_index(stacked, i)
+            if mode == "train" and remat:
+                h, aux = checkpoint(_train_layer, cfg, kind, p_layer, h, positions,
+                                    use_reentrant=False)
+            else:
+                h, c_new, aux = layer_forward(
+                    cfg, kind, p_layer, h, positions,
+                    mode=mode, cache=_tree_index(cache_seg, i) if cache_seg is not None else None,
+                    pos_offset=pos_offset, seq_pos=seq_pos, page_table=page_table,
+                    active=active, chunk=chunk,
+                )
+                if mode == "prefill":
+                    layer_caches.append(c_new)
+            if isinstance(aux, torch.Tensor):
+                auxes.append(aux)
+        if auxes:  # the JAX package sums each segment's stacked aux values
+            aux_total = aux_total + torch.stack(auxes).sum()
         if mode == "prefill":
             new_caches[f"seg{si}"] = _tree_stack(layer_caches)
         elif mode in ("decode", "chunk"):
             new_caches[f"seg{si}"] = cache_seg
-    return h, new_caches
+    return h, new_caches, aux_total
 
 
 def _lm_logits(cfg: ModelConfig, params, h):
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = h @ w
     if cfg.padded_vocab != cfg.vocab_size:
-        # mask pad columns so logsumexp / sampling never see them
+        # mask pad columns so logsumexp / sampling never see them (in place:
+        # the product's backward reads its operands, not its output)
         logits[..., cfg.vocab_size:] = torch.finfo(logits.dtype).min
     return logits
+
+
+# --------------------------------------------------------------------------
+# Training
+# --------------------------------------------------------------------------
+
+def forward_train(cfg: ModelConfig, params, batch: Dict, *, remat: bool = True):
+    """Returns (per-token logits, the summed MoE auxiliary loss, the final
+    hidden states)."""
+    if cfg.n_encoder_layers:
+        return _forward_encdec_train(cfg, params, batch, remat=remat)
+    h, positions = _embed_inputs(cfg, params, batch)
+    h, _, aux = _run_segments(cfg, params, h, positions, mode="train", remat=remat)
+    if not isinstance(aux, torch.Tensor):
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    h = apply_norm(cfg, params["final_norm"], h)
+    return _lm_logits(cfg, params, h), aux, h
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean CE over the positions with label >= 0, the logsumexp in fp32,
+    divided by max(count, 1).  The label's logit is gathered; the JAX
+    package takes it by a masked sum over the vocabulary (for a sharded
+    vocabulary), which adds it to zeros and gives the same value."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return torch.sum((lse - ll) * mask) / torch.clamp(mask.sum(), min=1.0)
+
+
+def loss_fn(cfg: ModelConfig, params, batch: Dict, *, remat: bool = True):
+    """Next-token LM loss (+ the MoE auxiliary loss, + DeepSeek-V3's MTP
+    head at weight 0.1); returns (loss, {"ce", "aux"[, "mtp"]})."""
+    if cfg.n_encoder_layers:
+        logits, aux, _ = _forward_encdec_train(cfg, params, batch, remat=remat)
+        loss = cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+        return loss + aux, {"ce": loss, "aux": aux}
+    logits, aux, h = forward_train(cfg, params, batch, remat=remat)
+    labels = batch["labels"]
+    loss = cross_entropy(logits[:, :-1], labels[:, :-1])
+    metrics = {"ce": loss, "aux": aux}
+    if cfg.mtp_depth:
+        mtp_loss = _mtp_loss(cfg, params, h, batch)
+        metrics["mtp"] = mtp_loss
+        loss = loss + 0.1 * mtp_loss
+    return loss + aux, metrics
+
+
+def _mtp_loss(cfg: ModelConfig, params, h, batch):
+    """DeepSeek-V3 multi-token prediction: one extra dense block predicting
+    token t+2 from [h_t ; emb(token_{t+1})], sharing the output head."""
+    p = params["mtp"]
+    tokens, labels = batch["tokens"], batch["labels"]
+    e_next = params["embed"][tokens[:, 1:].long()]
+    comb = torch.cat([apply_norm(cfg, p["norm_h"], h[:, :-1]),
+                      apply_norm(cfg, p["norm_e"], e_next)], dim=-1) @ p["proj"]
+    positions = default_positions(comb.shape[0], comb.shape[1], device=comb.device)
+    out, _, _ = layer_forward(cfg, "dense", p["layer"], comb, positions, mode="train",
+                              cache=None)
+    logits = _lm_logits(cfg, params, apply_norm(cfg, p["final_norm"], out))
+    return cross_entropy(logits[:, :-1], labels[:, 1:-1])  # labels shifted by +1
+
+
+def _forward_encdec_train(cfg: ModelConfig, params, batch: Dict, *, remat: bool = True):
+    """Whisper's training forward: the encoder over ``audio_embeds``, then
+    every decoder layer with cross-attention over its output; (logits, a
+    zero aux, the final hidden states)."""
+    enc_out = _encoder_forward(cfg, params, batch["audio_embeds"], remat=remat)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    h = params["embed"][tokens.long()] + params["dec_pos"][None, :S]
+    positions = default_positions(B, S, device=h.device)
+
+    def layer(p_layer, p_cross, x):
+        return _dec_layer(cfg, p_layer, p_cross, x, positions, enc_out, mode="train",
+                          cache=None, pos_offset=0)[0]
+
+    for i in range(cfg.n_layers):
+        args = (_tree_index(params["seg0"], i), _tree_index(params["cross"], i), h)
+        h = checkpoint(layer, *args, use_reentrant=False) if remat else layer(*args)
+    h = apply_norm(cfg, params["final_norm"], h)
+    return _lm_logits(cfg, params, h), torch.zeros((), dtype=torch.float32,
+                                                   device=h.device), h
 
 
 def prefill(cfg: ModelConfig, params, batch: Dict, last_idx: Optional[int] = None):
@@ -466,7 +599,7 @@ def prefill(cfg: ModelConfig, params, batch: Dict, last_idx: Optional[int] = Non
     if cfg.n_encoder_layers:
         return _prefill_encdec(cfg, params, batch)
     h, positions = _embed_inputs(cfg, params, batch)
-    h, caches = _run_segments(cfg, params, h, positions, mode="prefill")
+    h, caches, _ = _run_segments(cfg, params, h, positions, mode="prefill")
     h = h[:, -1:] if last_idx is None else h[:, last_idx:last_idx + 1]
     h = apply_norm(cfg, params["final_norm"], h)
     return _lm_logits(cfg, params, h), caches
@@ -474,13 +607,15 @@ def prefill(cfg: ModelConfig, params, batch: Dict, last_idx: Optional[int] = Non
 
 def decode_step(cfg: ModelConfig, params, caches, tokens, pos: int):
     """One decode step.  tokens: (B, 1) integer; pos: host int absolute
-    position.  Writes the caches in place; returns (logits (B, 1, V), caches)."""
+    position, on all three streams of an M-RoPE config (the JAX package's
+    rule).  Writes the caches in place; returns (logits (B, 1, V), caches)."""
     B = tokens.shape[0]
     h = params["embed"][tokens.long()]
-    positions = torch.full((B, 1), pos, dtype=torch.int32, device=h.device)
+    shape = (3, B, 1) if cfg.mrope_sections else (B, 1)
+    positions = torch.full(shape, pos, dtype=torch.int32, device=h.device)
     if cfg.n_encoder_layers:
         return _decode_encdec(cfg, params, caches, h, positions, pos)
-    h, new_caches = _run_segments(
+    h, new_caches, _ = _run_segments(
         cfg, params, h, positions, mode="decode", caches=caches, pos_offset=pos,
     )
     h = apply_norm(cfg, params["final_norm"], h)
@@ -505,7 +640,7 @@ def decode_step_paged(cfg: ModelConfig, params, caches, tokens, seq_pos,
         # learned decoder positions, gathered per slot (enc-dec decode)
         h = h + params["dec_pos"][seq_pos.long()][:, None]
     positions = seq_pos[:, None]  # (B, 1) per-slot RoPE positions
-    h, new_caches = _run_segments(
+    h, new_caches, _ = _run_segments(
         cfg, params, h, positions, mode="decode", caches=caches,
         seq_pos=seq_pos, page_table=page_table, active=active,
     )
@@ -539,7 +674,7 @@ def prefill_chunk(cfg: ModelConfig, params, caches, tokens, slot: int, q_off: in
         "slot": slot, "first": q_off == 0, "table_row": table_row,
         "phys_tok": phys_tok, "off_tok": off_tok,
     }
-    h, new_caches = _run_segments(
+    h, new_caches, _ = _run_segments(
         cfg, params, h, positions, mode="chunk", caches=caches, pos_offset=q_off,
         chunk=chunk,
     )
@@ -551,17 +686,23 @@ def prefill_chunk(cfg: ModelConfig, params, caches, tokens, slot: int, q_off: in
 # Encoder-decoder (whisper)
 # --------------------------------------------------------------------------
 
-def _encoder_forward(cfg: ModelConfig, params, audio_embeds: torch.Tensor) -> torch.Tensor:
+def _encoder_forward(cfg: ModelConfig, params, audio_embeds: torch.Tensor, *,
+                     remat: bool = False) -> torch.Tensor:
     """The audio encoder: learned positions, non-causal self-attention
-    layers, the final norm.  (B, encoder_seq, d) in, same shape out."""
+    layers (each recomputed in the backward pass with ``remat``), the final
+    norm.  (B, encoder_seq, d) in, same shape out."""
     h = audio_embeds.to(cfg.dtype) + params["enc_pos"][None]
     positions = default_positions(h.shape[0], h.shape[1], device=h.device)
+
+    def layer(p, x):
+        a, _ = attn.gqa_forward(p["attn"], cfg, apply_norm(cfg, p["ln1"], x), positions,
+                                mode="train", causal=False)
+        x = x + a
+        return x + ffnm.ffn_forward(p["ffn"], cfg, apply_norm(cfg, p["ln2"], x))
+
     for i in range(cfg.n_encoder_layers):
         p = _tree_index(params["encoder"], i)
-        a, _ = attn.gqa_forward(p["attn"], cfg, apply_norm(cfg, p["ln1"], h), positions,
-                                mode="train", causal=False)
-        h = h + a
-        h = h + ffnm.ffn_forward(p["ffn"], cfg, apply_norm(cfg, p["ln2"], h))
+        h = checkpoint(layer, p, h, use_reentrant=False) if remat else layer(p, h)
     return apply_norm(cfg, params["enc_final_norm"], h)
 
 

@@ -207,7 +207,10 @@ class Server:
     def generate(self, batch: Dict, max_new_tokens: int = 32) -> np.ndarray:
         """batch: prompt inputs (tokens (B, S), numpy or a tensor) and any
         frontend extras (an enc-dec config's (B, encoder_seq, d_model)
-        ``audio_embeds``; a stub of zeros where missing)."""
+        ``audio_embeds``; a vision config's (B, n_image, d_model)
+        ``vis_embeds`` over the prompt's first n_image tokens and its (3,
+        B, S) ``positions3``; stubs where missing, as
+        :func:`repro_torch.models.model.frontend_extras` fills them)."""
         cfg, sc = self.cfg, self.sc
         tokens = np.asarray(batch["tokens"].cpu() if isinstance(batch["tokens"], torch.Tensor)
                             else batch["tokens"], np.int32)
@@ -215,7 +218,7 @@ class Server:
         assert S + max_new_tokens <= sc.max_len, "increase ServeConfig.max_len"
         extras = M.frontend_extras(
             cfg, _extras_on({k: v for k, v in batch.items() if k != "tokens"}, self.device),
-            B, self.device)
+            B, S, self.device)
         if sc.prefill_bucket >= 0 and M.supports_padded_prefill(cfg):
             # bucket the prompt length to power-of-two pages; pad keys are
             # causally masked during prefill and overwritten by decode before
@@ -413,7 +416,7 @@ class Engine:
         """The request's modality inputs on the device, stub-filled where
         missing."""
         return M.frontend_extras(self.cfg, _extras_on(req.extras or {}, self.device), 1,
-                                 self.device)
+                                 len(req.prompt), self.device)
 
     # -- sampling -----------------------------------------------------------
 

@@ -41,6 +41,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tree as T
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.encoder import resolve_device
 from repro_torch.models import adapters as A
@@ -345,7 +346,7 @@ class PagedKVCache:
         if mesh is not None:
             raise NotImplementedError(
                 "mesh-sharded serving is not ported yet (ROADMAP.md queue 1 item 26)")
-        msg = A.unsupported_message(cfg, hint="not served by this port yet")
+        msg = A.unsupported_message(cfg, hint="use Server for the rest")
         if msg is not None:
             raise NotImplementedError(msg)
         self.cfg = cfg
@@ -639,11 +640,11 @@ class PagedKVCache:
     # -- stats --------------------------------------------------------------
 
     def cache_bytes(self) -> int:
-        return sum(t.numel() * t.element_size() for t in M._leaves(self.data))
+        return sum(t.numel() * t.element_size() for t in T.leaves(self.data))
 
     def pool_ptrs(self) -> List[int]:
         """Device addresses of the pool tensors (they never move)."""
-        return [t.data_ptr() for t in M._leaves(self.data)]
+        return [t.data_ptr() for t in T.leaves(self.data)]
 
     # -- debug auditor -------------------------------------------------------
 

@@ -80,6 +80,45 @@ def test_port_files_include_the_serving_slice():
         assert mod in names, mod
 
 
+def test_port_files_include_the_training_slice():
+    names = {str(p.relative_to(PORT)) for p in _port_files() if PORT in p.parents}
+    for mod in ("tree.py", "optim/adamw.py", "optim/schedules.py", "data/pipeline.py",
+                "train/compression.py", "train/loop.py", "checkpoint/manager.py",
+                "launch/steps.py", "launch/train.py"):
+        assert mod in names, mod
+
+
+@pytest.mark.parametrize("sub", ["optim", "train", "data", "checkpoint"])
+def test_training_subpackages_import_no_jax_or_ml_dtypes(sub):
+    for path in sorted((PORT / sub).rglob("*.py")):
+        bad = _imported_roots(path) & {"jax", "jaxlib", "repro", "ml_dtypes"}
+        assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
+
+
+def test_training_entry_points_default_to_the_card(tmp_path):
+    import repro_torch.configs as C
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.train import Trainer, TrainerConfig
+
+    cfg = C.get_config("minicpm-2b", smoke=True, dtype=torch.float32)
+    m = CheckpointManager(str(tmp_path))
+    m.save(1, {"w": torch.ones(2)}, blocking=True)
+    if torch.cuda.is_available():
+        assert Trainer(cfg).device.type == "cuda"
+        assert m.restore({"w": torch.ones(2)})[1]["w"].device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(cfg, None, TrainerConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        m.restore({"w": torch.ones(2)})
+    assert m.restore({"w": torch.ones(2)}, device="cpu")[1]["w"].device.type == "cpu"
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                        "minicpm-2b", "--smoke", "--steps", "1"], env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0 and "CUDA is not available" in r.stderr
+
+
 def test_serving_entry_points_default_to_the_card():
     import repro_torch.configs as C
     from repro_torch.models import model as M

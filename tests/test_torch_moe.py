@@ -226,8 +226,8 @@ def _shapes(tree):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_params_from_numpy_carries_moe_trees(arch):
     """A bf16 tree: the router stays fp32, the experts bf16; DeepSeek-V3's
-    ``mtp`` subtree is carried, unread.  The port's own ``init_params``
-    draws the same keys and shapes, less the MTP head."""
+    ``mtp`` subtree is carried (training reads it).  The port's own
+    ``init_params`` draws the same keys and shapes, the MTP head included."""
     jc, tc = _cfgs(arch, jnp.bfloat16, torch.bfloat16)
     jp = jax.tree.map(np.asarray, JM.init_params(jc, jax.random.PRNGKey(0)))
     tp = TM.params_from_numpy(jp, device="cpu")
@@ -242,7 +242,7 @@ def test_params_from_numpy_carries_moe_trees(arch):
     if tc.mtp_depth:
         assert _shapes(tp["mtp"]) == _shapes(jp["mtp"])
     own = TM.init_params(tc, device="cpu")
-    assert _shapes(own) == {k: v for k, v in _shapes(jp).items() if k != "mtp"}
+    assert _shapes(own) == _shapes(jp)  # the MTP head drawn too
     assert own[moe_seg]["moe"]["router"].dtype == torch.float32
 
 

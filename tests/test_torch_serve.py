@@ -347,7 +347,7 @@ def test_engine_refuses_unported_families_mesh_and_backends():
         Server(cfg, params, ServeConfig(), mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
         Engine(cfg, params, EngineConfig(backend="pallas"), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 24"):
+    with pytest.raises(NotImplementedError, match="has no cache adapter yet"):
         PagedKVCache(TC.get_config("qwen2-vl-72b", smoke=True), PagedCacheConfig(),
                      device="cpu")
     with pytest.raises(ValueError, match="can never fit"):
@@ -409,6 +409,7 @@ def test_cli_serves_on_the_cpu_and_refuses_unported_families(tmp_path):
     got = json.loads(report.read_text())
     assert got["device"] == "cpu" and got["backend"] == "cuda"
     r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-                        "qwen2-vl-72b", "--smoke", "--device", "cpu"], env=env,
-                       capture_output=True, text=True, timeout=300)
-    assert r.returncode != 0 and "queue 1 item 24" in r.stderr
+                        "qwen2-vl-72b", "--smoke", "--device", "cpu", "--num-requests",
+                        "3"], env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0 and "has no cache adapter yet" in r.stderr
+    assert "rerun with --engine static" in r.stderr
