@@ -164,6 +164,32 @@ Phases, each printing one JSON line:
    from it by the trainer's restore and step (one checkpoint of 27 GB: a
    call may write 45 GiB to the machine's disk), each loss within
    ``RESUME_RTOL`` of the uninterrupted run's.
+15. tp serve -- tensor-parallel serving on a 1 x 2 mesh: the kernel
+   library built above, two spawned ranks, rank ``r`` on ``cuda:(r %
+   device_count)``, NCCL with a card a rank, else gloo (the ranks then share
+   the card); a timeout on every collective and on the ranks' whole run.
+   First, on each rank, one launch of paged_attention_decode (starcoder2-7b's
+   decode shape: 18 of 36 heads over 2 of 4 kv heads), of
+   mla_paged_attention_decode (DeepSeek-V3's: 64 of 128 heads, whole latent
+   pools) and of paged_copy (the rank's pool slice), fp32 and bf16, each
+   equal bit for bit to the head slice of the launch on every head.  Then
+   three fp32 runs, each against the single-device engine on the same
+   weights (seed 0) and traffic (8 prompts of 64-512 tokens, prompt 2 the
+   first 300 tokens of prompt 0, 16 new tokens, 4 slots, pages and chunks of
+   128), the single-device tokens computed first and freed before the
+   spawn: starcoder2-7b at full width and depth (each rank keeps 14.4 GB of
+   the 29 GB of weights; the ranks take turns drawing the full tree),
+   DeepSeek-V3's dense prefix (3 layers, 64 heads a rank) and granite
+   (8 layers, ``CUT_DEPTH``; 20 of its 40 experts a rank, one-shot prefill).
+   Gates: tokens the same on both ranks and equal to the single-device
+   engine's under the margin rule (and the router rule for granite);
+   each rank's decode-kernel and paged_copy launches equal to the
+   single-device run's, one decode launch per layer and step; each rank's
+   pool bytes half of the single-device pool's (head-sharded GQA pools) or
+   all of it (MLA latent pools); every MLA decode call of the run within
+   1e-6 of its plain version.  Then starcoder2-7b's bf16 decode step
+   median and p90 on the two ranks, labelled by how many cards they share:
+   no tensor-parallel speed-up is claimed.
 
 Each phase's seconds follow it on a line of their own.  Then the per-kernel
 summary line (the decode kernels' and the page copy's launches per serving
@@ -2422,6 +2448,466 @@ def train_phase(torch, kernels):
     return {"gate": gate, "run": row}
 
 
+# phase 15: tensor-parallel serving.  Two ranks on the visible card(s): NCCL
+# where each rank has a card of its own, else gloo (NCCL refuses two ranks
+# on one device); a collective that waits longer than TP_TIMEOUT_S fails its
+# rank, and the ranks' whole run fails the phase after TP_PHASE_TIMEOUT_S.
+TP_RANKS = 2
+TP_TIMEOUT_S = 300
+TP_PHASE_TIMEOUT_S = 900
+TP_MAX_NEW = 16
+# the four slots' positions in the phase's decode checks, within its
+# max_len of 1024
+TP_DECODE_SEQ = [0, 127, 600, 1023]
+
+
+def tp_traffic(vocab: int):
+    """8 prompts of 64-512 tokens from a numpy seed; prompt 2 is the first
+    300 tokens of prompt 0 (a partial tail page: copy-on-write); arrivals
+    every 2 engine steps."""
+    import numpy as np
+
+    rng = np.random.default_rng(15)
+    lens = rng.integers(64, 513, size=8)
+    lens[0] = 512
+    prompts = [rng.integers(0, vocab, size=(int(n),)).astype(np.int32) for n in lens]
+    prompts[2] = prompts[0][:300].copy()
+    return prompts, [2 * i for i in range(len(prompts))]
+
+
+def tp_models(torch) -> dict:
+    """The phase's fp32 runs: ``{name: (config, engine settings)}``."""
+    import dataclasses
+
+    import repro_torch.configs as C
+
+    dense = dict(n_layers=3, family="dense", n_experts=0, n_shared_experts=0, top_k=0,
+                 moe_d_ff=0, first_k_dense=0, mtp_depth=0)
+    ec = {"max_seqs": 4, "max_len": 1024, "page_size": 128, "prefill_chunk": 128}
+    return {
+        "starcoder2-7b": (C.get_config("starcoder2-7b", dtype=torch.float32), ec),
+        "deepseek-v3 dense prefix": (dataclasses.replace(
+            C.get_config("deepseek-v3-671b", dtype=torch.float32), **dense), ec),
+        "granite-moe-3b-a800m": (C.get_config(
+            "granite-moe-3b-a800m", dtype=torch.float32,
+            n_layers=CUT_DEPTH["granite-moe-3b-a800m"]), dict(ec, chunked_prefill=False)),
+    }
+
+
+def _sync(torch, device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def tp_engine(torch, cfg, ec, mesh, device):
+    """This rank's engine: the full weights drawn from seed 0 on ``device``
+    (the single-device run's), its shards kept, the full tree freed.  The
+    ranks take turns, so the card never holds more than one full tree."""
+    import torch.distributed as dist
+
+    from repro_torch.models import model as M
+    from repro_torch.serve import Engine, EngineConfig
+
+    eng = None
+    for turn in range(dist.get_world_size()):
+        if turn == dist.get_rank():
+            params = M.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                                   device=device)
+            eng = Engine(cfg, params, EngineConfig(**ec), mesh=mesh, device=device)
+            del params
+            if torch.device(device).type == "cuda":
+                torch.cuda.empty_cache()
+        dist.barrier()
+    return eng
+
+
+def tp_decode_shapes(models: dict) -> dict:
+    """The whole-head decode shapes of the phase's runs, ``{name: (kernel,
+    shape)}``: paged_attention_decode's ``(B, H, Hkv, dh, page, maxp)`` for
+    a GQA model, mla_paged_attention_decode's ``(B, H, r, dr, page, maxp)``
+    for an MLA one, B and maxp from the run's engine settings.  A rank's
+    shape has H / M query heads and, GQA, Hkv / M kv heads."""
+    out = {}
+    for name, (cfg, ec) in models.items():
+        page = ec["page_size"]
+        maxp = -(-ec["max_len"] // page)
+        if cfg.attn_type == "mla":
+            out[name] = ("mla_paged_attention_decode", (ec["max_seqs"], cfg.n_heads,
+                         cfg.kv_lora_rank, cfg.qk_rope_dim, page, maxp))
+        else:
+            out[name] = ("paged_attention_decode", (ec["max_seqs"], cfg.n_heads,
+                         cfg.n_kv_heads, cfg.d_head, page, maxp))
+    return out
+
+
+def tp_rank_shape(shape, kernel: str, world: int) -> tuple:
+    """A rank's share of a whole-head decode shape (:func:`tp_decode_shapes`)."""
+    B, H, x, y, page, maxp = shape
+    if kernel == "paged_attention_decode":
+        return (B, H // world, x // world, y, page, maxp)
+    return (B, H // world, x, y, page, maxp)
+
+
+def tp_head_slices(torch, rank: int, world: int, device, shapes: dict) -> dict:
+    """One launch of each paged kernel on this rank's heads at each of the
+    phase's decode shapes (``shapes``, :func:`tp_decode_shapes`; fp32 and
+    bf16) against the head slice of the same kernel's launch on every
+    head, and paged_copy on the rank's pool slice against the slice of the
+    whole copy: bit for bit.  Launches made here are not the main path's.
+    ``{dtype: {model: {kernel: equal}}}``."""
+    from repro_torch.kernels.paged_attention import (
+        mla_paged_attention_decode,
+        paged_attention_decode,
+        paged_copy,
+    )
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        gen = torch.Generator(device="cpu").manual_seed(0)  # the same operands on every rank
+        out[name] = {}
+
+        def randn(*shape):
+            return torch.randn(*shape, generator=gen).to(device, dtype)
+
+        for model, (kernel, (B, H, x, y, page, maxp)) in shapes.items():
+            pages = B * maxp + 1
+            table = torch.randperm(pages - 1, generator=gen)[:B * maxp].reshape(B, maxp) + 1
+            table = table.to(device, torch.int32)
+            seq = torch.tensor(TP_DECODE_SEQ, dtype=torch.int32, device=device)
+            h = H // world
+            heads = slice(rank * h, (rank + 1) * h)
+            if kernel == "paged_attention_decode":
+                q, kp, vp = randn(B, 1, H, y), randn(pages, page, x, y), randn(pages, page, x, y)
+                g = x // world
+                kvh = slice(rank * g, (rank + 1) * g)
+                full = paged_attention_decode(q, kp, vp, table, seq)
+                mine = paged_attention_decode(q[:, :, heads].contiguous(),
+                                              kp[:, :, kvh].contiguous(),
+                                              vp[:, :, kvh].contiguous(), table, seq)
+                pool = randn(2, pages, page, x, y)
+                whole = paged_copy(pool.clone(), 3, 5)
+                part = paged_copy(pool[:, :, :, kvh].contiguous(), 3, 5)
+                out[name][model] = {
+                    kernel: bool(torch.equal(mine, full[:, :, heads])),
+                    "paged_copy": bool(torch.equal(part, whole[:, :, :, kvh]))}
+            else:
+                ql, qr = randn(B, 1, H, x), randn(B, 1, H, y)
+                ckv, kr = randn(pages, page, x), randn(pages, page, y)
+                full = mla_paged_attention_decode(ql, qr, ckv, kr, table, seq, scale=0.0625)
+                mine = mla_paged_attention_decode(ql[:, :, heads].contiguous(),
+                                                  qr[:, :, heads].contiguous(),
+                                                  ckv, kr, table, seq, scale=0.0625)
+                out[name][model] = {kernel: bool(torch.equal(mine, full[:, :, heads]))}
+    return out
+
+
+def tp_rank_serve(torch, kernels, cfg, ec, prompts, arrivals, mesh, device) -> dict:
+    """One fp32 run on this rank: counts set to 0 just before it and read
+    just after; every mla_paged_attention_decode call of the run also held
+    against its plain version on the same operands (no launch)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.core import backend as B
+    from repro_torch.kernels.paged_attention import mla_decode_plain
+
+    eng = tp_engine(torch, cfg, ec, mesh, device)
+    for rid, (p, t) in enumerate(zip(prompts, arrivals)):
+        eng.submit(p, TP_MAX_NEW, rid=rid, arrival_step=t)
+    errs, real = [], B.mla_paged_attention_decode
+
+    def checked(*args, scale):
+        out = real(*args, scale=scale)
+        errs.append((out.float() - mla_decode_plain(*args, scale=scale).float()).abs().max())
+        return out
+
+    B.mla_paged_attention_decode = checked
+    try:
+        _sync(torch, device)
+        dist.barrier()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        reqs = eng.run()
+        _sync(torch, device)
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+    finally:
+        B.mla_paged_attention_decode = real
+    audit = drained_audit(eng)
+    res = {"tokens": [list(map(int, r.out_tokens)) for r in reqs], "launches": counts,
+           "decode_steps": eng.decode_steps, "cow_copies": eng.kv.cow_copies,
+           "bytes_per_device": eng.kv.cache_bytes_per_device(), "bytes": eng.kv.cache_bytes(),
+           "audit": dataclasses.asdict(audit), "wall_s": wall,
+           "mla_calls": len(errs),
+           "mla_max_abs_err": float(torch.stack(errs).max()) if errs else None}
+    del eng
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def tp_rank_timing(torch, cfg16, ec, prompts, arrivals, mesh, device) -> dict:
+    """The bf16 decode steps of this rank, one sync per step (the ranks
+    step in lockstep: every step's collectives pair them)."""
+    eng = tp_engine(torch, cfg16, ec, mesh, device)
+    for rid, (p, t) in enumerate(zip(prompts, arrivals)):
+        eng.submit(p, TP_MAX_NEW, rid=rid, arrival_step=t)
+    decode_ms = []
+    while eng.sched.has_work():
+        chunks, steps = eng.prefill_chunks, eng.decode_steps
+        _sync(torch, device)
+        t = time.perf_counter()
+        eng.step()
+        _sync(torch, device)
+        dt = (time.perf_counter() - t) * 1e3
+        if eng.prefill_chunks == chunks and eng.decode_steps == steps + 1:
+            decode_ms.append(dt)
+    eng._flush_pending()
+    del eng
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return {"decode_ms": decode_ms}
+
+
+def tp_rank(rank: int, world: int, store: str, out_dir: str, plan: dict) -> None:
+    """One rank of phase 15 (a spawned process): join the group, run the
+    kernel head-slice checks, each fp32 model of ``plan``, the bf16 timing;
+    write the results to ``out_dir/rank{rank}.pkl``."""
+    import datetime
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if plan["device_type"] == "cuda":
+        count = torch.cuda.device_count()
+        device = torch.device("cuda", rank % count)
+        torch.cuda.set_device(device)
+        backend = "nccl" if count >= world else "gloo"
+    else:  # a rehearsal of the phase's code on the CPU
+        count, device, backend = 0, torch.device("cpu"), "gloo"
+        torch.set_num_threads(1)  # the ranks share the host's cores
+    dist.init_process_group(backend, store=dist.FileStore(store, world), rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    try:
+        import repro_torch.kernels as kernels
+        from repro_torch.launch.mesh import make_local_mesh
+
+        mesh = make_local_mesh()  # 1 x world
+        out = {"rank": rank, "device": str(device), "backend": backend, "device_count": count,
+               "head_slices": tp_head_slices(torch, rank, world, device, plan["shapes"])}
+        for name, (cfg, ec, prompts, arrivals) in plan["models"].items():
+            out[name] = tp_rank_serve(torch, kernels, cfg, ec, prompts, arrivals, mesh, device)
+        cfg16, ec, prompts, arrivals = plan["timing"]
+        out["bf16"] = tp_rank_timing(torch, cfg16, ec, prompts, arrivals, mesh, device)
+        with open(f"{out_dir}/rank{rank}.pkl", "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_excused(torch, cfg, prompts, got, want, label, device="cuda") -> list:
+    """The ranks' tokens ``got`` against the single-device engine's ``want``
+    under the margin rule (and the router rule in a MoE stack) of
+    :func:`agree`, the margins stepped along ``want``; the baseline's
+    weights are drawn again (seed 0) only if some request diverges."""
+    import numpy as np
+
+    from repro_torch.models import model as M
+    from repro_torch.serve import ServeConfig, Server
+
+    divs = [(rid, int(np.argmax(np.asarray(g) != np.asarray(w))))
+            for rid, (g, w) in enumerate(zip(got, want)) if list(g) != list(w)]
+    if not divs:
+        return []
+    params = M.init_params(cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    server = Server(cfg, params, ServeConfig(max_len=2048), device=device)
+    excused = []
+    for rid, i in divs:
+        margin, gaps = margin_at(cfg, params, server, prompts[rid], want[rid], i, device)
+        near = [{"step": s, "layer": l, "gap": g} for s, l, g in gaps if g <= ROUTER_GAP]
+        if margin < MARGIN:
+            excused.append({"rid": rid, "step": i, "rule": "margin", "margin": margin})
+        elif near:
+            excused.append({"rid": rid, "step": i, "rule": "router", "margin": margin,
+                            "near_ties": near})
+        else:
+            raise AssertionError(f"{label}: request {rid} diverges at step {i} where the "
+                                 f"single-device top-2 margin is {margin} >= {MARGIN}")
+    del params, server
+    return excused
+
+
+def tp_serve_phase(torch, kernels, device_type: str = "cuda", models=None,
+                   timing=None) -> tuple:
+    """Phase 15: starcoder2-7b, DeepSeek-V3's dense prefix and granite (8
+    layers, expert-parallel) on a 1 x 2 mesh against the single-device
+    engine on the same weights and traffic, then starcoder2-7b's bf16
+    decode steps on the two ranks.  ``device_type``, ``models`` and
+    ``timing`` let the same code run at small sizes on the CPU (where the
+    kernels' checks against their plain versions do not run).  Returns
+    ``({model: its line}, {per-rank decode shape: {dtype: max abs error}})``."""
+    import pickle
+    import tempfile
+
+    import repro_torch.configs as C
+    import torch.multiprocessing as mp
+    from repro_torch.models import model as M
+    from repro_torch.serve import Engine, EngineConfig
+
+    t_phase = time.perf_counter()
+    models = models or tp_models(torch)
+    device = device_type
+    plan = {"device_type": device_type, "models": {}}
+    base = {}
+    for name, (cfg, ec) in models.items():
+        prompts, arrivals = tp_traffic(cfg.vocab_size)
+        params = M.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                               device=device)
+        eng = Engine(cfg, params, EngineConfig(**ec), device=device)
+        for rid, (p, t) in enumerate(zip(prompts, arrivals)):
+            eng.submit(p, TP_MAX_NEW, rid=rid, arrival_step=t)
+        _sync(torch, device)
+        kernels.reset_launch_counts()
+        reqs = eng.run()
+        _sync(torch, device)
+        base[name] = {"tokens": [list(map(int, r.out_tokens)) for r in reqs],
+                      "launches": kernels.launch_counts(), "decode_steps": eng.decode_steps,
+                      "cow_copies": eng.kv.cow_copies, "bytes": eng.kv.cache_bytes()}
+        plan["models"][name] = (cfg, ec, prompts, arrivals)
+        del params, eng
+        if device_type == "cuda":
+            torch.cuda.empty_cache()
+    cfg16 = timing or C.get_config("starcoder2-7b")
+    sc_cfg, sc_ec, sc_prompts, sc_arrivals = plan["models"]["starcoder2-7b"]
+    plan["timing"] = (cfg16, sc_ec, sc_prompts, sc_arrivals)
+    plan["shapes"] = tp_decode_shapes(models)
+    # paged_attention_decode at each rank's decode shape against its plain
+    # version, as at every other serving run's shape (MLA: each call of the
+    # ranks' runs against its plain version, below)
+    checked = {}
+    for name, (kernel, shape) in plan["shapes"].items():
+        if kernel == "paged_attention_decode" and device_type == "cuda":
+            rank_shape = tp_rank_shape(shape, kernel, TP_RANKS)
+            checked[f"{name} per rank of 1 x {TP_RANKS} {list(rank_shape)}"] = \
+                paged_decode_checks(torch, rank_shape, TP_DECODE_SEQ,
+                                    f"{name} per rank of 1 x {TP_RANKS}")
+    base_s = time.perf_counter() - t_phase
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(tp_rank, args=(TP_RANKS, f"{tmp}/store", tmp, plan),
+                                 nprocs=TP_RANKS, join=False, start_method="spawn")
+        deadline = time.monotonic() + TP_PHASE_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=5):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"tp_serve: the ranks did not finish in "
+                                         f"{TP_PHASE_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        ranks = []
+        for r in range(TP_RANKS):
+            with open(f"{tmp}/rank{r}.pkl", "rb") as f:
+                ranks.append(pickle.load(f))
+    ranks_s = time.perf_counter() - t0
+    emit({"phase": "tp_serve", "ranks": TP_RANKS, "backend": ranks[0]["backend"],
+          "device_count": ranks[0]["device_count"],
+          "rank_devices": [rk["device"] for rk in ranks]})
+    for rk in ranks:
+        emit({"phase": "tp_serve", "rank": rk["rank"],
+              "check": "one launch on the rank's heads == the head slice of the launch on "
+                       "every head, bit for bit (paged_copy: the rank's pool slice)",
+              "shapes": {name: [kernel, list(shape)]
+                         for name, (kernel, shape) in plan["shapes"].items()},
+              "seq_pos": TP_DECODE_SEQ, "equal": rk["head_slices"]})
+        if not all(ok for by_model in rk["head_slices"].values()
+                   for by_kernel in by_model.values() for ok in by_kernel.values()):
+            raise AssertionError(f"rank {rk['rank']}: a kernel on its heads is not the head "
+                                 f"slice: {rk['head_slices']}")
+
+    result = {}
+    for name, (cfg, ec, prompts, arrivals) in plan["models"].items():
+        mine = [rk[name] for rk in ranks]
+        if any(m["tokens"] != mine[0]["tokens"] for m in mine):
+            raise AssertionError(f"{name}: the ranks sampled different tokens")
+        excused = tp_excused(torch, cfg, prompts, mine[0]["tokens"], base[name]["tokens"],
+                             f"{name} on 2 ranks vs one device", device)
+        b = base[name]
+        line = {"phase": "tp_serve", "model": name, "run": "fp32, 1 x 2 mesh",
+                "layers": cfg.n_layers, "requests": len(prompts),
+                "prompt_lens": [len(p) for p in prompts], "of": TP_MAX_NEW,
+                "excused": excused_counts(excused), "excused_divergences": excused,
+                "decode_steps": [m["decode_steps"] for m in mine],
+                "decode_steps_one_device": b["decode_steps"],
+                "launches_per_rank": [m["launches"] for m in mine],
+                "launches_one_device": b["launches"],
+                "pool_bytes_per_rank": [m["bytes_per_device"] for m in mine],
+                "pool_bytes_one_device": b["bytes"],
+                "cow_copies": [m["cow_copies"] for m in mine],
+                "wall_s": [m["wall_s"] for m in mine]}
+        if cfg.attn_type == "mla":
+            line["mla_calls_per_rank"] = [m["mla_calls"] for m in mine]
+            line["mla_max_abs_err_vs_plain"] = max(
+                (m["mla_max_abs_err"] for m in mine if m["mla_calls"]), default=None)
+        emit(line)
+        kernel = "mla_paged_attention_decode" if cfg.attn_type == "mla" else \
+            "paged_attention_decode"
+        for m in mine:
+            if m["decode_steps"] != b["decode_steps"]:
+                raise AssertionError(f"{name}: {m['decode_steps']} decode steps on a rank, "
+                                     f"{b['decode_steps']} on one device")
+            if device_type != "cuda":
+                continue
+            if m["launches"][kernel] != cfg.n_layers * m["decode_steps"]:
+                raise AssertionError(f"{name}: {kernel} launched {m['launches'][kernel]} "
+                                     f"times on a rank, not {cfg.n_layers} x "
+                                     f"{m['decode_steps']}")
+            for k in (kernel, "paged_copy"):
+                if m["launches"][k] != b["launches"][k]:
+                    raise AssertionError(f"{name}: {k} launched {m['launches'][k]} times on "
+                                         f"a rank, {b['launches'][k]} on one device")
+            others = {k: n for k, n in m["launches"].items()
+                      if n and k not in (kernel, "paged_copy")}
+            if others:
+                raise AssertionError(f"{name}: other kernels launched: {others}")
+        sharded = cfg.attn_type != "mla"  # GQA pools head-shard; MLA latents replicate
+        want = b["bytes"] // TP_RANKS if sharded else b["bytes"]
+        if any(m["bytes_per_device"] != want for m in mine) or \
+                (sharded and b["bytes"] % TP_RANKS):
+            raise AssertionError(f"{name}: pool bytes per rank "
+                                 f"{[m['bytes_per_device'] for m in mine]}, want {want}")
+        if cfg.attn_type == "mla":  # every call of the run held against plain
+            if any(m["mla_calls"] != cfg.n_layers * m["decode_steps"] for m in mine):
+                raise AssertionError(f"{name}: {line['mla_calls_per_rank']} MLA decodes "
+                                     f"checked, not {cfg.n_layers} a step")
+            if line["mla_max_abs_err_vs_plain"] > PAGED_TOL:
+                raise AssertionError(f"{name}: MLA decode vs plain "
+                                     f"{line['mla_max_abs_err_vs_plain']} > {PAGED_TOL}")
+        if name == "starcoder2-7b" and mine[0]["cow_copies"] < 1:
+            raise AssertionError("starcoder2-7b: no copy-on-write on the ranks")
+        result[name] = line
+
+    steps = sorted(ranks[0]["bf16"]["decode_ms"])
+    emit({"phase": "tp_serve", "model": cfg16.name, "run": "bf16 timed",
+          "label": "2 ranks on one card" if ranks[0]["device_count"] == 1
+          else f"2 ranks on {ranks[0]['device_count']} cards",
+          "backend": ranks[0]["backend"], "layers": cfg16.n_layers,
+          "decode_steps_timed": len(steps),
+          "decode_step_ms_median": statistics.median(steps) if steps else None,
+          "decode_step_ms_p90": steps[int(0.9 * (len(steps) - 1))] if steps else None,
+          "note": "not a tensor-parallel speed-up: both ranks share the card"})
+    emit({"phase": "tp_serve", "one_device_s": base_s, "ranks_s": ranks_s})
+    return result, checked
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         raise SystemExit(f"chip_smoke.py: no src/repro_torch beside {__file__}; "
@@ -2529,27 +3015,41 @@ def main() -> int:
     train_phase(torch, kernels)
     done("train")
 
+    # 15. tensor-parallel serving: two ranks on a 1 x 2 mesh
+    tp, tp_checked = tp_serve_phase(torch, kernels)
+    done("tp_serve")
+    tp_rank0 = {name: run["launches_per_rank"][0] for name, run in tp.items()}
+
     # the decode kernels' launches in each serving run that drives them
     by_run = {
         "paged_attention_decode": {
             "starcoder2-7b fp32": served["launches"]["paged_attention_decode"],
             "granite-moe-3b-a800m fp32": moe["granite"]["paged_attention_decode"],
             "h2o-danube-3-4b fp32": swa["paged_attention_decode"],
-            "whisper-tiny fp32": encdec["paged_attention_decode"]},
+            "whisper-tiny fp32": encdec["paged_attention_decode"],
+            "starcoder2-7b fp32, rank 0 of 1 x 2":
+                tp_rank0["starcoder2-7b"]["paged_attention_decode"],
+            "granite-moe-3b-a800m fp32, rank 0 of 1 x 2":
+                tp_rank0["granite-moe-3b-a800m"]["paged_attention_decode"]},
         "paged_copy": {
             "starcoder2-7b fp32": served["launches"]["paged_copy"],
             "deepseek-v3 dense prefix fp32": mla_counts["paged_copy"],
             "granite-moe-3b-a800m fp32": moe["granite"]["paged_copy"],
-            "whisper-tiny fp32": encdec["paged_copy"]},
+            "whisper-tiny fp32": encdec["paged_copy"],
+            "starcoder2-7b fp32, rank 0 of 1 x 2": tp_rank0["starcoder2-7b"]["paged_copy"],
+            "deepseek-v3 dense prefix fp32, rank 0 of 1 x 2":
+                tp_rank0["deepseek-v3 dense prefix"]["paged_copy"]},
         "mla_paged_attention_decode": {
             "deepseek-v3 dense prefix fp32": mla_counts["mla_paged_attention_decode"],
-            "deepseek-v3 4 layers (moe) bf16": moe["deepseek"]["mla_paged_attention_decode"]},
+            "deepseek-v3 4 layers (moe) bf16": moe["deepseek"]["mla_paged_attention_decode"],
+            "deepseek-v3 dense prefix fp32, rank 0 of 1 x 2":
+                tp_rank0["deepseek-v3 dense prefix"]["mla_paged_attention_decode"]},
     }
 
     # the decode kernel's checks at the other serving runs' decode shapes
     checked_at = {"paged_attention_decode": {
         f"granite-moe-3b-a800m {list(GRANITE_DECODE)}": moe["granite_decode_errs"],
-        f"whisper-tiny {list(WHISPER_DECODE)}": whisper_errs}}
+        f"whisper-tiny {list(WHISPER_DECODE)}": whisper_errs, **tp_checked}}
 
     line = []
     for kernel in LAUNCHES_PER_FORWARD:

@@ -19,7 +19,18 @@ package's own registry:
   oracle path.
 
 Layout-neutral element-wise ops (add, bias, scale, map) are plain PyTorch
-in both, as in the JAX package.  ``interpret=`` has no counterpart here: no
+in both, as in the JAX package.
+
+Tensor-parallel serving needs no dispatch of its own here.  The JAX package
+wraps its three paged kernels in ``shard_map`` under a shard policy (a
+``pallas_call`` cannot be partitioned by GSPMD); in this port each rank
+already holds its local heads, so the kernels simply receive them:
+``paged_attention_decode`` H/M query heads over Hkv/M kv heads of the
+rank's pool, ``mla_paged_attention_decode`` H/M heads against the whole
+latent pools, ``paged_copy`` the rank's pool slice.  Attention is
+head-independent and neither decode plan (``decode_plan``,
+``mla_decode_plan``) reads a head count -- the key splits are fixed -- so a
+rank's output is the head slice of the unsharded kernel's, bit for bit.  ``interpret=`` has no counterpart here: no
 backend takes it, and passing it raises.
 """
 from __future__ import annotations

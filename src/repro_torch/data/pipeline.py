@@ -6,8 +6,8 @@ seeded by (seed, step, row), so a batch depends only on (seed, step): runs
 are reproducible, a restart resumes the same stream, and the batches are
 bit-equal to the JAX package's, frontend stubs included.  Batches are host
 tensors; the trainer moves them to its device.  The JAX package's per-shard batches (``make_batch_sharded``,
-``batch(shardings=...)``) need a mesh, which is not ported yet (ROADMAP.md
-queue 1 item 26): they raise.
+``batch(shardings=...)``) need the training mesh, which is not ported yet
+(ROADMAP.md queue 1 item 26, its training half): they raise.
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 
 MESH_NOT_PORTED = ("mesh-sharded batches are not ported yet (ROADMAP.md queue 1 "
-                   "item 26)")
+                   "item 26, its training half)")
 
 
 def make_batch_sharded(global_shape, dtype, sharding, fill_fn):

@@ -32,14 +32,36 @@ tokens, ``arange`` on all three M-RoPE streams; ``--prompt-len`` at least
 
 its multi-request workload takes ``--engine static``: the continuous
 engine has no cache adapter for it and refuses it before anything is
-allocated, as the JAX CLI does.  The JAX CLI's ``--mesh`` is not ported
-(ROADMAP.md queue 1 item 26).
+allocated, as the JAX CLI does.
+
+``--mesh 1xM`` serves tensor-parallel over ``M`` ranks: each holds its
+shards of the weights (its attention heads, its share of the FFN width or
+its experts, a vocab slice of the embedding and the head) and of the KV
+pools, and the ranks sum their shares with ``all_reduce``.  Started alone,
+the CLI spawns its ``M`` ranks (gloo on the CPU or where the ranks share a
+card, NCCL where each rank has a card of its own); under ``torchrun
+--nproc-per-node M`` it joins the group torchrun set up.  Rank 0 alone
+prints:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm-2b --smoke \
+      --device cpu --num-requests 6 --max-seqs 2 --mesh 1x2
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+      --arch starcoder2-7b --num-requests 8 --prompt-len 512 --mesh 1x2
+
+Every rank draws the full weights (on its card, one layer at a time) into
+host memory and its engine keeps its shards, so ``M`` full weight trees
+must fit in the host's memory at once: a model too large for that cannot be
+loaded this way yet.  A data axis of more than one rank (``D > 1``) is not
+ported yet (ROADMAP.md queue 1 item 26, its rest).
 """
 from __future__ import annotations
 
 import argparse
+import datetime
 import json
+import os
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -61,7 +83,14 @@ from repro_torch.serve import (
 from repro_torch.serve.engine import warn_prefill_chunks_deprecated
 
 
+_QUIET = False  # ranks other than 0 of a mesh print nothing
+# --mesh: a collective that waits longer than this fails the run
+DIST_TIMEOUT_S = 300
+
+
 def _say(*lines) -> None:
+    if _QUIET:
+        return
     sys.stdout.write("".join(f"{line}\n" for line in lines))
     sys.stdout.flush()
 
@@ -82,12 +111,12 @@ def audio_extras(cfg, n: int, seed: int):
                                                  dtype=np.float32)} for _ in range(n)]
 
 
-def run_single_wave(cfg, params, args, device):
+def run_single_wave(cfg, params, args, device, mesh=None):
     """One batch, one static wave (``Server.generate`` fills a vision
     config's stubs, as the JAX CLI does)."""
     srv = Server(cfg, params, ServeConfig(
         max_len=args.prompt_len + args.max_new + 8, temperature=args.temperature,
-        seed=args.seed), device=device)
+        seed=args.seed), mesh=mesh, device=device)
     toks = np.random.default_rng(1).integers(
         0, cfg.vocab_size, size=(args.batch, args.prompt_len)).astype(np.int32)
     batch = {"tokens": toks}
@@ -101,7 +130,7 @@ def run_single_wave(cfg, params, args, device):
          f"({out.size / dt:.1f} tok/s)", str(out[:, :16]))
 
 
-def run_workload(cfg, params, args, device):
+def run_workload(cfg, params, args, device, mesh=None):
     """Multi-request workload through the selected engine(s)."""
     reqs = make_requests(
         cfg.vocab_size, args.num_requests,
@@ -116,7 +145,7 @@ def run_workload(cfg, params, args, device):
     if args.engine in ("static", "both"):
         srv = Server(cfg, params, ServeConfig(
             max_len=max_len, temperature=args.temperature, seed=args.seed,
-        ), device=device)
+        ), mesh=mesh, device=device)
         t0 = time.perf_counter()
         outs = run_static_waves(srv, reqs, args.max_seqs)
         _sync(device)
@@ -137,7 +166,7 @@ def run_workload(cfg, params, args, device):
             backend=args.backend,
             debug_audit=args.debug_audit,
             obs=args.obs,
-        ), device=device)
+        ), mesh=mesh, device=device)
         for r in reqs:
             eng.submit(r["prompt"], r["max_new_tokens"],
                        rid=r["rid"], arrival_step=r["arrival_step"], extras=r["extras"])
@@ -253,15 +282,80 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--debug-audit", action="store_true",
                     help="run the paged-KV refcount auditor after every step")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mesh", default="",
+                    help="DxM mesh (e.g. 1x2): serve tensor-parallel over M ranks -- "
+                         "sharded weights, head-sharded KV pools, all_reduce over the "
+                         "model axis.  Spawns the ranks unless started under torchrun")
     return ap
+
+
+def _backend(device_type: str, world: int) -> str:
+    """NCCL where each rank has a card of its own; gloo on the CPU and for
+    ranks that share a card (NCCL refuses two ranks on one device)."""
+    if device_type == "cuda" and torch.cuda.device_count() >= world:
+        return "nccl"
+    return "gloo"
+
+
+def _rank_device(args, rank: int) -> torch.device:
+    if args.device == "cpu":
+        return torch.device("cpu")
+    return torch.device("cuda", rank % torch.cuda.device_count())
+
+
+def serve(args, device: torch.device, mesh=None) -> None:
+    """Build the config and weights and run the selected path, on ``mesh``
+    if one is given (every rank runs this with the same arguments)."""
+    cfg = C.get_config(args.arch, smoke=args.smoke,
+                       dtype=torch.float32 if args.smoke else torch.bfloat16)
+    kinds = "+".join(f"{n} {kind}" for kind, n in A.layer_segments(cfg))
+    caches = ("static (no cache adapter)" if A.unsupported_reason(cfg)
+              else ", ".join(ad.family for ad in A.all_adapters(cfg)))
+    _say(f"serving {cfg.name} ({kinds} layers; caches: {caches}) on {device}")
+    if mesh is not None:
+        shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        _say(f"serving on mesh {args.mesh}: {shape['data']} data x {shape['model']} model")
+    # every rank draws the same full weights from the seed, on its device
+    # (the numbers of the run without a mesh); under a mesh the full tree
+    # is kept in host memory and the engines copy each rank's shards to
+    # its device, so the card holds one layer of the full tree at a time
+    params = M.init_params(cfg, torch.Generator(device=device).manual_seed(args.seed),
+                           device=device if mesh is None else "cpu")
+    if args.num_requests > 0:
+        run_workload(cfg, params, args, device, mesh)
+    else:
+        run_single_wave(cfg, params, args, device, mesh)
+
+
+def _run_rank(rank: int, args, world: int, store: str) -> None:
+    """One rank of ``--mesh``: join the group (a file store, or torchrun's
+    environment when ``store`` is empty), serve, leave."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_serve_mesh
+
+    global _QUIET
+    _QUIET = rank != 0
+    device = _rank_device(args, rank)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    else:  # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    timeout = datetime.timedelta(seconds=DIST_TIMEOUT_S)
+    kw = ({"store": dist.FileStore(store, world), "rank": rank, "world_size": world}
+          if store else {})
+    dist.init_process_group(_backend(device.type, world), timeout=timeout, **kw)
+    try:
+        serve(args, device, make_serve_mesh(args.mesh))
+    finally:
+        dist.destroy_process_group()
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.prefill_chunks_per_step is not None:
         warn_prefill_chunks_deprecated()
-    cfg = C.get_config(args.arch, smoke=args.smoke,
-                       dtype=torch.float32 if args.smoke else torch.bfloat16)
+    cfg = C.get_config(args.arch, smoke=args.smoke)
     if args.num_requests > 0 and args.engine != "static":
         # refuse BEFORE any pool (or even params) is allocated, with the
         # exact family list the adapter registry reports
@@ -270,16 +364,24 @@ def main(argv=None):
             raise SystemExit(msg)
     # "cuda" resolves like an entry point's default: it raises without CUDA
     device = resolve_device(None if args.device == "cuda" else args.device)
-    kinds = "+".join(f"{n} {kind}" for kind, n in A.layer_segments(cfg))
-    caches = ("static (no cache adapter)" if A.unsupported_reason(cfg)
-              else ", ".join(ad.family for ad in A.all_adapters(cfg)))
-    _say(f"serving {cfg.name} ({kinds} layers; caches: {caches}) on {device}")
-    params = M.init_params(cfg, torch.Generator(device=device).manual_seed(args.seed),
-                           device=device)
-    if args.num_requests > 0:
-        run_workload(cfg, params, args, device)
-    else:
-        run_single_wave(cfg, params, args, device)
+    if not args.mesh:
+        serve(args, device)
+        return
+    from repro_torch.launch.mesh import parse_mesh
+
+    d, m = parse_mesh(args.mesh)
+    if d > 1:  # refused before any rank starts
+        from repro_torch.serve.kvcache import MESH_REST
+
+        raise SystemExit(MESH_REST)
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:  # under torchrun
+        _run_rank(int(os.environ["RANK"]), args, int(os.environ["WORLD_SIZE"]), "")
+        return
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(_run_rank, args=(args, d * m, os.path.join(tmp, "store")),
+                           nprocs=d * m, start_method="spawn")
 
 
 if __name__ == "__main__":

@@ -12,8 +12,8 @@ the JAX CLI does, e.g. minicpm-2b at full width and depth on one card:
   PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm-2b \\
       --steps 30 --batch 4 --seq 512 --wsd
 
-The JAX CLI's ``--mesh`` is not ported: any value raises (ROADMAP.md
-queue 1 item 26).
+The JAX CLI's ``--mesh`` is not ported for training: any value raises
+(ROADMAP.md queue 1 item 26, its training half; the serving CLI takes it).
 """
 from __future__ import annotations
 

@@ -66,6 +66,9 @@ class CacheGeometry:
     num_pages: int
     page_size: int
     max_len: int
+    # the model axis the pools serve: an adapter whose pool specs shard
+    # the kv-head axis allocates the rank's 1/tp_size of the heads
+    tp_size: int = 1
 
 
 # --------------------------------------------------------------------------
@@ -142,12 +145,40 @@ class CacheAdapter:
         place (the COW step).  Only meaningful for paged adapters."""
         raise NotImplementedError
 
+    def pool_pspecs(self, cfg: ModelConfig, *, tp_axis: str = "model",
+                    tp_size: int = 1) -> Dict:
+        """Spec per **L-stacked** pool leaf for tensor-parallel serving
+        (``{pool_name: spec}``, each spec a tuple of per-dimension entries;
+        missing names replicate).
+
+        Specs describe the engine pools AFTER layer stacking (leading L
+        axis, see :func:`repro_torch.models.model.init_paged_cache`).  Page
+        ids, page tables and free lists are host state, computed alike on
+        every rank, and never appear here.  The base adapter replicates
+        everything; families whose pools carry a kv-head axis override to
+        shard it over the model axis when it divides, so each rank holds
+        (and streams) only its own heads' pages.
+        """
+        return {}
+
+    def rank_cfg(self, cfg: ModelConfig, tp_size: int) -> ModelConfig:
+        """``cfg`` as a rank's share of this adapter's caches is allocated
+        with, on a model axis of ``tp_size`` ranks: its share of the kv
+        heads where :meth:`pool_pspecs` shards them (the only axis a pool
+        spec shards), else ``cfg``.  The one place the specs become
+        shapes: the engine pools and the static caches both go through it."""
+        specs = self.pool_pspecs(cfg, tp_size=tp_size)
+        if any(e is not None for spec in specs.values() for e in spec):
+            return dataclasses.replace(cfg, n_kv_heads=cfg.n_kv_heads // tp_size)
+        return cfg
+
     def chunk_multiple(self, cfg: ModelConfig) -> int:
         """Prefill chunk boundaries must sit on multiples of this."""
         return 1
 
     def init_pool(self, cfg: ModelConfig, geom: CacheGeometry, device=None) -> Dict:
-        """One layer's share of the engine cache (pre L-stacking)."""
+        """One layer's share of the engine cache (pre L-stacking): on a
+        model axis of ``geom.tp_size`` ranks, this rank's share."""
         raise NotImplementedError
 
     def install(self, cfg: ModelConfig, dst: Dict, src: Dict, slot: int,
@@ -184,7 +215,19 @@ class PagedAttnAdapter(CacheAdapter):
     shareable = True
 
     def init_pool(self, cfg, geom, device=None):
-        return attn.paged_cache_init(cfg, geom.num_pages, geom.page_size, device=device)
+        return attn.paged_cache_init(self.rank_cfg(cfg, geom.tp_size), geom.num_pages,
+                                     geom.page_size, device=device)
+
+    def pool_pspecs(self, cfg, *, tp_axis="model", tp_size=1):
+        # stacked pools are (L, num_pages, page, n_kv_heads, d_head): shard
+        # the kv-head axis so each rank holds (and streams) 1/tp of every
+        # page; pages themselves never cross ranks.  Query heads arrive
+        # pre-partitioned by the column-parallel wq/wk/wv, so only the
+        # post-attention row-parallel wo all-reduces.
+        if tp_size > 1 and cfg.n_kv_heads % tp_size == 0:
+            head = (None, None, None, tp_axis, None)
+            return {"k_pages": head, "v_pages": head}
+        return {}
 
     def copy_page(self, cfg, seg_cache, src, dst):
         return resolve_backend(cfg.decode_backend).paged_copy_page(seg_cache, src, dst)
@@ -219,8 +262,17 @@ class RingAttnAdapter(CacheAdapter):
     family = "SWA (ring)"
 
     def init_pool(self, cfg, geom, device=None):
-        return attn.gqa_cache_init(cfg, geom.max_seqs, geom.max_len, device=device,
-                                   window_only=True)
+        return attn.gqa_cache_init(self.rank_cfg(cfg, geom.tp_size), geom.max_seqs, geom.max_len,
+                                   device=device, window_only=True)
+
+    def pool_pspecs(self, cfg, *, tp_axis="model", tp_size=1):
+        # stacked rings are (L, max_seqs, slots, n_kv_heads, d_head): the
+        # head axis shards like the paged pools (ring attention is
+        # head-independent); the position labels replicate.
+        if tp_size > 1 and cfg.n_kv_heads % tp_size == 0:
+            head = (None, None, None, tp_axis, None)
+            return {"k": head, "v": head}
+        return {}
 
     def install(self, cfg, dst, src, slot, phys_tok, off_tok):
         slots_e = dst["k"].shape[2]  # engine ring length: min(window, max_len)
@@ -267,6 +319,15 @@ class LatentMLAAdapter(CacheAdapter):
 
     def init_pool(self, cfg, geom, device=None):
         return attn.mla_paged_cache_init(cfg, geom.num_pages, geom.page_size, device=device)
+
+    def pool_pspecs(self, cfg, *, tp_axis="model", tp_size=1):
+        # MLA latent pools carry NO head axis -- the rank-r c_kv and the
+        # shared rotary key are read by every query head, so the pages
+        # replicate (r + dr values per token against 2*Hkv*dh).  Head
+        # parallelism lives on the activation side: the absorbed q_lat /
+        # q_rope come from the column-parallel wq_b and each rank attends
+        # its own heads against the whole latent pages.
+        return {"ckv_pages": (), "krope_pages": ()}
 
     def copy_page(self, cfg, seg_cache, src, dst):
         return resolve_backend(cfg.decode_backend).paged_copy_page(seg_cache, src, dst)
@@ -349,9 +410,19 @@ class CrossAttnAdapter(CacheAdapter):
     side_inputs = True  # the rows depend on the request's audio
 
     def init_pool(self, cfg, geom, device=None):
-        shape = (geom.max_seqs, cfg.encoder_seq, cfg.n_kv_heads, cfg.d_head)
+        hkv = self.rank_cfg(cfg, geom.tp_size).n_kv_heads
+        shape = (geom.max_seqs, cfg.encoder_seq, hkv, cfg.d_head)
         return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
                 "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+
+    def pool_pspecs(self, cfg, *, tp_axis="model", tp_size=1):
+        # stacked cross rows are (L, max_seqs, encoder_seq, n_kv_heads,
+        # d_head): immutable per request, head-sharded like the paged pools
+        # so cross-attention reads stay local to each rank's heads.
+        if tp_size > 1 and cfg.n_kv_heads % tp_size == 0:
+            head = (None, None, None, tp_axis, None)
+            return {"k": head, "v": head}
+        return {}
 
     def install(self, cfg, dst, src, slot, phys_tok, off_tok):
         return write_slot_rows(dst, src, slot, axis=1)
@@ -389,6 +460,17 @@ SSM_STATE = SSMStateAdapter()
 CROSS_ENC = CrossAttnAdapter()
 
 _ATTN_ADAPTERS = {"full": PAGED_GQA, "swa": RING_SWA, "mla": MLA_LATENT}
+
+
+def static_cache_cfgs(cfg: ModelConfig, tp_size: int) -> Tuple[ModelConfig, ModelConfig]:
+    """The configs a rank's static (``Server``) caches are allocated with:
+    ``(self-attention and SSM rows, cross-attention rows)``.  The static
+    K/V share the engine pools' head axis, so the attention family's and
+    the cross rows' adapters place them (:meth:`CacheAdapter.rank_cfg`);
+    the vision frontend, which has no engine, places its GQA caches as the
+    paged pools would."""
+    return (_ATTN_ADAPTERS[cfg.attn_type].rank_cfg(cfg, tp_size),
+            CROSS_ENC.rank_cfg(cfg, tp_size))
 
 
 def adapters_for(cfg: ModelConfig, kind: str) -> List[CacheAdapter]:

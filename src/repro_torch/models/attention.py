@@ -15,6 +15,14 @@ Where the JAX package rebuilds a cache functionally (``dynamic_update_slice``,
 ``.at[...].set``) and donates the old one, this port writes into the cache
 tensors in place and returns the same tensors: the decode steps mutate the
 cache they are given.
+
+Tensor-parallel serving: every function here runs on the heads its weights
+hold.  Head counts come from the weights' and caches' shapes, never from
+``cfg``, so a rank holding the column-parallel shards of ``wq``/``wk``/
+``wv`` (``wq_b``/``wkv_b`` for MLA) attends its local heads against its
+local kv heads (or the whole latent pages), and the row-parallel ``wo``
+product is summed over the model axis by
+:func:`repro_torch.distributed.axes.psum` (a no-op without a mesh).
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.backend import resolve_backend
+from repro_torch.distributed.axes import check_split, psum
 from repro_torch.models.common import (
     MASK,
     apply_mrope,
@@ -70,15 +79,17 @@ def gqa_cache_init(cfg: ModelConfig, batch: int, max_len: int, device=None,
 
 def _project_qkv(p, cfg: ModelConfig, x, positions):
     B, S, _ = x.shape
-    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    dh = cfg.d_head
     q = dense(cfg, x, p["wq"])
     k = dense(cfg, x, p["wk"])
     v = dense(cfg, x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, H, dh)
-    k = k.reshape(B, S, Hkv, dh)
-    v = v.reshape(B, S, Hkv, dh)
+    # the heads the weights hold: all of them, or a rank's share
+    q = q.reshape(B, S, -1, dh)
+    check_split(q.shape[2], cfg.n_heads, "wq's query heads")
+    k = k.reshape(B, S, -1, dh)
+    v = v.reshape(B, S, -1, dh)
     if cfg.use_rope:
         if cfg.mrope_sections:  # positions: (3, B, S) position streams
             q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
@@ -133,8 +144,8 @@ def gqa_forward(
                 inv = torch.argsort(pos % slots)
                 ks, vs, pos = ks[:, inv], vs[:, inv], pos[inv]
             new_cache = {"k": ks, "v": vs, "pos": pos[None].expand(B, slots).contiguous()}
-    out = out.reshape(B, S, cfg.n_heads * cfg.d_head)
-    return dense(cfg, out, p["wo"]), new_cache
+    out = out.reshape(B, S, -1)
+    return psum(dense(cfg, out, p["wo"])), new_cache
 
 
 # --------------------------------------------------------------------------
@@ -224,8 +235,8 @@ def gqa_paged_decode(
     be = resolve_backend(cfg.decode_backend)
     out = be.paged_attention_decode(q, cache["k_pages"], cache["v_pages"], page_table,
                                     seq_pos)
-    out = out.reshape(B, 1, cfg.n_heads * cfg.d_head)
-    return dense(cfg, out, p["wo"]), cache
+    out = out.reshape(B, 1, -1)
+    return psum(dense(cfg, out, p["wo"])), cache
 
 
 def paged_copy_page(cache: Dict, src: int, dst: int) -> Dict:
@@ -280,13 +291,13 @@ def gqa_paged_prefill_chunk(
     page = cache["k_pages"].shape[1]
     maxp = table_row.shape[0]
     row = table_row.long()
-    kg = cache["k_pages"][row].reshape(1, maxp * page, cfg.n_kv_heads, cfg.d_head)
-    vg = cache["v_pages"][row].reshape(1, maxp * page, cfg.n_kv_heads, cfg.d_head)
+    kg = cache["k_pages"][row].reshape(1, maxp * page, *cache["k_pages"].shape[2:])
+    vg = cache["v_pages"][row].reshape(1, maxp * page, *cache["v_pages"].shape[2:])
     kpos = torch.arange(maxp * page, dtype=torch.int32, device=x.device)[None]
     out = chunked_attention(q, kg, vg, causal=True, q_offset=q_off, k_positions=kpos,
                             q_chunk=cfg.q_chunk)
-    out = out.reshape(B, C, cfg.n_heads * cfg.d_head)
-    return dense(cfg, out, p["wo"]), cache
+    out = out.reshape(B, C, -1)
+    return psum(dense(cfg, out, p["wo"])), cache
 
 
 # --------------------------------------------------------------------------
@@ -332,8 +343,8 @@ def gqa_ring_prefill_chunk(
     cache_row["k"][:, widx] = k[:, C - w:].to(cache_row["k"].dtype)
     cache_row["v"][:, widx] = v[:, C - w:].to(cache_row["v"].dtype)
     cache_row["pos"][:, widx] = wpos[None].to(torch.int32)
-    out = out.reshape(B, C, cfg.n_heads * cfg.d_head)
-    return dense(cfg, out, p["wo"]), cache_row
+    out = out.reshape(B, C, -1)
+    return psum(dense(cfg, out, p["wo"])), cache_row
 
 
 def cross_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -345,9 +356,10 @@ def cross_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     drift apart.  x: (B, S, d); k, v: (B, encoder_seq, Hkv, dh).
     """
     B, S, _ = x.shape
-    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, cfg.d_head)
+    q = (x @ p["wq"]).reshape(B, S, -1, cfg.d_head)
+    check_split(q.shape[2], cfg.n_heads, "the cross-attention's query heads")
     out = chunked_attention(q, k, v, causal=False, q_chunk=cfg.q_chunk)
-    return out.reshape(B, S, -1) @ p["wo"]
+    return psum(out.reshape(B, S, -1) @ p["wo"])
 
 
 def gqa_ring_decode(
@@ -386,8 +398,8 @@ def gqa_ring_decode(
             val = torch.where(keep, val, ring[rows, slot])
         ring[rows, slot] = val
     out = decode_attention(q, cache["k"], cache["v"], cache["pos"], seq_pos, window=window)
-    out = out.reshape(B, 1, cfg.n_heads * cfg.d_head)
-    return dense(cfg, out, p["wo"]), cache
+    out = out.reshape(B, 1, -1)
+    return psum(dense(cfg, out, p["wo"])), cache
 
 
 # --------------------------------------------------------------------------
@@ -434,10 +446,10 @@ def _rms(x, w, eps: float = 1e-6):
 def _mla_qkv_latent(p, cfg: ModelConfig, x, positions):
     """Common projections: per-head q (nope + rope), latent ckv, shared k_rope."""
     B, S, _ = x.shape
-    H = cfg.n_heads
     dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
     q = _rms(x @ p["wq_a"], p["q_norm"]) @ p["wq_b"]
-    q = q.reshape(B, S, H, dn + dr)
+    q = q.reshape(B, S, -1, dn + dr)  # the heads wq_b holds
+    check_split(q.shape[2], cfg.n_heads, "wq_b's query heads")
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     kv = x @ p["wkv_a"]  # (B, S, r_kv + dr)
@@ -515,7 +527,7 @@ def _mla_expanded_attend(cfg: ModelConfig, wkv_b, q_nope, q_rope, ckv, k_rope, *
     same call serves contiguous latents and page-gathered ones (with
     ``k_positions`` labelling the gathered order).
     """
-    H = cfg.n_heads
+    H = q_nope.shape[2]
     dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
     B, K = ckv.shape[:2]
     kv = torch.einsum("bsr,rhd->bshd", ckv, wkv_b)
@@ -542,10 +554,9 @@ def mla_forward(
     attends in the absorbed formulation; ``prefill`` returns a new cache
     holding the sequence's latents."""
     B, S, _ = x.shape
-    H = cfg.n_heads
     dn, dv = cfg.qk_nope_dim, cfg.v_head_dim
     q_nope, q_rope, ckv, k_rope = _mla_qkv_latent(p, cfg, x, positions)
-    wkv_b = p["wkv_b"].reshape(cfg.kv_lora_rank, H, dn + dv)
+    wkv_b = p["wkv_b"].reshape(cfg.kv_lora_rank, -1, dn + dv)
     if mode == "decode":
         assert cache is not None and S == 1
         cache["ckv"][:, pos_offset] = ckv[:, 0]
@@ -562,8 +573,8 @@ def mla_forward(
         if mode == "prefill":
             pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
             new_cache = {"ckv": ckv, "krope": k_rope, "pos": pos.contiguous()}
-    out = out.reshape(B, S, H * dv)
-    return out @ p["wo"], new_cache
+    out = out.reshape(B, S, -1)
+    return psum(out @ p["wo"]), new_cache
 
 
 # --------------------------------------------------------------------------
@@ -610,10 +621,9 @@ def mla_paged_decode(
     """
     B, S, _ = x.shape
     assert S == 1
-    H = cfg.n_heads
     dn, dv = cfg.qk_nope_dim, cfg.v_head_dim
     q_nope, q_rope, ckv, k_rope = _mla_qkv_latent(p, cfg, x, positions)
-    wkv_b = p["wkv_b"].reshape(cfg.kv_lora_rank, H, dn + dv)
+    wkv_b = p["wkv_b"].reshape(cfg.kv_lora_rank, -1, dn + dv)
     page = cache["ckv_pages"].shape[1]
     pos = seq_pos.long()
     phys = torch.gather(page_table.long(), 1, (pos // page)[:, None])[:, 0]
@@ -629,8 +639,8 @@ def mla_paged_decode(
                                           cache["krope_pages"], page_table, seq_pos,
                                           scale=_mla_scale(cfg))
     out = torch.einsum("bshr,rhd->bshd", o_lat, wkv_b[..., dn:])  # value expand
-    out = out.reshape(B, 1, H * dv)
-    return out @ p["wo"], cache
+    out = out.reshape(B, 1, -1)
+    return psum(out @ p["wo"]), cache
 
 
 def mla_paged_prefill_chunk(
@@ -654,11 +664,10 @@ def mla_paged_prefill_chunk(
     """
     B, C, _ = x.shape
     assert B == 1
-    H = cfg.n_heads
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     r_kv = cfg.kv_lora_rank
     q_nope, q_rope, ckv, k_rope = _mla_qkv_latent(p, cfg, x, positions)
-    wkv_b = p["wkv_b"].reshape(r_kv, H, dn + dv)
+    wkv_b = p["wkv_b"].reshape(r_kv, -1, dn + dv)
     phys, off = phys_tok.long(), off_tok.long()
     cache["ckv_pages"].index_put_((phys, off), ckv[0])
     cache["krope_pages"].index_put_((phys, off), k_rope[0])
@@ -670,5 +679,5 @@ def mla_paged_prefill_chunk(
     kpos = torch.arange(maxp * page, dtype=torch.int32, device=x.device)[None]
     out = _mla_expanded_attend(cfg, wkv_b, q_nope, q_rope, ckv_g, kr_g,
                                pos_offset=q_off, k_positions=kpos)
-    out = out.reshape(B, C, H * dv)
-    return out @ p["wo"], cache
+    out = out.reshape(B, C, -1)
+    return psum(out @ p["wo"]), cache

@@ -6,6 +6,16 @@ ranked within their chosen expert by a stable argsort + searchsorted, then
 gathered into an (E, C, d) buffer.  The router, the dispatch and the expert
 products are plain PyTorch, as they are plain XLA ops outside any Pallas
 kernel in the JAX package.
+
+Tensor-parallel serving: a rank holding the column-parallel ``w_gate`` /
+``w_up`` and row-parallel ``w_down`` shards computes its share of the hidden
+width and the shares are summed over the model axis
+(:func:`repro_torch.distributed.axes.psum`).  The MoE's expert weights are
+either expert-parallel (a rank holds ``E/M`` whole experts) or, where the
+experts do not split, sharded along each expert's hidden width; either way
+every rank computes the router and the capacity dispatch on the same rows
+(the drop pattern is the single device's), multiplies the slots of the
+experts it holds, and the gated outputs are summed over the model axis.
 """
 from __future__ import annotations
 
@@ -15,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.axes import check_split, model_coord, psum
 from repro_torch.models.common import dense, dense_init
 
 
@@ -43,10 +54,11 @@ def ffn_init(generator: torch.Generator, cfg: ModelConfig, d_ff: int = 0,
 def ffn_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     if "w_gate" in p:
         gate = F.silu(dense(cfg, x, p["w_gate"]))
-        return dense(cfg, gate * dense(cfg, x, p["w_up"]), p["w_down"])
-    # GELU in its tanh form, jax.nn.gelu's default
+        return psum(dense(cfg, gate * dense(cfg, x, p["w_up"]), p["w_down"]))
+    # GELU in its tanh form, jax.nn.gelu's default; the output bias is
+    # added once, after the row-parallel sum
     h = F.gelu(dense(cfg, x, p["w_up"]) + p["b_up"], approximate="tanh")
-    return dense(cfg, h, p["w_down"]) + p["b_down"]
+    return psum(dense(cfg, h, p["w_down"])) + p["b_down"]
 
 
 # --------------------------------------------------------------------------
@@ -83,8 +95,8 @@ def moe_init(generator: torch.Generator, cfg: ModelConfig, device=None) -> Dict:
 
 def _moe_groups(T: int) -> int:
     """Token groups of the capacity dispatch.  The JAX package aligns them
-    to its data-parallel shards; this port has no mesh (``mesh=`` raises,
-    ROADMAP.md queue 1 item 26), so every call dispatches one group."""
+    to its data-parallel shards; the port serves on ``1 x M`` meshes only
+    (no data axis), so every call dispatches one group."""
     return 1
 
 
@@ -153,9 +165,20 @@ def moe_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor
     xe = xe.reshape(G, E, Cg, d)
 
     # ---- expert computation (one batched product per weight, over E) ----
+    # a rank holding E/M whole experts (expert parallelism) multiplies their
+    # slots only; the other experts' outputs are zeros here and come from
+    # their ranks in the sum below
+    e_here = p["w_gate"].shape[0]
+    check_split(p["w_gate"].shape[2], cfg.moe_d_ff, "the experts' hidden width")
+    if e_here != E:
+        e0 = model_coord(f"the MoE's experts ({e_here} of {E})")[0] * e_here
+        xe = xe[:, e0:e0 + e_here]
     h = F.silu(torch.einsum("gecd,edf->gecf", xe, p["w_gate"]))
     h = h * torch.einsum("gecd,edf->gecf", xe, p["w_up"])
     ye = torch.einsum("gecf,efd->gecd", h, p["w_down"])
+    if e_here != E:
+        ye = torch.cat([ye.new_zeros((G, e0, Cg, d)), ye,
+                        ye.new_zeros((G, E - e0 - e_here, Cg, d))], dim=1)
 
     # ---- combine back to tokens ----
     ye = ye.reshape(G, E * Cg, d)
@@ -168,7 +191,7 @@ def moe_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor
     # so the per-token combine is a reshape and a sum over k, last
     inv_order = torch.argsort(order, dim=1)
     contrib = _take_rows(contrib, inv_order)
-    out = contrib.reshape(G, Tg, k, d).sum(dim=2)
+    out = psum(contrib.reshape(G, Tg, k, d).sum(dim=2))
 
     if cfg.n_shared_experts:
         out = out + ffn_forward(p["shared"], cfg, xg)

@@ -11,8 +11,18 @@ prompt's prefix, M-RoPE over three position streams; the static path only,
 as in the JAX package).
 Layers are grouped into homogeneous *segments*; each segment's parameters
 (and caches) are stacked along a leading L axis, as in the JAX package, and
-a Python loop over the layers takes the place of ``jax.lax.scan``.  The
-JAX package's sharding constraints have no counterpart without a mesh.
+a Python loop over the layers takes the place of ``jax.lax.scan``.
+
+Tensor-parallel serving (a ``1 x M`` mesh, :mod:`repro_torch.distributed`):
+where the JAX package pins activation layouts with sharding constraints and
+leaves the collectives to GSPMD, each rank here runs the same functions on
+the parameter shards it holds, under the engine's shard policy: attention
+on its local heads, the FFN on its share of the hidden width, the MoE on
+its experts, each summed over the model axis after the row-parallel
+product; the vocab-sharded embedding as a masked local lookup and the
+logits as vocab slices, each completed by one ``all_reduce``.  The norms,
+the SSM mixers and everything else outside those products run replicated,
+on identical inputs, as the JAX rules leave them.
 
 Execution modes: ``train`` (:func:`forward_train` and :func:`loss_fn`: the
 LM loss, the MoE auxiliary loss and DeepSeek-V3's MTP head, each layer
@@ -38,6 +48,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import tree as T
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.encoder import resolve_device
+from repro_torch.distributed.axes import gather_slices, model_coord, psum
 from repro_torch.models import adapters as A
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffnm
@@ -228,16 +239,19 @@ def _layer_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int, dev
     return c
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None, tp_size: int = 1):
     """Stacked-per-segment static cache for decode (enc-dec: the decoder's
-    cross-attention K/V too, filled at prefill)."""
+    cross-attention K/V too, filled at prefill); with ``tp_size`` ranks on
+    the model axis, a rank's share of the kv heads (MLA latents and SSM
+    rows whole, as the engine pools' specs place them)."""
     device = resolve_device(device)
+    rank_cfg, cross_cfg = A.static_cache_cfgs(cfg, tp_size)
     segs = {
-        f"seg{si}": _stacked(_layer_cache_init(cfg, kind, batch, max_len, device), n)
+        f"seg{si}": _stacked(_layer_cache_init(rank_cfg, kind, batch, max_len, device), n)
         for si, (kind, n) in enumerate(layer_segments(cfg))
     }
     if cfg.n_encoder_layers:
-        shape = (cfg.n_layers, batch, cfg.encoder_seq, cfg.n_kv_heads, cfg.d_head)
+        shape = (cfg.n_layers, batch, cfg.encoder_seq, cross_cfg.n_kv_heads, cfg.d_head)
         segs["seg0"]["cross"] = {
             "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
@@ -264,19 +278,21 @@ def supports_padded_prefill(cfg: ModelConfig) -> bool:
 
 
 def init_paged_cache(cfg: ModelConfig, max_seqs: int, num_pages: int, page_size: int,
-                     max_len: int, device=None):
+                     max_len: int, device=None, tp_size: int = 1):
     """Stacked-per-segment decode cache for the continuous-batching engine.
 
     Each segment's cache is whatever its family's adapters declare (K/V
     pages for GQA, latent pages for MLA, per-slot rows for SWA rings, SSM
     states and enc-dec cross K/V): paged pools share physical page ids
-    across layers (page ids are pool-wide).
+    across layers (page ids are pool-wide).  With ``tp_size`` ranks on the
+    model axis, each pool is this rank's share as its adapter's
+    ``pool_pspecs`` place it.
     """
     msg = A.unsupported_message(cfg)  # the vision frontend has no cache adapter
     if msg is not None:
         raise NotImplementedError(msg)
     device = resolve_device(device)
-    geom = A.CacheGeometry(max_seqs, num_pages, page_size, max_len)
+    geom = A.CacheGeometry(max_seqs, num_pages, page_size, max_len, tp_size)
     segs = {}
     for si, (kind, n) in enumerate(layer_segments(cfg)):
         c = {ad.key: ad.init_pool(cfg, geom, device=device)
@@ -418,7 +434,7 @@ def _embed_inputs(cfg: ModelConfig, params, batch: Dict) -> Tuple[torch.Tensor, 
     of them (a vision config), and the positions: ``positions3`` for an
     M-RoPE config that has them, else ``arange(S)`` per row."""
     tokens = batch["tokens"]
-    h = params["embed"][tokens.long()]
+    h = _embed(cfg, params, tokens)
     if cfg.frontend == "vision" and "vis_embeds" in batch:
         v = batch["vis_embeds"].to(h.dtype)
         if v.shape[0] != h.shape[0] or v.shape[1] > h.shape[1] or v.shape[2] != h.shape[2]:
@@ -494,9 +510,32 @@ def _run_segments(
     return h, new_caches, aux_total
 
 
+def _embed(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
+    """Token embeddings.  On a rank holding a vocab slice of ``embed``: the
+    rows of the ids in its slice, zeros for the rest, summed over the model
+    axis (exact: each id's row comes from one rank); on a rank holding a
+    d_model slice: its columns, gathered."""
+    emb, ids = params["embed"], tokens.long()
+    if emb.shape[0] != cfg.padded_vocab:  # vocab-sharded
+        n = emb.shape[0]
+        ids = ids - model_coord(f"embed's vocab rows ({n} of {cfg.padded_vocab})")[0] * n
+        here = (ids >= 0) & (ids < n)
+        return psum(emb[ids.clamp(0, n - 1)].masked_fill(~here[..., None], 0))
+    return gather_slices(emb[ids], cfg.d_model)
+
+
 def _lm_logits(cfg: ModelConfig, params, h):
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = h @ w
+    """Logits over the padded vocab.  On a rank holding a vocab slice of the
+    head (``lm_head``'s columns or, tied, ``embed``'s rows) its slice of the
+    logits, gathered; tied to a d_model-sharded ``embed``, the partial
+    products summed."""
+    if cfg.tie_embeddings and params["embed"].shape[1] != cfg.d_model:
+        n = params["embed"].shape[1]
+        c0 = model_coord(f"embed's d_model columns ({n} of {cfg.d_model})")[0] * n
+        logits = psum(h[..., c0:c0 + n] @ params["embed"].T)
+    else:
+        w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        logits = gather_slices(h @ w, cfg.padded_vocab)
     if cfg.padded_vocab != cfg.vocab_size:
         # mask pad columns so logsumexp / sampling never see them (in place:
         # the product's backward reads its operands, not its output)
@@ -610,7 +649,7 @@ def decode_step(cfg: ModelConfig, params, caches, tokens, pos: int):
     position, on all three streams of an M-RoPE config (the JAX package's
     rule).  Writes the caches in place; returns (logits (B, 1, V), caches)."""
     B = tokens.shape[0]
-    h = params["embed"][tokens.long()]
+    h = _embed(cfg, params, tokens)
     shape = (3, B, 1) if cfg.mrope_sections else (B, 1)
     positions = torch.full(shape, pos, dtype=torch.int32, device=h.device)
     if cfg.n_encoder_layers:
@@ -635,7 +674,7 @@ def decode_step_paged(cfg: ModelConfig, params, caches, tokens, seq_pos,
     go to the null page, so the lockstep step cannot corrupt a half-prefilled
     slot.  Returns (logits (B, 1, V), caches), the caches written in place.
     """
-    h = params["embed"][tokens.long()]
+    h = _embed(cfg, params, tokens)
     if cfg.n_encoder_layers:
         # learned decoder positions, gathered per slot (enc-dec decode)
         h = h + params["dec_pos"][seq_pos.long()][:, None]
@@ -665,7 +704,7 @@ def prefill_chunk(cfg: ModelConfig, params, caches, tokens, slot: int, q_off: in
     """
     B, C = tokens.shape
     assert B == 1
-    h = params["embed"][tokens.long()]
+    h = _embed(cfg, params, tokens)
     positions = (q_off + torch.arange(C, dtype=torch.int32, device=h.device))[None]
     if cfg.n_encoder_layers:
         # learned decoder positions for this chunk's absolute range
@@ -708,9 +747,9 @@ def _encoder_forward(cfg: ModelConfig, params, audio_embeds: torch.Tensor, *,
 
 def _cross_kv(cfg: ModelConfig, pc: Dict, enc_out: torch.Tensor):
     """One decoder layer's cross-attention K/V over the encoder output."""
-    B = enc_out.shape[0]
-    ck = (enc_out @ pc["wk"]).reshape(B, -1, cfg.n_kv_heads, cfg.d_head)
-    cv = (enc_out @ pc["wv"]).reshape(B, -1, cfg.n_kv_heads, cfg.d_head)
+    B, S = enc_out.shape[:2]
+    ck = (enc_out @ pc["wk"]).reshape(B, S, -1, cfg.d_head)  # the heads wk holds
+    cv = (enc_out @ pc["wv"]).reshape(B, S, -1, cfg.d_head)
     return ck, cv
 
 
@@ -741,7 +780,7 @@ def _prefill_encdec(cfg: ModelConfig, params, batch: Dict):
     enc_out = _encoder_forward(cfg, params, batch["audio_embeds"])
     tokens = batch["tokens"]
     B, S = tokens.shape
-    h = params["embed"][tokens.long()] + params["dec_pos"][None, :S]
+    h = _embed(cfg, params, tokens) + params["dec_pos"][None, :S]
     positions = default_positions(B, S, device=h.device)
     layer_caches = []
     for i in range(cfg.n_layers):

@@ -36,9 +36,21 @@ targets) go up through pinned memory without a sync.
 
 Where the JAX package jits and memoizes its step functions (and inventories
 them for its compiled-artifact linter), this engine calls the model's
-functions eagerly.  ``mesh=`` (tensor-parallel serving) is not ported yet:
-ROADMAP.md queue 1 item 26.  Entry points run on the CUDA device unless
-``device`` says otherwise.
+functions eagerly.  Entry points run on the CUDA device unless ``device``
+says otherwise.
+
+**Tensor-parallel serving** (``mesh=``, a ``1 x M`` mesh from
+:func:`repro_torch.launch.mesh.make_serve_mesh`): every rank builds the
+engine with the same full parameters (the JAX API), keeps its shards
+(:func:`repro_torch.distributed.sharding.shard_params`) once, at
+construction, and runs the same host schedule.  So each rank holds the
+full tree once while its engine is built, on its card or in host memory.  The model runs on the
+rank's local heads and widths and sums over the model axis with
+``all_reduce`` (the rank's pools hold its kv heads; the paged kernels
+simply receive them); every rank reads the same reduced logits, so the
+sampled tokens -- greedy, or drawn from the same seeded generator -- are
+the same on every rank without a collective of their own.  A data axis of
+more than one rank raises (ROADMAP.md queue 1 item 26, its rest).
 """
 from __future__ import annotations
 
@@ -54,14 +66,18 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.backend import resolve_backend
 from repro_torch.core.encoder import resolve_device
+from repro_torch.distributed import axes as AX
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import adapters as A
 from repro_torch.models import model as M
-from repro_torch.serve.kvcache import PagedCacheConfig, PagedKVCache, to_device
+from repro_torch.serve.kvcache import (
+    PagedCacheConfig,
+    PagedKVCache,
+    check_serve_mesh,
+    to_device,
+)
 from repro_torch.serve.obs import Observability
 from repro_torch.serve.scheduler import Request, Scheduler
-
-_MESH_NOT_PORTED = "mesh-sharded serving is not ported yet (ROADMAP.md queue 1 item 26)"
-
 
 @dataclasses.dataclass
 class ServeConfig:
@@ -169,21 +185,32 @@ def _check_params_device(params, device: torch.device) -> None:
                          "create or move them to the engine's device")
 
 
+def _rank_params(cfg: ModelConfig, params, mesh, device: torch.device):
+    """The parameters the engine runs: the caller's, which must live on
+    ``device``; under a mesh, this rank's shards of them (the full tree may
+    live anywhere), copied to ``device``."""
+    if mesh is None:
+        _check_params_device(params, device)
+        return params
+    return SH.shard_params(cfg, params, mesh, device)
+
+
 class Server:
     """Static-wave batched generation (the single-request parity baseline).
 
     ``device`` (default ``"cuda"``; raises without CUDA) holds the caches
     and must hold ``params``.  Sampling at ``temperature > 0`` draws from a
     ``torch.Generator`` seeded with ``ServeConfig.seed``: other numbers
-    than the JAX package's ``jax.random`` for the same seed.
+    than the JAX package's ``jax.random`` for the same seed.  ``mesh``: a
+    ``1 x M`` mesh; the rank keeps its shards of the full ``params``.
     """
 
     def __init__(self, cfg: ModelConfig, params, sc: ServeConfig, mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(_MESH_NOT_PORTED)
-        self.cfg, self.params, self.sc = cfg, params, sc
+        self.tp_size = check_serve_mesh(mesh)
+        self.cfg, self.sc, self.mesh = cfg, sc, mesh
         self.device = resolve_device(device)
-        _check_params_device(params, self.device)
+        self.params = _rank_params(cfg, params, mesh, self.device)
+        self._policy = AX.make_policy(mesh) if self.tp_size > 1 else None
         self._prefill = functools.partial(M.prefill, cfg)
         self._decode = functools.partial(M.decode_step, cfg)
 
@@ -196,7 +223,8 @@ class Server:
 
     def _grow_cache(self, caches, batch: int, prompt_len: int):
         """Pad prefill caches out to max_len slots (static decode shapes)."""
-        full = M.init_cache(self.cfg, batch, self.sc.max_len, device=self.device)
+        full = M.init_cache(self.cfg, batch, self.sc.max_len, device=self.device,
+                            tp_size=self.tp_size)
         for seg, tree in caches.items():
             for key, small_leaves in tree.items():
                 for name, small in small_leaves.items():
@@ -211,6 +239,10 @@ class Server:
         ``vis_embeds`` over the prompt's first n_image tokens and its (3,
         B, S) ``positions3``; stubs where missing, as
         :func:`repro_torch.models.model.frontend_extras` fills them)."""
+        with AX.policy(self._policy):
+            return self._generate(batch, max_new_tokens)
+
+    def _generate(self, batch: Dict, max_new_tokens: int) -> np.ndarray:
         cfg, sc = self.cfg, self.sc
         tokens = np.asarray(batch["tokens"].cpu() if isinstance(batch["tokens"], torch.Tensor)
                             else batch["tokens"], np.int32)
@@ -334,21 +366,24 @@ class Engine:
     """Continuous-batching serving engine (scheduler + paged KV cache).
 
     ``device`` (default ``"cuda"``; raises without CUDA) holds the page
-    pool and must hold ``params``.
+    pool and must hold ``params``.  ``mesh``: a ``1 x M`` mesh; the rank
+    keeps its shards of the full ``params`` (which may then live on any
+    device) and of the pools.  A kv-head count the model axis does not
+    divide raises before anything is allocated.
     """
 
     def __init__(self, cfg: ModelConfig, params, ec: EngineConfig, mesh=None,
                  device=None):
-        if mesh is not None:
-            raise NotImplementedError(_MESH_NOT_PORTED)
+        tp_size = check_serve_mesh(mesh)
         # fold the backend selector into the frozen config; resolve eagerly
         # so an unknown name fails here, not mid-step
         resolve_backend(ec.backend)
         if ec.backend != cfg.decode_backend:
             cfg = dataclasses.replace(cfg, decode_backend=ec.backend)
-        self.cfg, self.params, self.ec = cfg, params, ec
+        self.cfg, self.ec, self.mesh = cfg, ec, mesh
         self.device = resolve_device(device)
-        _check_params_device(params, self.device)
+        self.params = _rank_params(cfg, params, mesh, self.device)
+        self._policy = AX.make_policy(mesh) if tp_size > 1 else None
         # recompute families rely on prefix chunks replaying the publisher's
         # exact chunk grid; one-shot prefill groups the whole prompt per
         # request, so sharing is only sound there for compute-skippable
@@ -360,7 +395,7 @@ class Engine:
             max_seqs=ec.max_seqs, max_len=ec.max_len,
             page_size=ec.page_size, num_pages=ec.num_pages,
             prefix_sharing=sharing,
-        ), device=self.device)
+        ), mesh=mesh, device=self.device)
         self.obs = Observability(deep=ec.obs, max_seqs=ec.max_seqs)
         self.sched = Scheduler(self.kv, ec.max_seqs, obs=self.obs)
         self.chunk_size = resolve_chunk_size(cfg, self.kv.page_size, ec.prefill_chunk)
@@ -595,11 +630,13 @@ class Engine:
                 self.sched.finish(slot, self.step_count)
 
     def step(self) -> None:  # repro: hot-loop
-        """One engine iteration: arrivals -> admissions (prefill) -> decode."""
+        """One engine iteration: arrivals -> admissions (prefill) -> decode
+        (under the mesh's shard policy, if any)."""
         t0 = self.obs.step_begin()
         self.sched.poll_arrivals(self.step_count)
-        self._admit_and_prefill()
-        self._decode_once()
+        with AX.policy(self._policy):
+            self._admit_and_prefill()
+            self._decode_once()
         self.step_count += 1
         audit = None
         if self.ec.debug_audit or self.obs.deep:

@@ -31,6 +31,13 @@ The device pools are the tensors :func:`repro_torch.models.model.init_paged_cach
 allocates once; where the JAX package jits its install and COW steps with
 the pool donated, this port updates the pool tensors in place, eagerly --
 the pool is never copied.
+
+Under a ``1 x M`` mesh (``mesh=``) each rank allocates its share of every
+pool as the adapters' ``pool_pspecs`` place it (kv-head-sharded K/V pages,
+ring and cross rows; whole MLA latent pages and SSM rows).  The page
+tables, free lists, refcounts and prefix index are host state that every
+rank computes identically from the same schedule, so a page id names the
+same page of every rank's shard.
 """
 from __future__ import annotations
 
@@ -44,10 +51,37 @@ import torch
 from repro_torch import tree as T
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.encoder import resolve_device
+from repro_torch.distributed import axes as AX
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import adapters as A
 from repro_torch.models import model as M
 
 NULL_PAGE = 0  # reserved physical page: idle-slot writes, unmapped gathers
+
+MESH_REST = ("serving on a data axis of more than one rank (D > 1) is not ported yet "
+             "(ROADMAP.md queue 1 item 26, its rest): the JAX serve mode shards the "
+             "weights 2-D over data x model and the pools over model only")
+
+
+def check_serve_mesh(mesh) -> int:
+    """The model-axis size of a serving mesh (1 without one).  Raises
+    ``TypeError`` for an object that is not a mesh (or an abstract one of
+    several ranks) and ``NotImplementedError`` for a data axis of more than
+    one rank."""
+    if mesh is None:
+        return 1
+    if not AX.is_mesh(mesh):
+        raise TypeError(f"mesh must be a DeviceMesh named ('data', 'model') (see "
+                        f"repro_torch.launch.mesh.make_serve_mesh), got {type(mesh).__name__}")
+    shape = AX.mesh_shape(mesh)
+    if "model" not in shape:
+        raise ValueError(f"the mesh has no 'model' axis: {AX.mesh_names(mesh)}")
+    if any(n != 1 for a, n in shape.items() if a != "model"):
+        raise NotImplementedError(MESH_REST)
+    if isinstance(mesh, AX.AbstractMesh) and shape["model"] > 1:
+        raise TypeError("an abstract mesh has no ranks to serve on; build the mesh with "
+                        "repro_torch.launch.mesh.make_serve_mesh over a process group")
+    return shape["model"]
 
 
 def to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -338,18 +372,18 @@ class PagedKVCache:
     """Device cache pool + host page tables for the continuous-batching engine.
 
     The pools live on ``device`` (default ``"cuda"``; raises without CUDA).
-    ``mesh=`` has no counterpart yet: tensor-parallel serving is ROADMAP.md
-    queue 1 item 26.
+    ``mesh``: a ``1 x M`` mesh (:func:`check_serve_mesh`); the rank then
+    holds its share of the pools.
     """
 
     def __init__(self, cfg: ModelConfig, pc: PagedCacheConfig, mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded serving is not ported yet (ROADMAP.md queue 1 item 26)")
+        tp_size = check_serve_mesh(mesh)
         msg = A.unsupported_message(cfg, hint="use Server for the rest")
         if msg is not None:
             raise NotImplementedError(msg)
         self.cfg = cfg
+        self.mesh = mesh
+        self.tp_size = tp_size
         self.device = resolve_device(device)
         self.page_size = pc.page_size or cfg.block
         self.max_seqs = pc.max_seqs
@@ -367,8 +401,11 @@ class PagedKVCache:
             PrefixIndex(self.page_size, self.allocator) if self.sharing else None
         )
         self.data = M.init_paged_cache(
-            cfg, pc.max_seqs, num_pages, self.page_size, self.max_len, device=self.device
+            cfg, pc.max_seqs, num_pages, self.page_size, self.max_len, device=self.device,
+            tp_size=tp_size,
         )
+        # where each pool leaf lies on the mesh: the adapters' specs
+        self._specs = SH.paged_cache_pspecs(cfg, mesh, self.data) if mesh is not None else None
         self._install = install_step(cfg)
         self._cow = cow_step(cfg)
         # host-side page tables; unmapped entries point at the null page
@@ -640,6 +677,16 @@ class PagedKVCache:
     # -- stats --------------------------------------------------------------
 
     def cache_bytes(self) -> int:
+        """Bytes of the whole pool, every rank's share counted once (the
+        JAX package's: the global arrays' bytes)."""
+        if self._specs is None:
+            return self.cache_bytes_per_device()
+        return SH.global_nbytes(self.data, self._specs, self.mesh)
+
+    def cache_bytes_per_device(self) -> int:
+        """The pool bytes this rank holds: head-sharded pools count 1/M,
+        replicated pools (MLA latent pages, SSM rows, ring position labels)
+        count whole.  Equals :meth:`cache_bytes` single-device."""
         return sum(t.numel() * t.element_size() for t in T.leaves(self.data))
 
     def pool_ptrs(self) -> List[int]:

@@ -10,7 +10,7 @@ The trainer's ``grad_compression="int8"`` runs this round trip on the
 gradients (the wire format's error, with no wire on one device).  The JAX
 package's ``compressed_psum`` reduces the int8 gradients over the
 data-parallel axes of a mesh; it needs a process group and waits for
-tensor and data parallelism (ROADMAP.md queue 1 item 26).
+the training mesh (ROADMAP.md queue 1 item 26, its training half).
 """
 from __future__ import annotations
 

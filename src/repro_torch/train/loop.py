@@ -17,7 +17,8 @@ Counterpart of ``repro.train.loop``:
 Parameters are drawn from ``TrainerConfig.seed`` with an explicit
 ``torch.Generator`` on the trainer's device (other numbers than the JAX
 package's ``PRNGKey``).  A mesh (elastic resharding, the DP reduction) is
-not ported yet: ``mesh=`` raises (ROADMAP.md queue 1 item 26).  The trainer
+not ported yet: ``mesh=`` raises (ROADMAP.md queue 1 item 26, its training
+half; serving takes a mesh).  The trainer
 runs on the CUDA device unless ``device`` says otherwise, and raises
 without CUDA.
 """
@@ -38,7 +39,8 @@ from repro_torch.models import model as M
 from repro_torch.optim import OptConfig, adamw_init, adamw_update, cosine_schedule
 from repro_torch.train.compression import dequantize_leaf, quantize_leaf
 
-MESH_NOT_PORTED = "mesh-sharded training is not ported yet (ROADMAP.md queue 1 item 26)"
+MESH_NOT_PORTED = ("mesh-sharded training is not ported yet (ROADMAP.md queue 1 item 26, "
+                   "its training half)")
 
 
 @dataclasses.dataclass

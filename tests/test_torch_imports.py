@@ -88,7 +88,14 @@ def test_port_files_include_the_training_slice():
         assert mod in names, mod
 
 
-@pytest.mark.parametrize("sub", ["optim", "train", "data", "checkpoint"])
+def test_port_files_include_the_tensor_parallel_slice():
+    names = {str(p.relative_to(PORT)) for p in _port_files() if PORT in p.parents}
+    for mod in ("distributed/__init__.py", "distributed/axes.py", "distributed/sharding.py",
+                "launch/mesh.py"):
+        assert mod in names, mod
+
+
+@pytest.mark.parametrize("sub", ["optim", "train", "data", "checkpoint", "distributed"])
 def test_training_subpackages_import_no_jax_or_ml_dtypes(sub):
     for path in sorted((PORT / sub).rglob("*.py")):
         bad = _imported_roots(path) & {"jax", "jaxlib", "repro", "ml_dtypes"}

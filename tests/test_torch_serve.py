@@ -40,6 +40,7 @@ import repro_torch.kernels as tk
 from repro.models import model as JM
 from repro.serve import ServeConfig as JServeConfig
 from repro.serve import Server as JServer
+from repro_torch.distributed.axes import abstract_mesh
 from repro_torch.models import model as TM
 from repro_torch.serve import (
     Engine,
@@ -167,8 +168,11 @@ def test_kvcache_admission_accounting_and_device_rule():
     assert kv.num_free_pages == 5 and int(kv.page_table().max()) == 0
     assert kv.fits(16) and not kv.fits(17)
     kv.audit()
-    with pytest.raises(NotImplementedError, match="queue 1 item 26"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         PagedKVCache(cfg, PagedCacheConfig(), mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1 item 26"):
+        PagedKVCache(cfg, PagedCacheConfig(), mesh=abstract_mesh((2, 2), ("data", "model")),
+                     device="cpu")
 
 
 # --------------------------------------------------------------------------
@@ -341,10 +345,14 @@ def test_static_waves_match_single_request():
 def test_engine_refuses_unported_families_mesh_and_backends():
     params = _params("minicpm-2b")[1]
     cfg = _cfg(block=8)
-    with pytest.raises(NotImplementedError, match="queue 1 item 26"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         Engine(cfg, params, EngineConfig(), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 26"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         Server(cfg, params, ServeConfig(), mesh=object(), device="cpu")
+    for cls, conf in ((Engine, EngineConfig()), (Server, ServeConfig())):
+        with pytest.raises(NotImplementedError, match="queue 1 item 26"):
+            cls(cfg, params, conf, mesh=abstract_mesh((2, 4), ("data", "model")),
+                device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
         Engine(cfg, params, EngineConfig(backend="pallas"), device="cpu")
     with pytest.raises(NotImplementedError, match="has no cache adapter yet"):

@@ -1,0 +1,291 @@
+"""The port's sharding rules against the JAX package's, spec entry for entry.
+
+Both packages' rules run on meshes of shapes only (no process group): the
+JAX ones on ``repro.distributed.axes.abstract_mesh``, the port's on its
+counterpart.  A JAX ``PartitionSpec`` is compared as the tuple of its
+entries, which is the port's spec.  The port's shape trees are the JAX
+``eval_shape`` trees with each leaf replaced by its shape.
+"""
+import functools
+import unittest.mock as mock
+
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+from jax.sharding import PartitionSpec as P
+
+import repro.configs as JC
+import repro_torch.configs as C
+from repro.configs.shapes import cache_specs
+from repro.distributed import sharding as JSH
+from repro.distributed.axes import abstract_mesh as j_abstract_mesh
+from repro.models import adapters as JA
+from repro.models import model as JM
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed.axes import abstract_mesh
+from repro_torch.models import adapters as A
+from repro_torch.models import model as M
+
+MESHES = {
+    "single": ((16, 16), ("data", "model")),
+    "multi": ((2, 16, 16), ("pod", "data", "model")),
+    "1x2": ((1, 2), ("data", "model")),
+    "1x4": ((1, 4), ("data", "model")),
+}
+
+
+def _meshes(name):
+    sizes, names = MESHES[name]
+    return j_abstract_mesh(sizes, names), abstract_mesh(sizes, names)
+
+
+def _shapes(tree):
+    """A JAX shape tree as the port's: nested dicts of shape tuples."""
+    if isinstance(tree, dict):
+        return {k: _shapes(v) for k, v in tree.items()}
+    return tuple(tree.shape)
+
+
+def _entries(tree):
+    """A JAX spec tree as tuples of entries."""
+    if isinstance(tree, P):
+        return tuple(tree)
+    if isinstance(tree, dict):
+        return {k: _entries(v) for k, v in tree.items()}
+    raise TypeError(type(tree))
+
+
+@functools.lru_cache(maxsize=None)
+def _param_shapes(arch):
+    cfg = JC.get_config(arch)
+    return jax.eval_shape(lambda: JM.init_params(cfg, jax.random.PRNGKey(0)))
+
+
+def _flat(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flat(v, path + (k,))
+    else:
+        yield path, tree
+
+
+@pytest.mark.parametrize("mode", ["train", "serve"])
+@pytest.mark.parametrize("mesh_name", list(MESHES))
+@pytest.mark.parametrize("arch", C.arch_ids())
+def test_param_pspecs_match_jax(arch, mesh_name, mode):
+    jmesh, mesh = _meshes(mesh_name)
+    shapes = _param_shapes(arch)
+    want = _entries(JSH.param_pspecs(JC.get_config(arch), jmesh, shapes, mode=mode))
+    got = SH.param_pspecs(C.get_config(arch), mesh, _shapes(shapes), mode=mode)
+    assert got == want
+
+
+@pytest.mark.parametrize("arch", C.arch_ids())
+def test_opt_pspecs_match_jax(arch):
+    jmesh, mesh = _meshes("multi")
+    shapes = _param_shapes(arch)
+    jspecs = JSH.param_pspecs(JC.get_config(arch), jmesh, shapes)
+    want = _entries(JSH.opt_pspecs(JC.get_config(arch), jmesh, None, jspecs))
+    specs = SH.param_pspecs(C.get_config(arch), mesh, _shapes(shapes))
+    assert SH.opt_pspecs(C.get_config(arch), mesh, None, specs) == want
+
+
+@pytest.mark.parametrize("mesh_name", ["single", "multi", "1x4"])
+@pytest.mark.parametrize("batch", [256, 32, 2, 1])
+def test_batch_pspecs_match_jax(batch, mesh_name):
+    jmesh, mesh = _meshes(mesh_name)
+    cfg = C.get_config("whisper-tiny")
+    shapes = {"tokens": (batch, 4096), "labels": (batch, 4096),
+              "positions3": (3, batch, 4096), "audio_embeds": (batch, 1500, 384),
+              "step": ()}
+    jshapes = {k: jax.ShapeDtypeStruct(s, jnp.int32) for k, s in shapes.items()}
+    want = _entries(JSH.batch_pspecs(JC.get_config("whisper-tiny"), jmesh, jshapes))
+    assert SH.batch_pspecs(cfg, mesh, shapes) == want
+
+
+@pytest.mark.parametrize("shape", [(128, 32768), (1, 524288), (3, 4096)])
+@pytest.mark.parametrize("mesh_name", ["single", "multi"])
+@pytest.mark.parametrize("arch", C.arch_ids())
+def test_cache_pspecs_match_jax(arch, mesh_name, shape):
+    jmesh, mesh = _meshes(mesh_name)
+    cs = cache_specs(JC.get_config(arch), *shape)
+    want = _entries(JSH.cache_pspecs(JC.get_config(arch), jmesh, cs))
+    assert SH.cache_pspecs(C.get_config(arch), mesh, _shapes(cs)) == want
+
+
+def _smoke(arch):
+    return (JC.get_config(arch, smoke=True, dtype=jnp.float32),
+            C.get_config(arch, smoke=True, dtype=torch.float32))
+
+
+@pytest.mark.parametrize("tp", [1, 2, 4, 8])
+@pytest.mark.parametrize("arch", C.arch_ids())
+def test_pool_and_paged_cache_pspecs_match_jax(arch, tp):
+    jcfg, cfg = _smoke(arch)
+    jmesh = j_abstract_mesh((1, tp), ("data", "model"))
+    mesh = abstract_mesh((1, tp), ("data", "model"))
+    if JA.unsupported_message(jcfg) is not None:
+        assert A.unsupported_message(cfg) is not None
+        with pytest.raises(NotImplementedError, match="no cache adapter"):
+            SH.paged_cache_pspecs(cfg, mesh)
+        return
+    for jad, ad in zip(JA.all_adapters(jcfg), A.all_adapters(cfg)):
+        assert type(jad).__name__ == type(ad).__name__
+        assert ad.pool_pspecs(cfg, tp_size=tp) == _entries(jad.pool_pspecs(jcfg, tp_size=tp))
+    pools = jax.eval_shape(lambda: JM.init_paged_cache(jcfg, 2, 5, 8, 32))
+    want = _entries(JSH.paged_cache_pspecs(jcfg, jmesh, pools))
+    assert SH.paged_cache_pspecs(cfg, mesh, _shapes(pools)) == want
+    # without a shape tree: the leaf names of pools allocated on "meta"
+    assert SH.paged_cache_pspecs(cfg, mesh) == _entries(JSH.paged_cache_pspecs(jcfg, jmesh))
+
+
+@pytest.mark.parametrize("tp", [2, 4, 8])
+@pytest.mark.parametrize("arch", C.arch_ids())
+def test_local_pools_are_the_spec_slices(arch, tp):
+    """A rank's pools (``init_paged_cache(tp_size=)``) have the shapes of
+    the full pools' slices under the adapters' specs, leaf for leaf."""
+    _, cfg = _smoke(arch)
+    if A.unsupported_message(cfg) is not None:  # Server-only: no paged pools
+        with pytest.raises(NotImplementedError, match="no cache adapter"):
+            M.init_paged_cache(cfg, 2, 5, 8, 32, device="meta", tp_size=tp)
+        return
+    mesh = abstract_mesh((1, tp), ("data", "model"))
+    full = M.init_paged_cache(cfg, 2, 5, 8, 32, device="meta")
+    local = M.init_paged_cache(cfg, 2, 5, 8, 32, device="meta", tp_size=tp)
+    specs = SH.paged_cache_pspecs(cfg, mesh, full)
+    for (path, f), (_, lo) in zip(_flat(full), _flat(local)):
+        spec = dict(_flat(specs))[path]
+        assert tuple(lo.shape) == tuple(SH.local_shard(f, spec, mesh).shape), path
+        assert lo.dtype == f.dtype
+
+
+@pytest.mark.parametrize("tp", [4, 8])
+def test_validate_paged_sharding_refuses_with_the_jax_message(tp):
+    jcfg, cfg = _smoke("minicpm-2b")  # n_kv_heads = 6
+    jmesh = j_abstract_mesh((1, tp), ("data", "model"))
+    mesh = abstract_mesh((1, tp), ("data", "model"))
+    with pytest.raises(ValueError) as want:
+        JSH.validate_paged_sharding(jcfg, jmesh)
+    with pytest.raises(ValueError, match="n_kv_heads=6") as got:
+        SH.validate_paged_sharding(cfg, mesh)
+    assert str(got.value) == str(want.value)
+    # 2-way divides; MLA (no paged head axis) passes at any size
+    SH.validate_paged_sharding(cfg, abstract_mesh((1, 2), ("data", "model")))
+    SH.validate_paged_sharding(C.get_config("deepseek-v3-671b", smoke=True), mesh)
+
+
+def _normalised(spec):
+    """A 1 x M serve spec as the model axis alone sees it."""
+    out = []
+    for e in spec:
+        axes = e if isinstance(e, tuple) else (e,)
+        out.append("model" if "model" in axes else None)
+    return tuple(out)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("arch", C.arch_ids())
+def test_serve_placement_is_the_jax_serve_spec_or_kept_whole(arch, tp):
+    """What a rank of the port holds: the JAX serve spec on a 1 x M mesh,
+    leaf for leaf, except leaves kept whole -- wq_a, and those the serve
+    mode shards only by its 2-D fallback (the base rules replicate them)."""
+    jmesh, mesh = _meshes(f"1x{tp}")
+    jcfg, cfg = JC.get_config(arch), C.get_config(arch)
+    shapes = _param_shapes(arch)
+    jspecs = _entries(JSH.param_pspecs(jcfg, jmesh, shapes, mode="serve"))
+    placed = SH.serve_placement(cfg, mesh, _shapes(shapes))
+    jflat = dict(_flat(jspecs))
+    kept = []
+    for path, spec in _flat(placed):
+        want = _normalised(jflat[path])
+        if spec == want:
+            continue
+        assert all(e is None for e in spec), (path, spec, want)
+        stacked = any(s.startswith("seg") or s in ("encoder", "cross") for s in path)
+        base = JSH._base_tp_spec(path[-1], dict(_flat(_shapes(shapes)))[path],
+                                 ("data", "model"), tp, stacked, jcfg)
+        assert path[-1] in SH.KEPT_WHOLE or all(e is None for e in base), path
+        kept.append(path[-1])
+    if any(path[-1] == "wq_a" for path, _ in _flat(placed)):
+        assert "wq_a" in kept
+
+
+def test_local_shard_cuts_the_named_sharding_order():
+    """An entry of several axes splits over their product, the first axis
+    major, as a NamedSharding orders its devices."""
+    mesh = abstract_mesh((2, 3), ("data", "model"))
+    t = torch.arange(6 * 4).reshape(6, 4)
+    for d in range(2):
+        for m in range(3):
+            got = SH.local_shard(t, (("data", "model"), None), mesh, {"data": d, "model": m})
+            assert torch.equal(got, t[d * 3 + m:d * 3 + m + 1])
+            got = SH.local_shard(t, ("data", None), mesh, {"data": d, "model": m})
+            assert torch.equal(got, t[3 * d:3 * d + 3])
+    with pytest.raises(ValueError, match="does not split"):
+        SH.local_shard(t, (None, "model"), mesh, {"data": 0, "model": 0})
+
+
+@pytest.mark.parametrize("arch", C.arch_ids())
+def test_shard_params_keeps_each_ranks_slices(arch):
+    """``shard_params`` on every rank of a 1 x 2 mesh: each leaf the slice
+    of its placement, copied (not a view of the full tree); the slices of
+    the two ranks tile the full leaf."""
+    _, cfg = _smoke(arch)  # every smoke config's heads split 2 ways
+    tp = 2
+    mesh = abstract_mesh((1, tp), ("data", "model"))
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    placement = SH.serve_placement(cfg, mesh, params)
+    ranks = []
+    for r in range(tp):
+        with mock.patch.object(SH, "mesh_coords", lambda _m, r=r: {"data": 0, "model": r}):
+            ranks.append(SH.shard_params(cfg, params, mesh, torch.device("cpu")))
+    pl = dict(_flat(placement))
+    for path, full in _flat(params):
+        spec = pl[path]
+        pieces = [dict(_flat(rk))[path] for rk in ranks]
+        if all(e is None for e in spec):
+            assert all(p is full for p in pieces), path
+            continue
+        dim = next(i for i, e in enumerate(spec) if e is not None)
+        assert torch.equal(torch.cat(pieces, dim=dim), full), path
+        assert all(p.untyped_storage().data_ptr() != full.untyped_storage().data_ptr()
+                   for p in pieces), path
+
+
+def test_check_local_shards_refuses_split_heads():
+    cfg = C.get_config("hymba-1.5b")  # 25 heads over 5 kv heads
+    mesh = abstract_mesh((1, 2), ("data", "model"))
+    shapes = _shapes(_param_shapes("hymba-1.5b"))
+    with pytest.raises(ValueError, match="n_heads=25, n_kv_heads=5"):
+        SH.check_local_shards(cfg, mesh, SH.serve_placement(cfg, mesh, shapes))
+    SH.check_local_shards(C.get_config("starcoder2-7b"), mesh, SH.serve_placement(
+        C.get_config("starcoder2-7b"), mesh, _shapes(_param_shapes("starcoder2-7b"))))
+
+
+@pytest.mark.parametrize("whole_vocab", [False, True])
+@pytest.mark.parametrize("arch", ["starcoder2-7b", "granite-moe-3b-a800m", "deepseek-v3-671b"])
+def test_a_ranks_shards_outside_a_policy_raise(arch, whole_vocab):
+    """A rank's shards run outside an engine's shard policy raise instead of
+    giving a whole model's wrong numbers: at the vocab-sharded embedding,
+    and, with the embedding and head whole, at the first split heads or
+    experts.  Inside a policy of one rank they still raise."""
+    from repro_torch.distributed import axes as AX
+
+    _, cfg = _smoke(arch)
+    mesh = abstract_mesh((1, 2), ("data", "model"))
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with mock.patch.object(SH, "mesh_coords", lambda _m: {"data": 0, "model": 1}):
+        shards = SH.shard_params(cfg, params, mesh, torch.device("cpu"))
+    if whole_vocab:
+        shards["embed"] = params["embed"]
+        if "lm_head" in params:
+            shards["lm_head"] = params["lm_head"]
+    batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32)}
+    what = "heads|experts|hidden" if whole_vocab else "embed's vocab rows"
+    with pytest.raises(RuntimeError, match=f"({what}).*no shard policy"):
+        M.prefill(cfg, shards, batch)
+    one = AX.ShardPolicy(group=None, tp_rank=0, tp_size=1)
+    with AX.policy(one), pytest.raises(RuntimeError, match="no shard policy"):
+        M.prefill(cfg, shards, batch)
+    M.prefill(cfg, params, batch)  # the whole tree runs without a policy
