@@ -190,6 +190,20 @@ Phases, each printing one JSON line:
    1e-6 of its plain version.  Then starcoder2-7b's bf16 decode step
    median and p90 on the two ranks, labelled by how many cards they share:
    no tensor-parallel speed-up is claimed.
+16. tp train -- training on a data x model mesh: minicpm-2b at full width
+   cut to 4 layers (527,010,048 parameters, above ``REPLICATE_BELOW``, so
+   the train-mode specs shard with no patch), fp32, batch 2 x 128, 3 steps
+   at a constant learning rate, from one initial state (seed 0, drawn by
+   shards on the ranks), first on one device (``Trainer`` on the card),
+   then by two spawned ranks (as in phase 15) on a ``2 x 1`` mesh (DP +
+   ZeRO) and on a ``1 x 2`` mesh (TP).  Gates: every rank's losses the same
+   and within 1e-5 relative of the single device's; the parameters,
+   gathered, within phase 14's fp32 AdamW gate of the single device's;
+   each rank's parameter and moment bytes exactly its specs' share; the
+   ``2 x 1`` run's checkpoint restored on one device bit for bit equal to
+   its gathered state; no kernel launched.  Printed: each rank's resident
+   bytes and ``max_memory_allocated``, and its step ms labelled "2 ranks
+   on one card (gloo)" where they share it -- not a DP or TP speed.
 
 Each phase's seconds follow it on a line of their own.  Then the per-kernel
 summary line (the decode kernels' and the page copy's launches per serving
@@ -2908,6 +2922,310 @@ def tp_serve_phase(torch, kernels, device_type: str = "cuda", models=None,
     return result, checked
 
 
+# phase 16: training on a data x model mesh, two ranks spawned as in phase
+# 15.  minicpm-2b at full width and 4 layers, fp32, batch 2 x 128, 3 steps
+# at a constant learning rate (the parameter gate's bound for elements
+# whose gradient lies near zero is 2.5 x the summed rates, as in phase 14).
+TT_LAYERS = 4
+TT_BATCH = (2, 128)
+TT_STEPS = 3
+TT_LR = 1e-4
+TT_MESHES = ("2x1", "1x2")
+
+
+def tt_config(torch):
+    import repro_torch.configs as C
+
+    return C.get_config("minicpm-2b", dtype=torch.float32, n_layers=TT_LAYERS)
+
+
+def tt_trainer(torch, cfg, mesh, device, ckpt=None):
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import Trainer, TrainerConfig
+
+    tc = TrainerConfig(steps=TT_STEPS, checkpoint_every=0, log_every=1, checkpoint_dir=ckpt)
+    return Trainer(cfg, mesh, tc, OptConfig(lr=TT_LR), lambda step: TT_LR, device=device)
+
+
+def tt_data(cfg):
+    from repro_torch.data import SyntheticLMData
+
+    return SyntheticLMData(cfg, global_batch=TT_BATCH[0], seq_len=TT_BATCH[1])
+
+
+def tt_single(torch, kernels, cfg, device, out_dir) -> dict:
+    """The single-device Trainer on the card: its losses; its final
+    parameters and, per leaf, the elements whose gradient lay within
+    ``TRAIN_GRAD_TOL`` of the leaf's max |g| at some step, saved under
+    ``out_dir`` (numpy, flatten order) for the ranks' gate."""
+    import numpy as np
+
+    from repro_torch import tree as T
+    from repro_torch.train import loop
+
+    tr = tt_trainer(torch, cfg, None, device)
+    near, real = [], loop.adamw_update
+
+    def spy(grads, *args, **kw):  # the step's gradients, as AdamW gets them
+        masks = [g.abs() <= TRAIN_GRAD_TOL * g.abs().max() for g in T.leaves(grads)]
+        near[:] = masks if not near else [a | b for a, b in zip(near, masks)]
+        return real(grads, *args, **kw)
+
+    loop.adamw_update = spy
+    kernels.reset_launch_counts()
+    try:
+        t = time.perf_counter()
+        params, opt, hist = tr.fit(tt_data(cfg))
+        _sync(torch, device)
+        seconds = time.perf_counter() - t
+    finally:
+        loop.adamw_update = real
+    counts = kernels.launch_counts()
+    for i, (p, m) in enumerate(zip(T.leaves(params), near)):
+        np.save(f"{out_dir}/param_{i:05d}.npy", p.cpu().numpy())
+        np.save(f"{out_dir}/near_{i:05d}.npy", m.cpu().numpy())
+    out = {"losses": [h["loss"] for h in hist], "launches": counts, "fit_s": seconds,
+           "parameters": sum(p.numel() for p in T.leaves(params)),
+           "param_bytes": sum(p.numel() * p.element_size() for p in T.leaves(params))}
+    del params, opt, near, tr
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def tt_full_shape(local, spec, sizes) -> tuple:
+    return tuple(n * math.prod(sizes[a] for a in ((e,) if isinstance(e, str) else e or ()))
+                 for n, e in zip(local.shape, tuple(spec) + (None,) * local.dim()))
+
+
+def tt_rank_run(torch, kernels, cfg, spec, device, single_dir, ckpt) -> dict:
+    """One mesh's run on this rank: fit from the seed, the gates' numbers
+    (the parameters gathered against the single device's; with ``ckpt``
+    the checkpoint restored on one device against the gathered state)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch import tree as T
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.distributed.sharding import gather_full, split_ways
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh(spec)
+    rank0 = dist.get_rank() == 0
+    tr = tt_trainer(torch, cfg, mesh, device, ckpt)
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    _sync(torch, device)
+    dist.barrier()
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    params, opt, hist = tr.fit(tt_data(cfg))
+    _sync(torch, device)
+    fit_s = time.perf_counter() - t
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(device) if torch.device(device).type == "cuda" \
+        else None
+    lay = tr.layout
+    specs = T.leaves(lay.shardings(params))
+
+    def nbytes_of(tree):
+        return sum(x.numel() * x.element_size() for x in T.leaves(tree))
+
+    share = 0
+    for x, sh in zip(T.leaves(params), specs):
+        full = math.prod(tt_full_shape(x, sh.spec, lay.sizes))
+        share += full * x.element_size() // split_ways(sh.spec, lay.sizes)
+    # the parameters gathered, against the single device's (rank 0 holds them)
+    param_err, beyond = 0.0, 0.0
+    for i, (x, sh) in enumerate(zip(T.leaves(params), specs)):
+        full = gather_full(x, sh.spec, mesh)
+        if rank0:
+            want = torch.from_numpy(np.load(f"{single_dir}/param_{i:05d}.npy")).to(device)
+            near = torch.from_numpy(np.load(f"{single_dir}/near_{i:05d}.npy")).to(device)
+            diff = (full - want).abs()
+            if (~near).any():
+                param_err = max(param_err, diff[~near].max().item())
+            if near.any():
+                beyond = max(beyond, diff[near].max().item())
+            del want, near, diff
+        del full
+    restored_equal = None
+    if ckpt is not None:  # fit's closing save: the logical leaves
+        state = (params, opt)
+        like, full_specs = [], T.leaves(lay.shardings(state))
+        for x, sh in zip(T.leaves(state), full_specs):
+            like.append(torch.empty(tt_full_shape(x, sh.spec, lay.sizes), dtype=x.dtype,
+                                    device=device) if rank0 else None)
+        restored = None
+        if rank0:
+            _, restored = CheckpointManager(ckpt).restore(T.unflatten(state, like),
+                                                          step=TT_STEPS, device=device)
+            del like
+        restored_equal = True
+        for i, (x, sh) in enumerate(zip(T.leaves(state), full_specs)):
+            full = gather_full(x, sh.spec, mesh)
+            if rank0:
+                restored_equal &= bool(torch.equal(full, T.leaves(restored)[i]))
+            del full
+        del restored
+    out = {"mesh": spec, "losses": [h["loss"] for h in hist], "launches": counts,
+           "fit_s": fit_s, "step_ms": [h["s"] * 1e3 for h in hist],
+           "resident_bytes": nbytes_of((params, opt)), "param_bytes": nbytes_of(params),
+           "moment_bytes": nbytes_of((opt["m"], opt["v"])),
+           "param_bytes_by_spec": share, "max_memory_allocated": peak,
+           "param_max_abs_err": param_err if rank0 else None,
+           "near_zero_max_abs_err": beyond if rank0 else None,
+           "checkpoint_restored_bit_exact": restored_equal if rank0 else None}
+    del params, opt, tr
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def tt_rank(rank: int, world: int, store: str, out_dir: str, plan: dict) -> None:
+    """One rank of phase 16 (a spawned process): join the group (NCCL with a
+    card a rank, else gloo), run each mesh of ``TT_MESHES``, write the
+    results to ``out_dir/rank{rank}.pkl``."""
+    import datetime
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if plan["device_type"] == "cuda":
+        count = torch.cuda.device_count()
+        device = torch.device("cuda", rank % count)
+        torch.cuda.set_device(device)
+        backend = "nccl" if count >= world else "gloo"
+    else:  # a rehearsal of the phase's code on the CPU
+        count, device, backend = 0, torch.device("cpu"), "gloo"
+        torch.set_num_threads(1)  # the ranks share the host's cores
+    dist.init_process_group(backend, store=dist.FileStore(store, world), rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    try:
+        import repro_torch.kernels as kernels
+        from repro_torch.distributed import sharding
+
+        if plan["replicate_below"] is not None:  # the CPU rehearsal's small model
+            sharding.REPLICATE_BELOW = plan["replicate_below"]
+        out = {"rank": rank, "device": str(device), "backend": backend, "device_count": count}
+        for spec in TT_MESHES:
+            ckpt = f"{out_dir}/ckpt_{spec}" if spec == "2x1" else None
+            out[spec] = tt_rank_run(torch, kernels, plan["cfg"], spec, device,
+                                    plan["single_dir"], ckpt)
+        with open(f"{out_dir}/rank{rank}.pkl", "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_train_phase(torch, kernels, device_type: str = "cuda", cfg=None,
+                   replicate_below=None) -> dict:
+    """Phase 16: the single-device Trainer, then two ranks on a ``2 x 1``
+    and a ``1 x 2`` mesh from the same seed and batches; the gates of the
+    module docstring.  ``device_type``, ``cfg`` and ``replicate_below`` (the
+    ranks' ``REPLICATE_BELOW``, for a model smaller than it) let the same
+    code run at a small size on the CPU.  Returns ``{mesh: its line}``."""
+    import pickle
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    cfg = cfg or tt_config(torch)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_train_") as tmp:
+        os.makedirs(f"{tmp}/single")
+        single = tt_single(torch, kernels, cfg, device_type, f"{tmp}/single")
+        emit({"phase": "tp_train", "model": cfg.name, "run": "fp32, one device",
+              "layers": cfg.n_layers, "batch": list(TT_BATCH), "steps": TT_STEPS, **single})
+        if any(single["launches"].values()):
+            raise AssertionError(f"the single-device training launched kernels: "
+                                 f"{single['launches']}")
+        plan = {"device_type": device_type, "cfg": cfg, "single_dir": f"{tmp}/single",
+                "replicate_below": replicate_below}
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(tt_rank, args=(TP_RANKS, f"{tmp}/store", tmp, plan),
+                                 nprocs=TP_RANKS, join=False, start_method="spawn")
+        deadline = time.monotonic() + TP_PHASE_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=5):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"tp_train: the ranks did not finish in "
+                                         f"{TP_PHASE_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        ranks = []
+        for r in range(TP_RANKS):
+            with open(f"{tmp}/rank{r}.pkl", "rb") as f:
+                ranks.append(pickle.load(f))
+        ranks_s = time.perf_counter() - t0
+    count, backend = ranks[0]["device_count"], ranks[0]["backend"]
+    label = (f"{TP_RANKS} ranks on the CPU ({backend})" if count == 0
+             else f"{TP_RANKS} ranks on one card ({backend})" if count < TP_RANKS
+             else f"{TP_RANKS} ranks on {TP_RANKS} cards ({backend})")
+    lr_sum = TT_LR * TT_STEPS
+    result = {}
+    for spec in TT_MESHES:
+        mine = [rk[spec] for rk in ranks]
+        rel = max(abs(a - b) / abs(b) for m in mine
+                  for a, b in zip(m["losses"], single["losses"]))
+        line = {"phase": "tp_train", "model": cfg.name, "mesh": spec,
+                "run": "fp32, " + ("DP + ZeRO" if spec == "2x1" else "TP"),
+                "backend": ranks[0]["backend"], "rank_devices": [rk["device"] for rk in ranks],
+                "losses_per_rank": [m["losses"] for m in mine],
+                "losses_one_device": single["losses"], "loss_max_rel_err": rel,
+                "param_max_abs_err": mine[0]["param_max_abs_err"],
+                "near_zero_grad_max_abs_err": mine[0]["near_zero_max_abs_err"],
+                "near_zero_bound": 2.5 * lr_sum,
+                "resident_bytes_per_rank": [m["resident_bytes"] for m in mine],
+                "param_bytes_per_rank": [m["param_bytes"] for m in mine],
+                "moment_bytes_per_rank": [m["moment_bytes"] for m in mine],
+                "param_bytes_by_spec": [m["param_bytes_by_spec"] for m in mine],
+                "param_bytes_one_device": single["param_bytes"],
+                "max_memory_allocated_per_rank": [m["max_memory_allocated"] for m in mine],
+                "launches_per_rank": [m["launches"] for m in mine],
+                "fit_s_per_rank": [m["fit_s"] for m in mine],
+                "step_ms_per_rank": [m["step_ms"] for m in mine],
+                "step_ms_label": label}
+        if spec == "2x1":
+            line["checkpoint_restored_on_one_device_bit_exact"] = \
+                mine[0]["checkpoint_restored_bit_exact"]
+        emit(line)
+        if any(m["losses"] != mine[0]["losses"] for m in mine):
+            raise AssertionError(f"tp_train {spec}: the ranks logged different losses")
+        if rel > TRAIN_LOSS_RTOL:
+            raise AssertionError(f"tp_train {spec}: losses {rel} relative off the single "
+                                 f"device's (tol {TRAIN_LOSS_RTOL})")
+        if line["param_max_abs_err"] > TRAIN_PARAM_TOL or \
+                line["near_zero_grad_max_abs_err"] > 2.5 * lr_sum:
+            raise AssertionError(f"tp_train {spec}: parameters {line['param_max_abs_err']} "
+                                 f"(tol {TRAIN_PARAM_TOL}), near-zero-gradient elements "
+                                 f"{line['near_zero_grad_max_abs_err']} (bound {2.5 * lr_sum})")
+        for m in mine:
+            if m["param_bytes"] != m["param_bytes_by_spec"] or \
+                    m["moment_bytes"] != 2 * m["param_bytes"]:
+                raise AssertionError(f"tp_train {spec}: a rank holds {m['param_bytes']} "
+                                     f"parameter and {m['moment_bytes']} moment bytes; its "
+                                     f"specs give {m['param_bytes_by_spec']}")
+            if m["param_bytes"] >= single["param_bytes"]:
+                raise AssertionError(f"tp_train {spec}: a rank holds every parameter")
+            if any(m["launches"].values()):
+                raise AssertionError(f"tp_train {spec}: kernels launched: {m['launches']}")
+        if spec == "2x1" and line["checkpoint_restored_on_one_device_bit_exact"] is not True:
+            raise AssertionError("tp_train: the 2 x 1 checkpoint did not restore bit for bit "
+                                 "on one device")
+        result[spec] = line
+    emit({"phase": "tp_train", "one_device_s": single["fit_s"], "ranks_s": ranks_s,
+          "phase_s": time.perf_counter() - t_phase})
+    return result
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         raise SystemExit(f"chip_smoke.py: no src/repro_torch beside {__file__}; "
@@ -3018,6 +3336,10 @@ def main() -> int:
     # 15. tensor-parallel serving: two ranks on a 1 x 2 mesh
     tp, tp_checked = tp_serve_phase(torch, kernels)
     done("tp_serve")
+
+    # 16. training on a data x model mesh: two ranks, 2 x 1 and 1 x 2
+    tp_train_phase(torch, kernels)
+    done("tp_train")
     tp_rank0 = {name: run["launches_per_rank"][0] for name, run in tp.items()}
 
     # the decode kernels' launches in each serving run that drives them

@@ -15,7 +15,15 @@ Counterpart of ``repro.checkpoint.manager``.  One directory per step::
 * **the JAX package's leaf order** (:mod:`repro_torch.tree`: dict keys
   sorted), so an fp32 checkpoint written by either package restores in the
   other.  numpy has no bfloat16: a bf16 leaf is stored as its 16-bit
-  patterns (``uint16``) with ``bfloat16`` named in ``META.json``.
+  patterns (``uint16``) with ``bfloat16`` named in ``META.json``;
+* **independent of the mesh**: on a mesh (``shardings=``, a
+  :class:`~repro_torch.distributed.sharding.Sharding` per leaf) ``save``
+  gathers each leaf once into its logical, unsharded whole, rank 0 writes
+  it, and the ranks meet at a barrier (after a blocking write; after an
+  asynchronous one at the next :meth:`CheckpointManager.wait`, which every
+  rank then calls at the same point); ``restore(..., shardings=)`` reads
+  each leaf and keeps the rank's slice, whatever mesh wrote it -- the
+  elastic restart.
 """
 from __future__ import annotations
 
@@ -62,15 +70,36 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._barrier_due = False  # an asynchronous save on a mesh
 
     # ------------------------------------------------------------------ save
 
-    def save(self, step: int, tree: Any, *, blocking: bool = False) -> None:
+    def save(self, step: int, tree: Any, *, blocking: bool = False,
+             shardings: Any = None) -> None:
         """Snapshot ``tree`` at ``step``; the write runs in the background
-        unless ``blocking``."""
+        unless ``blocking``.  With ``shardings`` (a tree of ``Sharding``
+        matching ``tree``), ``tree`` holds this rank's shards: every rank
+        calls ``save``, each leaf is gathered whole, and rank 0 writes."""
         self.wait()  # one outstanding save at a time
         leaves = T.leaves(tree)
-        host_leaves = [_to_host(x) for x in leaves]  # the host copy, now
+        if shardings is not None:
+            import torch.distributed as dist
+
+            from repro_torch.distributed.sharding import gather_full
+
+            writer = dist.get_rank() == 0
+            host_leaves = []
+            for x, sh in zip(leaves, T.leaves(shardings)):
+                full = gather_full(x.detach(), sh.spec, sh.mesh)
+                host_leaves.append(_to_host(full) if writer else None)
+                del full
+            self._barrier_due = True  # every rank meets the others at wait()
+            if not writer:
+                if blocking:
+                    self.wait()
+                return
+        else:
+            host_leaves = [_to_host(x) for x in leaves]  # the host copy, now
         meta = {
             "step": int(step),
             "n_leaves": len(leaves),
@@ -99,15 +128,22 @@ class CheckpointManager:
 
         if blocking:
             write()
-            self._raise_if_failed()
+            self.wait()
         else:
             self._thread = threading.Thread(target=write, daemon=True)
             self._thread.start()
 
     def wait(self) -> None:
+        """Wait for the outstanding save; after one on a mesh, every rank
+        meets the others here (collective)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier_due:
+            import torch.distributed as dist
+
+            self._barrier_due = False
+            dist.barrier()
         self._raise_if_failed()
 
     def _raise_if_failed(self):
@@ -137,11 +173,12 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, like: Any, *, step: Optional[int] = None,
-                device=None) -> Tuple[int, Any]:
+                device=None, shardings: Any = None) -> Tuple[int, Any]:
         """Load step ``step`` (the latest when None) into the structure and
         dtypes of ``like``, every leaf on ``device`` (default ``"cuda"``;
         raises without CUDA): a trainer passes its own device, where its
-        target tree lives."""
+        target tree lives.  With ``shardings`` (a tree of ``Sharding``
+        matching ``like``) each rank keeps its slice of every stored leaf."""
         device = resolve_device(device)
         self.wait()
         if step is None:
@@ -154,6 +191,13 @@ class CheckpointManager:
         targets = T.leaves(like)
         if len(targets) != meta["n_leaves"]:
             raise ValueError(f"checkpoint has {meta['n_leaves']} leaves, target {len(targets)}")
-        loaded = [_from_host(np.load(os.path.join(d, f"leaf_{i:05d}.npy")), name, x, device)
-                  for i, (name, x) in enumerate(zip(meta["dtypes"], targets))]
+        cuts = [None] * len(targets) if shardings is None else T.leaves(shardings)
+        loaded = []
+        for i, (name, x, sh) in enumerate(zip(meta["dtypes"], targets, cuts)):
+            a = np.load(os.path.join(d, f"leaf_{i:05d}.npy"), mmap_mode="r")
+            if sh is not None:
+                from repro_torch.distributed.sharding import shard_index
+
+                a = a[shard_index(a.shape, sh.spec, sh.mesh)]
+            loaded.append(_from_host(np.array(a), name, x, device))  # off the mapping
         return step, T.unflatten(like, loaded)

@@ -1,2 +1,4 @@
-"""Tensor-parallel serving over ``torch.distributed``: the mesh record and
-shard policy (:mod:`.axes`) and the sharding rules (:mod:`.sharding`)."""
+"""Meshes over ``torch.distributed`` for tensor-parallel serving and for
+training on a data x model mesh: the mesh records, shard policies and
+collectives (:mod:`.axes`) and the sharding rules and placements
+(:mod:`.sharding`)."""

@@ -1,18 +1,39 @@
-"""Mesh records, the shard policy and the model-axis reduction.
+"""Mesh records, the shard policy and the collectives of the model code.
 
 Counterpart of ``repro.distributed.axes``.  A mesh here is either a
 ``torch.distributed.device_mesh.DeviceMesh`` named ``("data", "model")``
-(what :func:`repro_torch.launch.mesh.make_serve_mesh` builds over the
-initialised default group) or an :class:`AbstractMesh`, a plain record of
-axis sizes and names: the sharding rules need shapes only, never 256 ranks.
+(what :mod:`repro_torch.launch.mesh` builds over the initialised default
+group) or an :class:`AbstractMesh`, a plain record of axis sizes and names:
+the sharding rules need shapes only, never 256 ranks.
 
-The serving engine installs a :class:`ShardPolicy` around each of its steps
-(:func:`policy`), and the model reads it: the row-parallel products (``wo``,
-``w_down``), the vocab-sharded embedding and logits and the MoE's gated sum
-add their ranks' shares with :func:`psum`, one ``all_reduce`` over the
-model axis.  Outside a policy (single device, training, tests) :func:`psum`
-is a no-op, and where the model finds a leaf cut over the model axis with
-no policy installed, :func:`model_coord` and :func:`check_split` raise.
+The serving engine and the trainer install a :class:`ShardPolicy` around
+each of their steps (:func:`policy`), and the model reads it.  Serving: the
+row-parallel products (``wo``, ``w_down``), the vocab-sharded embedding and
+logits and the MoE's gated sum add their ranks' shares with :func:`psum`,
+one ``all_reduce`` over the model axis, in place.  Training (a policy made
+by :func:`make_train_policy`) runs the same sites through autograd
+functions in the Megatron pattern:
+
+* :func:`psum` -- the row-parallel sum: ``all_reduce`` forward, identity
+  backward;
+* :func:`enter` -- the entry of a column-parallel region: identity forward,
+  ``all_reduce`` of the gradient over the model axis backward (a no-op in
+  serving);
+* :func:`gather_slices` -- an all-gather whose backward keeps the rank's
+  slice of the gradient;
+* :func:`data_sum` -- a sum over the data axis, forward and backward (each
+  data rank's loss is its share of the global loss);
+* :func:`materialize` -- ZeRO's gather before use: a leaf stored as the
+  rank's slice over ``data`` (and, where the model runs it whole, over
+  ``model``) is gathered into what the model reads; its backward sums the
+  gradient over ``data`` and keeps the rank's slice.
+
+Every collective is an ``all_reduce`` (an all-gather is a sum of
+zero-padded slices, exact), the one operation gloo offers on CUDA tensors
+besides ``broadcast``, so one mechanism runs on the CPU and on the card.
+Outside a policy (single device, tests) every one of them is a no-op, and
+where the model finds a leaf cut over the model axis with no policy
+installed, :func:`model_coord` and :func:`check_split` raise.
 
 The JAX package's ``traced_under`` and ``constrain`` exist for ``jit`` and
 GSPMD, its automatic partitioner: they carry the policy to trace time and
@@ -82,13 +103,33 @@ def mesh_coords(mesh) -> Dict[str, int]:
 
 
 @dataclasses.dataclass(frozen=True)
+class LeafUse:
+    """How the model reads one stored leaf: the dim split over the data
+    axis that ZeRO gathers first (None: not split there), then the dim
+    split over the model axis that the model runs whole (None: it runs the
+    rank's slice, or the leaf is not split there)."""
+
+    data_dim: Optional[int] = None
+    model_dim: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
 class ShardPolicy:
     """What a rank's model code needs of the mesh: the model axis's process
-    group, this rank's coordinate on it and its size."""
+    group, this rank's coordinate on it and its size; in training also the
+    data axis's group, coordinate and size, whether the batch rows split
+    over it (``rows_split``), and ``plan``, a :class:`LeafUse` tree per
+    top-level parameter key (per layer for a stacked key)."""
 
     group: object = dataclasses.field(compare=False)
     tp_rank: int
     tp_size: int
+    dp_group: object = dataclasses.field(default=None, compare=False)
+    dp_rank: int = 0
+    dp_size: int = 1
+    rows_split: bool = False
+    train: bool = False
+    plan: object = dataclasses.field(default=None, compare=False)
 
 
 def make_policy(mesh) -> ShardPolicy:
@@ -102,6 +143,56 @@ def make_policy(mesh) -> ShardPolicy:
     size = mesh_shape(mesh)["model"]
     group = dist.group.WORLD if size == dist.get_world_size() else mesh.get_group("model")
     return ShardPolicy(group=group, tp_rank=mesh_coords(mesh)["model"], tp_size=size)
+
+
+def _default_timeout():
+    """The default group's timeout (the caller's ``init_process_group``
+    timeout), for the subgroups made here; None where this version of
+    ``torch.distributed`` does not show it (the library's default)."""
+    try:
+        return dist.group.WORLD._get_backend(torch.device("cpu")).options._timeout
+    except (AttributeError, RuntimeError):
+        return None
+
+
+def axis_groups(mesh) -> Dict[str, object]:
+    """This rank's process group on each axis of a ``D x M`` ``DeviceMesh``:
+    the default group where the axis spans every rank, else a group made
+    here with the default group's timeout (every rank calls this, in the
+    same order: ``new_group`` is collective).  A group's ranks are sorted,
+    so a rank's place in it is its coordinate on the axis."""
+    if isinstance(mesh, AbstractMesh):
+        raise TypeError("an abstract mesh has no ranks: build the mesh with "
+                        "repro_torch.launch.mesh over a process group")
+    ids = mesh.mesh  # (D, M) global ranks
+    coords = mesh_coords(mesh)
+    world = dist.get_world_size()
+    timeout = _default_timeout()
+    out = {}
+    for axis, lines in (("data", ids.T), ("model", ids)):
+        if lines.shape[1] == 1:  # an axis of one rank reduces nothing
+            out[axis] = None
+            continue
+        if lines.shape[1] == world:
+            out[axis] = dist.group.WORLD
+            continue
+        mine = lines[coords["model" if axis == "data" else "data"]].tolist()
+        for line in lines.tolist():  # every rank makes every group
+            g = dist.new_group(line, timeout=timeout)
+            if line == mine:
+                out[axis] = g
+    return out
+
+
+def make_train_policy(mesh, plan, *, rows_split: bool, groups=None) -> ShardPolicy:
+    """The training policy of a ``D x M`` ``DeviceMesh``: both axes' groups
+    (:func:`axis_groups`, or ``groups`` made once by it), this rank's
+    coordinates, and ``plan`` (:class:`LeafUse` trees by parameter key)."""
+    groups = axis_groups(mesh) if groups is None else groups
+    shape, coords = mesh_shape(mesh), mesh_coords(mesh)
+    return ShardPolicy(group=groups["model"], tp_rank=coords["model"], tp_size=shape["model"],
+                       dp_group=groups["data"], dp_rank=coords["data"],
+                       dp_size=shape["data"], rows_split=rows_split, train=True, plan=plan)
 
 
 _CURRENT: Optional[ShardPolicy] = None
@@ -150,17 +241,179 @@ def check_split(local: int, full: int, what: str) -> None:
         model_coord(f"{what} ({local} of {full})")
 
 
-def psum(x: torch.Tensor) -> torch.Tensor:
-    """Sum ``x`` over the model axis, in place, and return it: one
-    ``all_reduce`` (every rank gets the same bits).  A no-op outside a
-    policy or on a model axis of one rank."""
+class _SumForward(torch.autograd.Function):
+    """``all_reduce`` forward, identity backward: the row-parallel sum
+    (each rank's loss is the whole loss, so each keeps its gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SumBackward(torch.autograd.Function):
+    """Identity forward, ``all_reduce`` of the gradient backward: the entry
+    of a column-parallel region (a replicated activation whose gradient
+    each rank holds a share of)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _SumBoth(torch.autograd.Function):
+    """``all_reduce`` forward and backward: a sum over ranks whose losses
+    are shares of one loss, each reading the sum."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    """The whole of a tensor split evenly along ``dim`` over ``group``, from
+    this rank's slice: zeros with the slice written at the rank's place,
+    summed by one ``all_reduce`` (exact).  Backward: the rank's slice of the
+    gradient, summed over the group first where ``reduce`` (the ranks'
+    gradients are shares) and taken as it is where not (every rank holds
+    the same gradient)."""
+
+    @staticmethod
+    def forward(ctx, local, dim, rank, size, group, reduce):
+        ctx.dim, ctx.rank, ctx.n, ctx.group, ctx.reduce = dim, rank, local.shape[dim], group, reduce
+        shape = list(local.shape)
+        shape[dim] = local.shape[dim] * size
+        out = local.new_zeros(shape)
+        out.narrow(dim, rank * ctx.n, ctx.n).copy_(local)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.reduce:
+            g = g.clone(memory_format=torch.contiguous_format)
+            dist.all_reduce(g, group=ctx.group)
+        return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n).contiguous(), None, None, None, None, None
+
+
+def _training(pol: Optional[ShardPolicy]) -> bool:
+    return pol is not None and pol.train
+
+
+def psum(x: torch.Tensor, *, split: bool = True) -> torch.Tensor:
+    """Sum ``x`` over the model axis: one ``all_reduce`` (every rank gets
+    the same bits), in place in serving, through :class:`_SumForward` in
+    training.  A no-op outside a policy, on a model axis of one rank, or
+    where the product is not ``split`` (its leaves whole on each rank, so
+    each rank holds the whole sum)."""
     pol = _CURRENT
-    if pol is None or pol.tp_size == 1:
+    if pol is None or pol.tp_size == 1 or not split:
         return x
     if pol.group is None:
         raise RuntimeError("the shard policy of an abstract mesh has no process group")
+    if pol.train:
+        return _SumForward.apply(x, pol.group)
     dist.all_reduce(x, group=pol.group)
     return x
+
+
+def enter(x: torch.Tensor, split: bool = True) -> torch.Tensor:
+    """The entry of a column-parallel region: ``x`` as it is, and in
+    training its gradient summed over the model axis (the rank's heads or
+    widths give a share of it).  A no-op outside training, on a model axis
+    of one rank, or where the product is not ``split``."""
+    pol = _CURRENT
+    if not _training(pol) or pol.tp_size == 1 or not split:
+        return x
+    return _SumBackward.apply(x, pol.group)
+
+
+def data_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum ``x`` over the data axis, forward and backward (each data rank's
+    loss is a share of the global loss and reads the sum): the global
+    token counts and means of the loss.  A no-op outside training or on a
+    data axis of one rank."""
+    pol = _CURRENT
+    if not _training(pol) or pol.dp_size == 1:
+        return x
+    return _SumBoth.apply(x, pol.dp_group)
+
+
+def row_split() -> Tuple[int, int]:
+    """(this rank's place, the number of places) of its batch rows in the
+    global batch: the data axis where the rows split over it, else (0, 1)."""
+    pol = _CURRENT
+    if not _training(pol) or not pol.rows_split:
+        return 0, 1
+    return pol.dp_rank, pol.dp_size
+
+
+def data_size() -> int:
+    """The data axis's size under a training policy, else 1."""
+    pol = _CURRENT
+    return pol.dp_size if _training(pol) else 1
+
+
+def _use(x: torch.Tensor, use: LeafUse, pol: ShardPolicy) -> torch.Tensor:
+    if use.data_dim is not None:
+        x = _Gather.apply(x, use.data_dim, pol.dp_rank, pol.dp_size, pol.dp_group, True)
+    if use.model_dim is not None:
+        x = _Gather.apply(x, use.model_dim, pol.tp_rank, pol.tp_size, pol.group, False)
+    return x
+
+
+def _map_uses(tree, uses, pol):
+    if isinstance(tree, dict):
+        return {k: _map_uses(v, uses[k], pol) for k, v in tree.items()}
+    return _use(tree, uses, pol)
+
+
+def materialize(tree, key: str):
+    """What the model reads of ``tree``, the stored leaves of parameter
+    ``key`` (one layer's, for a stacked key): each gathered over the data
+    axis and, where the model runs it whole, the model axis, as the
+    training policy's plan says.  Inside a layer recomputed by ``remat``
+    the gathered leaves live only while the layer runs.  The tree as it is
+    outside a training policy."""
+    pol = _CURRENT
+    if not _training(pol) or pol.plan is None:
+        return tree
+    return _map_uses(tree, pol.plan[key], pol)
+
+
+def gather_stack(key_path: Tuple[str, ...], stack: torch.Tensor) -> torch.Tensor:
+    """A stacked leaf whose layer axis is split over the data axis, gathered
+    whole before it is cut into layers (the per-layer gather of
+    :func:`materialize` cannot reach another rank's layer); any other leaf
+    as it is."""
+    pol = _CURRENT
+    if not _training(pol) or pol.plan is None:
+        return stack
+    uses = pol.plan.get(("stack",) + tuple(key_path))
+    if uses is None:
+        return stack
+    return _use(stack, uses, pol)
 
 
 def gather_slices(local: torch.Tensor, full: int, dim: int = -1) -> torch.Tensor:
@@ -168,11 +421,15 @@ def gather_slices(local: torch.Tensor, full: int, dim: int = -1) -> torch.Tensor
     axis, from this rank's slice: each rank writes its slice into zeros and
     one :func:`psum` adds them (an all-gather from ``all_reduce`` alone,
     which every backend offers for CUDA tensors).  Exact: every element is
-    one rank's value plus zeros."""
+    one rank's value plus zeros.  In training the backward keeps the rank's
+    slice of the gradient (every rank's loss is the whole loss)."""
     if local.shape[dim] == full:
         return local
-    rank, _ = model_coord("a slice of the model axis")
+    rank, size = model_coord("a slice of the model axis")
     dim = dim % local.dim()
+    pol = _CURRENT
+    if pol.train:
+        return _Gather.apply(local, dim, rank, size, pol.group, False)
     n = local.shape[dim]
     shape = list(local.shape)
     shape[dim] = full

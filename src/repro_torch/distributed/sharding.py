@@ -25,15 +25,25 @@ valid specs for every architecture in the pool.
 
 Where the JAX package hands the specs to ``device_put`` and GSPMD, this port
 places tensors itself.  :func:`local_shard` cuts one rank's slice of a full
-tensor by a spec, and the serving engine keeps, on each rank, the shards of
+tensor by a spec.  The serving engine keeps, on each rank, the shards of
 :func:`serve_placement`: the base TP rules over the model axis, which is
 where the JAX package's serve mode puts every leaf those rules shard.  The
 rest of the JAX serve spec -- its 2-D fallback over ``data x model`` for
-norms, routers, SSM weights, ``wkv_a`` and position tables, and ``wq_a``,
-whose output the q RMSNorm needs whole (GSPMD gathers it there) -- the port
-keeps whole on every rank (:data:`KEPT_WHOLE`).  The training rules are
-ported with the rest of this module; the trainer's mesh is not
-(ROADMAP.md queue 1 item 26, its training half).
+norms, routers, SSM weights, ``wkv_a`` and position tables, ``wq_a``, whose
+output the q RMSNorm needs whole (GSPMD gathers it there), and an attention
+whose heads the model axis does not split whole (GSPMD shards its columns)
+-- the port keeps whole on every rank (:func:`whole_leaves`).  Serving on a
+data axis of more than one rank is not ported yet (ROADMAP.md queue 1 item
+26, its rest).
+
+The trainer stores, on each rank, its slice of every leaf and of both its
+moments under :func:`train_placement` -- exactly the train-mode specs:
+Megatron TP over ``model``, ZeRO storage over ``data``, every leaf
+replicated below :data:`REPLICATE_BELOW` (pure DP).  :class:`TrainLayout`
+draws and cuts those slices, and tells the model (through the training
+policy's plan, :func:`repro_torch.distributed.axes.materialize`) how to
+gather each leaf into what it reads: over ``data`` always, over ``model``
+where the model runs it whole.
 """
 from __future__ import annotations
 
@@ -43,8 +53,11 @@ from typing import Any, Callable, Dict, Tuple
 
 import torch
 
+import torch.distributed as dist
+
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.axes import mesh_coords, mesh_names, mesh_shape
+from repro_torch.distributed import axes as AX
+from repro_torch.distributed.axes import AbstractMesh, mesh_coords, mesh_names, mesh_shape
 
 Spec = Tuple[Any, ...]
 
@@ -69,6 +82,15 @@ def _dp_size(mesh, ax: MeshAxes) -> int:
 
 def _shape(leaf) -> Tuple[int, ...]:
     return tuple(leaf.shape) if hasattr(leaf, "shape") else tuple(leaf)
+
+
+def flat_items(tree, path: Tuple[str, ...] = ()):
+    """(path, leaf) over a nested-dict tree, in its key order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from flat_items(v, path + (str(k),))
+    else:
+        yield path, tree
 
 
 def _map_with_path(fn: Callable, tree, path: Tuple[str, ...] = ()) -> Any:
@@ -158,14 +180,10 @@ def _stacked(path: Tuple[str, ...]) -> bool:
     return any(seg.startswith("seg") or seg in ("encoder", "cross") for seg in path)
 
 
-def param_pspecs(cfg: ModelConfig, mesh, params_shape, *, zero: bool = True,
-                 mode: str = "train") -> Any:
-    """Spec tree matching ``params_shape``.
-
-    mode="train": Megatron TP + ZeRO/FSDP storage extension over data axes.
-    mode="serve": 2-D tensor parallelism over ALL axes -- weights stay
-    resident (no per-step FSDP gathers).
-    """
+def _param_rule(cfg: ModelConfig, mesh, *, zero: bool = True, mode: str = "train"
+                ) -> Callable:
+    """``rule(path, leaf)``: the spec of one leaf (a tensor or a shape) at
+    ``path`` under :func:`param_pspecs`."""
     ax = MeshAxes.from_mesh(mesh)
     tp_size = _axis_size(mesh, ax.tp)
     dp_size = _dp_size(mesh, ax)
@@ -203,7 +221,18 @@ def param_pspecs(cfg: ModelConfig, mesh, params_shape, *, zero: bool = True,
             spec = _zero_extend(spec, shape, ax.dp, dp_size)
         return spec
 
-    return _map_with_path(rule, params_shape)
+    return rule
+
+
+def param_pspecs(cfg: ModelConfig, mesh, params_shape, *, zero: bool = True,
+                 mode: str = "train") -> Any:
+    """Spec tree matching ``params_shape``.
+
+    mode="train": Megatron TP + ZeRO/FSDP storage extension over data axes.
+    mode="serve": 2-D tensor parallelism over ALL axes -- weights stay
+    resident (no per-step FSDP gathers).
+    """
+    return _map_with_path(_param_rule(cfg, mesh, zero=zero, mode=mode), params_shape)
 
 
 def opt_pspecs(cfg: ModelConfig, mesh, opt_shape, param_specs) -> Any:
@@ -364,6 +393,23 @@ def serve_shardings(cfg: ModelConfig, mesh, params, cache_shape):
 # the sharded leaves, and each rank computes them identically.
 KEPT_WHOLE = ("wq_a",)
 
+# An attention's products: split on whole heads, or kept whole together.
+_ATTN_LEAVES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "wq_b", "wkv_b")
+
+
+def whole_leaves(cfg: ModelConfig, tp_size: int) -> Tuple[str, ...]:
+    """The leaf names each rank runs whole on a model axis of ``tp_size``:
+    :data:`KEPT_WHOLE`, and every attention projection where the axis does
+    not split the query heads (or, for GQA, the kv heads) into whole heads.
+    The JAX rules shard such a projection by columns and GSPMD serves the
+    rest; a rank here runs every head of it and skips its sum, while the
+    other products stay sharded."""
+    # a latent-KV attention (kv_lora_rank > 0) has no kv-head projections
+    kv = cfg.n_kv_heads % tp_size if not cfg.kv_lora_rank else 0
+    if tp_size > 1 and cfg.n_heads and (cfg.n_heads % tp_size or kv):
+        return KEPT_WHOLE + _ATTN_LEAVES
+    return KEPT_WHOLE
+
 
 def _entry_axes(entry) -> Tuple[str, ...]:
     return () if entry is None else entry if isinstance(entry, tuple) else (entry,)
@@ -389,18 +435,17 @@ def global_nbytes(tree, specs, mesh) -> int:
     return total
 
 
-def local_shard(tensor: torch.Tensor, spec: Spec, mesh, coords=None) -> torch.Tensor:
-    """This rank's slice of a full ``tensor`` under ``spec``: a dim whose
-    entry names axes is split evenly over the product of their sizes, the
-    first axis major (a ``NamedSharding``'s device order), and the slice at
-    the rank's ``coords`` (default: the mesh's own) is kept.  Returns a view
-    (the caller copies it)."""
+def shard_index(shape: Tuple[int, ...], spec: Spec, mesh, coords=None) -> Tuple[slice, ...]:
+    """The slice of each dim of a full ``shape`` that a rank at ``coords``
+    (default: the mesh's own) holds under ``spec``: a dim whose entry names
+    axes is split evenly over the product of their sizes, the first axis
+    major (a ``NamedSharding``'s device order)."""
     sizes = mesh_shape(mesh)
     coords = mesh_coords(mesh) if coords is None else coords
     index = []
-    for dim, entry in zip(tensor.shape, tuple(spec) + (None,) * tensor.dim()):
+    for dim, entry in zip(shape, tuple(spec) + (None,) * len(shape)):
         if entry is None:
-            index.append(slice(None))
+            index.append(slice(0, dim))
             continue
         n, pos = 1, 0
         for a in _entry_axes(entry):
@@ -410,19 +455,27 @@ def local_shard(tensor: torch.Tensor, spec: Spec, mesh, coords=None) -> torch.Te
             raise ValueError(f"dim {dim} does not split {n} ways under spec {spec}")
         step = dim // n
         index.append(slice(pos * step, (pos + 1) * step))
-    return tensor[tuple(index)]
+    return tuple(index)
+
+
+def local_shard(tensor: torch.Tensor, spec: Spec, mesh, coords=None) -> torch.Tensor:
+    """This rank's slice of a full ``tensor`` under ``spec``
+    (:func:`shard_index`).  Returns a view (the caller copies it)."""
+    return tensor[shard_index(tuple(tensor.shape), spec, mesh, coords)]
 
 
 def serve_placement(cfg: ModelConfig, mesh, params_shape) -> Any:
     """The spec tree of what each rank of the serving port holds: the base
     TP rules over the model axis (the JAX serve mode's placement of every
-    leaf those rules shard, on a ``1 x M`` mesh), :data:`KEPT_WHOLE` whole."""
+    leaf those rules shard, on a ``1 x M`` mesh), :func:`whole_leaves`
+    whole."""
     ax = MeshAxes.from_mesh(mesh)
     tp_size = _axis_size(mesh, ax.tp)
+    whole = whole_leaves(cfg, tp_size)
 
     def rule(path, leaf):
         name, shape = _leaf_name(path), _shape(leaf)
-        if name in KEPT_WHOLE:
+        if name in whole:
             return (None,) * len(shape)
         return _base_tp_spec(name, shape, ax.tp, tp_size, _stacked(path), cfg)
 
@@ -430,45 +483,15 @@ def serve_placement(cfg: ModelConfig, mesh, params_shape) -> Any:
 
 
 def check_local_shards(cfg: ModelConfig, mesh, placement) -> None:
-    """Refuse a mesh the port cannot run on local heads and widths: every
-    rank runs whole attention heads (GQA query and kv heads, MLA query
-    heads) and sums every row-parallel product, so each head count and
-    each column / row-parallel leaf (``wq_a`` and ``lm_head`` aside) must
-    split evenly.  A paged K/V pool's kv heads are refused first, by
-    :func:`validate_paged_sharding` with the JAX package's message."""
+    """Refuse a mesh the port cannot serve.  Every product of
+    ``placement`` runs: split on whole heads or widths and summed, or whole
+    on each rank with no sum (:func:`whole_leaves`).  What cannot run is a
+    paged K/V pool whose kv heads the model axis does not split: refused
+    by :func:`validate_paged_sharding` with the JAX package's message."""
     from repro_torch.models import adapters as A
 
-    tp = _axis_size(mesh, "model")
-    if tp <= 1:
-        return
-    if A.unsupported_reason(cfg) is None:  # a config with engine pools
-        validate_paged_sharding(cfg, mesh)
-    names, unsplit = set(), []
-
-    def look(path, spec):
-        name = _leaf_name(path)
-        names.add(name)
-        # a whole embed or lm_head serves as it is (the model gathers only
-        # a sliced one); every other column / row-parallel leaf feeds a sum
-        if (name in _COL_PARALLEL + _ROW_PARALLEL and name not in KEPT_WHOLE + ("lm_head",)
-                and all(e is None for e in spec)):
-            unsplit.append("/".join(path))
-
-    _map_with_path(look, placement)
-    bad = []
-    if cfg.n_heads and cfg.n_heads % tp:
-        bad.append(f"n_heads={cfg.n_heads}")
-    # the kv heads of the GQA projections that no paged pool holds (SWA
-    # rings, cross rows, the static caches; MLA's latent cache has none)
-    if "wk" in names and cfg.n_kv_heads % tp:
-        bad.append(f"n_kv_heads={cfg.n_kv_heads}")
-    bad += unsplit
-    if bad:
-        raise ValueError(
-            f"{cfg.name}: {', '.join(bad)} cannot split over the mesh's model-axis "
-            f"size {tp}; each rank of the port runs whole heads and its share of "
-            f"every column- and row-parallel product.  Pick a model axis that "
-            f"divides them or serve single-device.")
+    if _axis_size(mesh, "model") > 1 and A.unsupported_reason(cfg) is None:
+        validate_paged_sharding(cfg, mesh)  # a config with engine pools
 
 
 def shard_params(cfg: ModelConfig, params, mesh, device: torch.device) -> Any:
@@ -490,6 +513,223 @@ def shard_params(cfg: ModelConfig, params, mesh, device: torch.device) -> Any:
         return piece.to(device).contiguous()
 
     return _map_with_path(cut, params)
+
+
+# --------------------------------------------------------------------------
+# Training: what each rank stores, and how the model reads it
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """A leaf's placement on a mesh (the port's ``NamedSharding``): the
+    mesh and the spec."""
+
+    mesh: Any
+    spec: Spec
+
+
+def train_placement(cfg: ModelConfig, mesh, params_shape) -> Tuple[Any, Any]:
+    """(parameter specs, optimizer-state specs) of the trainer on ``mesh``:
+    exactly :func:`param_pspecs` in train mode (TP over ``model``, ZeRO over
+    ``data``, everything replicated below :data:`REPLICATE_BELOW`) and
+    :func:`opt_pspecs` for the moments."""
+    specs = param_pspecs(cfg, mesh, params_shape, mode="train")
+    return specs, opt_pspecs(cfg, mesh, None, specs)
+
+
+def _axis_dim(spec: Spec, axes: Tuple[str, ...]):
+    """The dim whose entry names one of ``axes`` (None: no such dim)."""
+    for i, e in enumerate(spec):
+        if any(a in axes for a in _entry_axes(e)):
+            return i
+    return None
+
+
+def gather_full(local: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """The full leaf of which ``local`` is this rank's slice under ``spec``,
+    on every rank: the ranks at coordinate 0 of each axis the leaf is not
+    split on write their slice into zeros, one ``all_reduce`` over the
+    default group adds them (exact)."""
+    sizes, coords = mesh_shape(mesh), mesh_coords(mesh)
+    used = {a for e in spec for a in _entry_axes(e)}
+    shape = tuple(n * math.prod(sizes[a] for a in _entry_axes(e))
+                  for n, e in zip(local.shape, tuple(spec) + (None,) * local.dim()))
+    out = local.new_zeros(shape)
+    if all(coords[a] == 0 for a in sizes if a not in used):
+        out[shard_index(shape, spec, mesh, coords)] = local
+    if math.prod(sizes.values()) > 1:
+        dist.all_reduce(out)
+    return out
+
+
+class TrainLayout:
+    """One rank's side of the training mesh: the train-mode spec of every
+    leaf (:func:`train_placement`'s rule, applied as the leaves are drawn:
+    :meth:`cut`, :meth:`stack`, :meth:`cut_layer`), the plan by which the
+    model gathers each leaf before use, and the reductions of the step --
+    gradients over ``data`` where a leaf is not split there, the global norm
+    and the int8 scale over the axes each leaf is split on.
+
+    A ``DeviceMesh`` gets its axes' process groups here (collective: every
+    rank builds its layout at the same point); an :class:`AbstractMesh`
+    (shapes only, at ``coords``) places leaves and plans, with no group."""
+
+    def __init__(self, cfg: ModelConfig, mesh, coords=None):
+        self.cfg, self.mesh = cfg, mesh
+        self.sizes = mesh_shape(mesh)
+        self.coords = mesh_coords(mesh) if coords is None else coords
+        self.whole = whole_leaves(cfg, self.sizes["model"])
+        self._rule = _param_rule(cfg, mesh, mode="train")
+        self._specs: Dict[Tuple[str, ...], Spec] = {}
+        self._full: Dict[Tuple[str, ...], Tuple[int, ...]] = {}
+        self.groups = None if isinstance(mesh, AbstractMesh) else AX.axis_groups(mesh)
+
+    # ---- placement, leaf by leaf as the leaves are drawn ----
+
+    def _place(self, path, full_shape) -> Spec:
+        spec = self._rule(path, full_shape)
+        self._specs[path], self._full[path] = spec, tuple(full_shape)
+        return spec
+
+    def cut(self, path: Tuple[str, ...], full: torch.Tensor) -> torch.Tensor:
+        """The rank's slice of a whole leaf, copied (the caller frees the
+        leaf)."""
+        spec = self._place(path, tuple(full.shape))
+        piece = full[shard_index(tuple(full.shape), spec, self.mesh, self.coords)]
+        return piece.clone(memory_format=torch.contiguous_format)
+
+    def stack(self, path, n: int, layer: torch.Tensor) -> torch.Tensor:
+        """An empty local stack for ``n`` layers shaped like ``layer``."""
+        spec = self._place(path, (n,) + tuple(layer.shape))
+        idx = shard_index(self._full[path], spec, self.mesh, self.coords)
+        return torch.empty([sl.stop - sl.start for sl in idx], dtype=layer.dtype,
+                           device=layer.device)
+
+    def cut_layer(self, path, layer: torch.Tensor, i: int):
+        """(index in the local stack, the rank's slice of layer ``i``), or
+        (None, None) where the rank holds no part of that layer."""
+        idx = shard_index(self._full[path], self._specs[path], self.mesh, self.coords)
+        if not idx[0].start <= i < idx[0].stop:
+            return None, None
+        return i - idx[0].start, layer[idx[1:]]
+
+    def specs(self, tree) -> Any:
+        """The spec tree of a parameter tree placed here."""
+        return _map_with_path(lambda path, _leaf: self._specs[path], tree)
+
+    def shardings(self, tree) -> Any:
+        """:class:`Sharding` records of ``tree`` (parameters, or the
+        ``(params, opt_state)`` pair, the moments placed as the
+        parameters)."""
+        def rec(sub):
+            return _map_with_path(lambda path, _l: Sharding(self.mesh, self._specs[path]), sub)
+        if isinstance(tree, tuple):
+            params, opt = tree
+            return (rec(params), {"m": rec(opt["m"]), "v": rec(opt["v"]),
+                                  "step": Sharding(self.mesh, ())})
+        return rec(tree)
+
+    # ---- how the model reads the stored leaves ----
+
+    def plan(self) -> Dict[Any, Any]:
+        """The training policy's plan: a :class:`~repro_torch.distributed.
+        axes.LeafUse` tree per top-level key (per layer for a stacked key;
+        a stacked leaf whose layer axis is split over ``data`` is gathered
+        whole first, under the key ``("stack",) + path``)."""
+        out: Dict[Any, Any] = {}
+        # an axis of one rank splits nothing: no gather over it
+        data_axes = tuple(a for a, n in self.sizes.items() if a != "model" and n > 1)
+        whole = self.whole if self.sizes["model"] > 1 else ()
+        for path, spec in self._specs.items():
+            data = _axis_dim(spec, data_axes)
+            model = _axis_dim(spec, ("model",)) if path[-1] in whole else None
+            if _stacked(path[:1]):  # a leaf stacked per layer
+                if data == 0:
+                    out[("stack",) + path] = AX.LeafUse(data_dim=0)
+                    data = None
+                use = AX.LeafUse(None if data is None else data - 1,
+                                 None if model is None else model - 1)
+            else:
+                use = AX.LeafUse(data, model)
+            node = out.setdefault(path[0], {})
+            for k in path[1:-1]:
+                node = node.setdefault(k, {})
+            if len(path) == 1:
+                out[path[0]] = use
+            else:
+                node[path[-1]] = use
+        return out
+
+    def policy(self, *, rows_split: bool) -> AX.ShardPolicy:
+        return AX.make_train_policy(self.mesh, self.plan(), rows_split=rows_split,
+                                    groups=self.groups)
+
+    def split_axes(self, tree) -> list:
+        """Per leaf of ``tree`` in flatten order: (split over data, split
+        over model)."""
+        def walk(sub, path):
+            if isinstance(sub, dict):  # flatten order: keys sorted
+                return [x for k in sorted(sub) for x in walk(sub[k], path + (k,))]
+            spec = self._specs[path]
+            return [(_axis_dim(spec, ("data",)) is not None,
+                     _axis_dim(spec, ("model",)) is not None)]
+
+        return walk(tree, ())
+
+    # ---- the reductions of a step ----
+
+    def reduce_grads(self, params, grads) -> list:
+        """Sum over ``data`` the gradients of the leaves not split there
+        (the ZeRO gather's backward has summed the others), one bucketed
+        fp32 ``all_reduce``; each rank's loss is a share of the global
+        loss, so the sum is the global gradient."""
+        if self.sizes["data"] == 1:
+            return grads
+        todo = [i for i, (d, _m) in enumerate(self.split_axes(params)) if not d]
+        if todo:
+            flat = torch.cat([grads[i].float().reshape(-1) for i in todo])
+            dist.all_reduce(flat, group=self.groups["data"])
+            out = list(grads)
+            for i, piece in zip(todo, flat.split([grads[i].numel() for i in todo])):
+                out[i] = piece.reshape(grads[i].shape).to(grads[i].dtype)
+            return out
+        return grads
+
+    def global_sumsq(self, params, sumsq) -> torch.Tensor:
+        """The global sum of squares of a tree of shards, from each leaf's
+        local sum ``sumsq`` (flatten order): summed over each axis a leaf is
+        split on, once over an axis it is replicated on."""
+        parts = torch.zeros(4, dtype=torch.float32, device=sumsq[0].device)
+        for s, (d, m) in zip(sumsq, self.split_axes(params)):
+            parts[2 * m + d] += s
+        # parts: [whole, data-split, model-split, split over both]
+        if self.sizes["data"] > 1:
+            both = parts[1::2].contiguous()
+            dist.all_reduce(both, group=self.groups["data"])
+            parts[1::2] = both
+        if self.sizes["model"] > 1:
+            both = parts[2:].contiguous()
+            dist.all_reduce(both, group=self.groups["model"])
+            parts[2:] = both
+        return parts.sum()
+
+    def global_max(self, values: torch.Tensor) -> torch.Tensor:
+        """Per-leaf maxima of shards, as the maxima of the whole leaves (a
+        leaf replicated on an axis has one value there)."""
+        values = values.contiguous()
+        for axis in ("data", "model"):
+            if self.sizes[axis] > 1:
+                dist.all_reduce(values, op=dist.ReduceOp.MAX, group=self.groups[axis])
+        return values
+
+    def nbytes(self, tree) -> Tuple[int, int]:
+        """(the bytes this rank stores of ``tree``, the bytes of its full
+        leaves)."""
+        from repro_torch import tree as T
+
+        local = sum(x.numel() * x.element_size() for x in T.leaves(tree))
+        full = global_nbytes(tree, self.specs(tree), self.mesh)
+        return local, full
 
 
 def _get(tree, path):

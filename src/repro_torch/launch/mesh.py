@@ -5,8 +5,11 @@ constant, so importing this module never touches the process group.  The
 meshes are ``torch.distributed.device_mesh.DeviceMesh`` objects named
 ``("data", "model")`` over the default process group, which the caller
 initialises (``torch.distributed.init_process_group`` with its backend,
-rank, world size and a ``timeout``; ``torchrun`` or
-``python -m repro_torch.launch.serve --mesh DxM`` starts the ranks).
+rank, world size and a ``timeout``; ``torchrun``,
+``python -m repro_torch.launch.serve --mesh DxM`` or
+``python -m repro_torch.launch.train --mesh local`` starts the ranks).
+The trainer takes any ``D x M`` mesh (:func:`make_mesh`); serving takes
+``1 x M`` (:func:`make_serve_mesh`).
 """
 from __future__ import annotations
 
@@ -69,6 +72,14 @@ def make_serve_mesh(spec: str):
     named ``("data", "model")``: ``D`` the data axis (serving replicas),
     ``M`` the model (tensor-parallel) axis the KV pools and weights shard
     over.  Needs a default group of exactly ``D*M`` ranks."""
+    return make_mesh(spec)
+
+
+def make_mesh(spec: str):
+    """A ``"DxM"`` spec as a ``(D, M)`` mesh named ``("data", "model")``
+    over a default group of exactly ``D*M`` ranks, rank ``d*M + m`` at
+    ``(d, m)``: for training, ``D`` the data axis (batch rows, ZeRO
+    storage) and ``M`` the model axis (tensor parallelism)."""
     d, m = parse_mesh(spec)
     dist = _require_group()
     n = dist.get_world_size()

@@ -51,8 +51,9 @@ prints:
 Every rank draws the full weights (on its card, one layer at a time) into
 host memory and its engine keeps its shards, so ``M`` full weight trees
 must fit in the host's memory at once: a model too large for that cannot be
-loaded this way yet.  A data axis of more than one rank (``D > 1``) is not
-ported yet (ROADMAP.md queue 1 item 26, its rest).
+loaded this way yet (loading the served weights by shards, and a data axis
+of more than one rank, ``D > 1``, are ROADMAP.md queue 1 item 26's rest;
+the training CLI's ``--mesh local`` trains on a mesh).
 """
 from __future__ import annotations
 

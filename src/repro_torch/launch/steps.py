@@ -13,6 +13,7 @@ import torch
 
 from repro_torch import tree as T
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import axes as AX
 from repro_torch.models import model as M
 from repro_torch.optim import OptConfig, adamw_update
 
@@ -38,18 +39,29 @@ def _tracked(params) -> Tuple[Dict, List[Tuple[bool, List[torch.Tensor]]]]:
     (:func:`repro_torch.models.model.is_layer_stack`) becomes a list of its
     layers: autograd then gives each layer its own gradient, where a stack
     indexed per layer would add a zero-filled stack-sized gradient per
-    layer (L times the stack's bytes)."""
+    layer (L times the stack's bytes).  Under a training policy, a stack
+    whose layer axis is split over the data axis is gathered whole first
+    (:func:`repro_torch.distributed.axes.gather_stack`) and tracked as one
+    leaf."""
     groups: List[Tuple[bool, List[torch.Tensor]]] = []
 
-    def track(tree, stacked):
+    def track(tree, stacked, path):
         if isinstance(tree, dict):
-            return {k: track(tree[k], stacked) for k in sorted(tree)}
-        parts = [a.detach().requires_grad_(True)
-                 for a in (tree.unbind(0) if stacked else (tree,))]
-        groups.append((stacked, parts))
-        return parts if stacked else parts[0]
+            return {k: track(tree[k], stacked, path + (k,)) for k in sorted(tree)}
+        leaf = tree.detach().requires_grad_(True)
+        if not stacked:
+            groups.append((False, [leaf]))
+            return leaf
+        whole = AX.gather_stack(path, leaf)
+        if whole is not leaf:  # the layers of the gathered stack
+            groups.append((False, [leaf]))
+            return list(whole.unbind(0))
+        parts = [a.detach().requires_grad_(True) for a in tree.unbind(0)]
+        groups.append((True, parts))
+        return parts
 
-    return {k: track(params[k], M.is_layer_stack(k)) for k in sorted(params)}, groups
+    return ({k: track(params[k], M.is_layer_stack(k), (k,)) for k in sorted(params)},
+            groups)
 
 
 def _grads(loss, groups) -> List[torch.Tensor]:

@@ -22,7 +22,12 @@ hold.  Head counts come from the weights' and caches' shapes, never from
 ``wv`` (``wq_b``/``wkv_b`` for MLA) attends its local heads against its
 local kv heads (or the whole latent pages), and the row-parallel ``wo``
 product is summed over the model axis by
-:func:`repro_torch.distributed.axes.psum` (a no-op without a mesh).
+:func:`repro_torch.distributed.axes.psum` (a no-op without a mesh).  Where
+the axis does not split the heads whole, each rank holds the whole
+attention (:func:`repro_torch.distributed.sharding.whole_leaves`) and the
+sum is skipped.  In training, :func:`repro_torch.distributed.axes.enter`
+marks where a replicated activation enters the rank's heads, so its
+gradient is summed over the model axis.
 """
 from __future__ import annotations
 
@@ -32,7 +37,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.backend import resolve_backend
-from repro_torch.distributed.axes import check_split, psum
+from repro_torch.distributed.axes import check_split, enter, psum
 from repro_torch.models.common import (
     MASK,
     apply_mrope,
@@ -77,9 +82,17 @@ def gqa_cache_init(cfg: ModelConfig, batch: int, max_len: int, device=None,
     }
 
 
+def heads_split(p, cfg: ModelConfig) -> bool:
+    """Whether ``p`` holds a rank's share of the heads (not all of them)."""
+    if "wq_b" in p:  # MLA
+        return p["wq_b"].shape[-1] != cfg.n_heads * (cfg.qk_nope_dim + cfg.qk_rope_dim)
+    return p["wq"].shape[-1] != cfg.n_heads * cfg.d_head
+
+
 def _project_qkv(p, cfg: ModelConfig, x, positions):
     B, S, _ = x.shape
     dh = cfg.d_head
+    x = enter(x, heads_split(p, cfg))
     q = dense(cfg, x, p["wq"])
     k = dense(cfg, x, p["wk"])
     v = dense(cfg, x, p["wv"])
@@ -145,7 +158,7 @@ def gqa_forward(
                 ks, vs, pos = ks[:, inv], vs[:, inv], pos[inv]
             new_cache = {"k": ks, "v": vs, "pos": pos[None].expand(B, slots).contiguous()}
     out = out.reshape(B, S, -1)
-    return psum(dense(cfg, out, p["wo"])), new_cache
+    return psum(dense(cfg, out, p["wo"]), split=heads_split(p, cfg)), new_cache
 
 
 # --------------------------------------------------------------------------
@@ -236,7 +249,7 @@ def gqa_paged_decode(
     out = be.paged_attention_decode(q, cache["k_pages"], cache["v_pages"], page_table,
                                     seq_pos)
     out = out.reshape(B, 1, -1)
-    return psum(dense(cfg, out, p["wo"])), cache
+    return psum(dense(cfg, out, p["wo"]), split=heads_split(p, cfg)), cache
 
 
 def paged_copy_page(cache: Dict, src: int, dst: int) -> Dict:
@@ -297,7 +310,7 @@ def gqa_paged_prefill_chunk(
     out = chunked_attention(q, kg, vg, causal=True, q_offset=q_off, k_positions=kpos,
                             q_chunk=cfg.q_chunk)
     out = out.reshape(B, C, -1)
-    return psum(dense(cfg, out, p["wo"])), cache
+    return psum(dense(cfg, out, p["wo"]), split=heads_split(p, cfg)), cache
 
 
 # --------------------------------------------------------------------------
@@ -344,7 +357,7 @@ def gqa_ring_prefill_chunk(
     cache_row["v"][:, widx] = v[:, C - w:].to(cache_row["v"].dtype)
     cache_row["pos"][:, widx] = wpos[None].to(torch.int32)
     out = out.reshape(B, C, -1)
-    return psum(dense(cfg, out, p["wo"])), cache_row
+    return psum(dense(cfg, out, p["wo"]), split=heads_split(p, cfg)), cache_row
 
 
 def cross_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -356,10 +369,11 @@ def cross_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     drift apart.  x: (B, S, d); k, v: (B, encoder_seq, Hkv, dh).
     """
     B, S, _ = x.shape
-    q = (x @ p["wq"]).reshape(B, S, -1, cfg.d_head)
+    split = heads_split(p, cfg)
+    q = (enter(x, split) @ p["wq"]).reshape(B, S, -1, cfg.d_head)
     check_split(q.shape[2], cfg.n_heads, "the cross-attention's query heads")
     out = chunked_attention(q, k, v, causal=False, q_chunk=cfg.q_chunk)
-    return psum(out.reshape(B, S, -1) @ p["wo"])
+    return psum(out.reshape(B, S, -1) @ p["wo"], split=split)
 
 
 def gqa_ring_decode(
@@ -399,7 +413,7 @@ def gqa_ring_decode(
         ring[rows, slot] = val
     out = decode_attention(q, cache["k"], cache["v"], cache["pos"], seq_pos, window=window)
     out = out.reshape(B, 1, -1)
-    return psum(dense(cfg, out, p["wo"])), cache
+    return psum(dense(cfg, out, p["wo"]), split=heads_split(p, cfg)), cache
 
 
 # --------------------------------------------------------------------------
@@ -447,15 +461,18 @@ def _mla_qkv_latent(p, cfg: ModelConfig, x, positions):
     """Common projections: per-head q (nope + rope), latent ckv, shared k_rope."""
     B, S, _ = x.shape
     dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
-    q = _rms(x @ p["wq_a"], p["q_norm"]) @ p["wq_b"]
+    # wq_a, wkv_a and the norms run whole on every rank; their outputs
+    # enter the rank's heads
+    split = heads_split(p, cfg)
+    q = enter(_rms(x @ p["wq_a"], p["q_norm"]), split) @ p["wq_b"]
     q = q.reshape(B, S, -1, dn + dr)  # the heads wq_b holds
     check_split(q.shape[2], cfg.n_heads, "wq_b's query heads")
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     kv = x @ p["wkv_a"]  # (B, S, r_kv + dr)
-    ckv = _rms(kv[..., :cfg.kv_lora_rank], p["kv_norm"])
-    k_rope = apply_rope(kv[..., cfg.kv_lora_rank:][:, :, None, :], positions,
-                        cfg.rope_theta)[:, :, 0]  # (B, S, dr) -- shared across heads
+    ckv = enter(_rms(kv[..., :cfg.kv_lora_rank], p["kv_norm"]), split)
+    k_rope = enter(apply_rope(kv[..., cfg.kv_lora_rank:][:, :, None, :], positions,
+                              cfg.rope_theta)[:, :, 0], split)  # (B, S, dr): every head's
     return q_nope, q_rope, ckv, k_rope
 
 
@@ -574,7 +591,7 @@ def mla_forward(
             pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
             new_cache = {"ckv": ckv, "krope": k_rope, "pos": pos.contiguous()}
     out = out.reshape(B, S, -1)
-    return psum(out @ p["wo"]), new_cache
+    return psum(out @ p["wo"], split=heads_split(p, cfg)), new_cache
 
 
 # --------------------------------------------------------------------------
@@ -640,7 +657,7 @@ def mla_paged_decode(
                                           scale=_mla_scale(cfg))
     out = torch.einsum("bshr,rhd->bshd", o_lat, wkv_b[..., dn:])  # value expand
     out = out.reshape(B, 1, -1)
-    return psum(out @ p["wo"]), cache
+    return psum(out @ p["wo"], split=heads_split(p, cfg)), cache
 
 
 def mla_paged_prefill_chunk(
@@ -680,4 +697,4 @@ def mla_paged_prefill_chunk(
     out = _mla_expanded_attend(cfg, wkv_b, q_nope, q_rope, ckv_g, kr_g,
                                pos_offset=q_off, k_positions=kpos)
     out = out.reshape(B, C, -1)
-    return psum(out @ p["wo"]), cache
+    return psum(out @ p["wo"], split=heads_split(p, cfg)), cache

@@ -16,6 +16,15 @@ experts do not split, sharded along each expert's hidden width; either way
 every rank computes the router and the capacity dispatch on the same rows
 (the drop pattern is the single device's), multiplies the slots of the
 experts it holds, and the gated outputs are summed over the model axis.
+A product the model axis does not split (a hidden width it does not
+divide) runs whole on each rank, with no sum.
+
+Training on a data axis: each data rank holds its rows of the global batch,
+and the MoE computes its share of the single device's dispatch over the
+global batch -- one group, the global capacity, each token ranked within
+its expert after the tokens of the lower data ranks (whose per-expert
+counts one ``all_reduce`` brings) -- and the auxiliary loss from the
+global means, as its share (:func:`repro_torch.distributed.axes.data_sum`).
 """
 from __future__ import annotations
 
@@ -25,7 +34,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.axes import check_split, model_coord, psum
+from repro_torch.distributed import axes as AX
+from repro_torch.distributed.axes import check_split, enter, model_coord, psum
 from repro_torch.models.common import dense, dense_init
 
 
@@ -51,14 +61,18 @@ def ffn_init(generator: torch.Generator, cfg: ModelConfig, d_ff: int = 0,
     }
 
 
-def ffn_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def ffn_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor, d_ff: int = 0) -> torch.Tensor:
+    """The FFN of hidden width ``d_ff`` (``cfg.d_ff`` when 0), or a rank's
+    share of it, summed over the model axis."""
+    split = p["w_down"].shape[-2] != (d_ff or cfg.d_ff)
+    x = enter(x, split)
     if "w_gate" in p:
         gate = F.silu(dense(cfg, x, p["w_gate"]))
-        return psum(dense(cfg, gate * dense(cfg, x, p["w_up"]), p["w_down"]))
+        return psum(dense(cfg, gate * dense(cfg, x, p["w_up"]), p["w_down"]), split=split)
     # GELU in its tanh form, jax.nn.gelu's default; the output bias is
     # added once, after the row-parallel sum
     h = F.gelu(dense(cfg, x, p["w_up"]) + p["b_up"], approximate="tanh")
-    return psum(dense(cfg, h, p["w_down"])) + p["b_down"]
+    return psum(dense(cfg, h, p["w_down"]), split=split) + p["b_down"]
 
 
 # --------------------------------------------------------------------------
@@ -94,9 +108,11 @@ def moe_init(generator: torch.Generator, cfg: ModelConfig, device=None) -> Dict:
 
 
 def _moe_groups(T: int) -> int:
-    """Token groups of the capacity dispatch.  The JAX package aligns them
-    to its data-parallel shards; the port serves on ``1 x M`` meshes only
-    (no data axis), so every call dispatches one group."""
+    """Token groups of the capacity dispatch: one.  The JAX package aligns
+    them to the data-parallel shards of a mesh; its single device (and the
+    port's) dispatches one group, and a data rank of the port computes its
+    share of that one group over the global batch, so a mesh trains the
+    single device's function."""
     return 1
 
 
@@ -136,14 +152,30 @@ def moe_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
 
     # ---- load-balancing auxiliary loss (Switch-style, global) ----
+    # on a data axis: the global means (every rank holds as many tokens),
+    # and this rank's share of the loss
     me = probs.mean(dim=(0, 1))  # (E,)
     ce = F.one_hot(idx, E).float().sum(2).mean(dim=(0, 1))
+    n_data = AX.data_size()
+    if n_data > 1:
+        me, ce = AX.data_sum(me) / n_data, AX.data_sum(ce) / n_data
     aux = cfg.router_aux_coef * E * torch.sum(me * ce)
+    if n_data > 1:
+        aux = aux / n_data
 
     # ---- per-group capacity dispatch (sort-based, gathers only) ----
-    Cg = moe_capacity(Tg, cfg)
+    # on a data axis the group is the global batch: the global capacity,
+    # and each token ranked after the lower data ranks' tokens of its expert
+    here, places = AX.row_split()
+    Cg = moe_capacity(Tg * places, cfg)
     n = Tg * k
     flat_e = idx.reshape(G, n)
+    lim = torch.full((E,), Cg, dtype=torch.long, device=dev)
+    if places > 1:
+        counts_by_rank = torch.zeros((places, E), dtype=torch.long, device=dev)
+        counts_by_rank[here] = torch.bincount(flat_e.reshape(-1), minlength=E)
+        below = AX.data_sum(counts_by_rank)[:here].sum(0)
+        lim = torch.clamp(lim - below, min=0)
     token_of = torch.arange(Tg, device=dev).repeat_interleave(k)[None].expand(G, n)
     gate_flat = gate_vals.reshape(G, n)
     order = torch.argsort(flat_e, dim=1, stable=True)
@@ -151,7 +183,7 @@ def moe_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor
     experts = torch.arange(E, device=dev)[None].expand(G, E).contiguous()
     start = torch.searchsorted(sorted_e, experts)  # left side: first slot of each expert
     rank = torch.arange(n, device=dev)[None] - torch.gather(start, 1, sorted_e)
-    keep = rank < Cg
+    keep = rank < lim[sorted_e]
     src_tok = torch.gather(token_of, 1, order)  # (G, n)
     x_sorted = _take_rows(xg, src_tok)
     # expert buffer by gather: slot (e, c) reads sorted position start[e] + c
@@ -160,7 +192,7 @@ def moe_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor
     start_ext = torch.cat([start, torch.full((G, 1), n, dtype=start.dtype, device=dev)], 1)
     pos = start[:, e_of] + c_of[None]  # (G, E*Cg)
     counts = start_ext[:, e_of + 1] - start[:, e_of]
-    valid = c_of[None] < torch.clamp(counts, max=Cg)
+    valid = c_of[None] < torch.minimum(counts, lim[e_of][None])
     xe = _take_rows(x_sorted, torch.clamp(pos, 0, n - 1)) * valid[..., None].to(cfg.dtype)
     xe = xe.reshape(G, E, Cg, d)
 
@@ -170,6 +202,8 @@ def moe_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor
     # their ranks in the sum below
     e_here = p["w_gate"].shape[0]
     check_split(p["w_gate"].shape[2], cfg.moe_d_ff, "the experts' hidden width")
+    split = e_here != E or p["w_gate"].shape[2] != cfg.moe_d_ff
+    xe = enter(xe, split)  # the replicated slots enter the rank's experts
     if e_here != E:
         e0 = model_coord(f"the MoE's experts ({e_here} of {E})")[0] * e_here
         xe = xe[:, e0:e0 + e_here]
@@ -184,15 +218,15 @@ def moe_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor
     ye = ye.reshape(G, E * Cg, d)
     slot = torch.where(keep, sorted_e * Cg + rank, 0)
     y_sorted = _take_rows(ye, slot)  # (G, n, d)
-    gate_sorted = torch.gather(gate_flat, 1, order)
+    gate_sorted = enter(torch.gather(gate_flat, 1, order), split)
     # the gate is cast to cfg.dtype before it multiplies, as in the JAX package
     contrib = y_sorted * (gate_sorted * keep)[..., None].to(cfg.dtype)
     # undo the sort: the inverse permutation restores (token, choice) order,
     # so the per-token combine is a reshape and a sum over k, last
     inv_order = torch.argsort(order, dim=1)
     contrib = _take_rows(contrib, inv_order)
-    out = psum(contrib.reshape(G, Tg, k, d).sum(dim=2))
+    out = psum(contrib.reshape(G, Tg, k, d).sum(dim=2), split=split)
 
     if cfg.n_shared_experts:
-        out = out + ffn_forward(p["shared"], cfg, xg)
+        out = out + ffn_forward(p["shared"], cfg, xg, cfg.moe_d_ff * cfg.n_shared_experts)
     return out.reshape(B, S, d), aux

@@ -24,6 +24,14 @@ logits as vocab slices, each completed by one ``all_reduce``.  The norms,
 the SSM mixers and everything else outside those products run replicated,
 on identical inputs, as the JAX rules leave them.
 
+Training on a ``D x M`` mesh (:class:`repro_torch.train.Trainer` with a
+mesh): each rank stores its ZeRO slices and gathers a layer's leaves just
+before the layer runs (:func:`repro_torch.distributed.axes.materialize`;
+with ``remat`` they live only while the layer runs), the collectives above
+run through autograd, and the loss is the rank's share of the global loss:
+its tokens' summed cross-entropy over the global token count, and the MoE
+auxiliary loss as its share of the global one.
+
 Execution modes: ``train`` (:func:`forward_train` and :func:`loss_fn`: the
 LM loss, the MoE auxiliary loss and DeepSeek-V3's MTP head, each layer
 recomputed in the backward pass with ``remat``), ``prefill`` (populate a
@@ -48,7 +56,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import tree as T
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.encoder import resolve_device
-from repro_torch.distributed.axes import gather_slices, model_coord, psum
+from repro_torch.distributed import axes as AX
+from repro_torch.distributed.axes import enter, gather_slices, model_coord, psum
+from repro_torch.distributed.sharding import flat_items
 from repro_torch.models import adapters as A
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffnm
@@ -305,8 +315,14 @@ def init_paged_cache(cfg: ModelConfig, max_seqs: int, num_pages: int, page_size:
 # Parameters
 # --------------------------------------------------------------------------
 
+def _rebuild(tree, leaves, path=()):
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, leaves, path + (k,)) for k, v in tree.items()}
+    return leaves[path]
+
+
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-                device=None) -> Dict:
+                device=None, *, layout=None) -> Dict:
     """Random parameters with the JAX package's keys, shapes and scales.
 
     Drawn from ``generator`` (seed 0 on ``device`` when None) on the
@@ -319,24 +335,49 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     its layer, with no copy).  DeepSeek-V3 also draws its MTP head (``mtp``:
     a projection, two norms, one dense layer and a final norm), which only
     training reads.
+
+    With ``layout`` (a :class:`repro_torch.distributed.sharding.TrainLayout`)
+    the draw is by shards: the same numbers from the same generator
+    sequence, each leaf (each layer of a stack) cut to the rank's slice as
+    it is drawn and the whole freed, so the peak is the rank's slices plus
+    one layer (plus one whole leaf outside the stacks).
     """
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
+
+    def place(key, tree):
+        if layout is None:
+            return tree
+        cut = {path: layout.cut((key,) + path, leaf) for path, leaf in flat_items(tree)}
+        return _rebuild(tree, cut)
+
     d, V = cfg.d_model, cfg.padded_vocab
     emb = torch.randn((V, d), generator=generator, dtype=torch.float32,
                       device=generator.device)
-    params: Dict[str, Any] = {
-        "embed": emb.mul_(0.02).to(device=device, dtype=cfg.dtype),
-        "final_norm": norm_init(cfg, d, device),
-    }
+    params: Dict[str, Any] = {"embed": place("embed", emb.mul_(0.02).to(device=device,
+                                                                       dtype=cfg.dtype))}
     del emb
+    params["final_norm"] = place("final_norm", norm_init(cfg, d, device))
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init(generator, d, V, cfg.dtype, scale=0.02, device=device)
+        params["lm_head"] = place("lm_head", dense_init(generator, d, V, cfg.dtype, scale=0.02,
+                                                         device=device))
     for si, (kind, n) in enumerate(layer_segments(cfg)):
+        key = f"seg{si}"
         stack = None
         for i in range(n):
             layer = init_layer(generator, cfg, kind, device)
+            if layout is not None:
+                if stack is None:
+                    skeleton = _tree_map(lambda a: None, layer)
+                    stack = {path: layout.stack((key,) + path, n, leaf)
+                             for path, leaf in flat_items(layer)}
+                for path, leaf in flat_items(layer):
+                    j, piece = layout.cut_layer((key,) + path, leaf, i)
+                    if j is not None:
+                        stack[path][j].copy_(piece)
+                del layer
+                continue
             if n == 1:
                 stack = _tree_map(lambda a: a.unsqueeze(0), layer)
                 break
@@ -346,23 +387,26 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
             for dst, src in zip(T.leaves(stack), T.leaves(layer)):
                 dst[i].copy_(src)
             del layer
-        params[f"seg{si}"] = stack
+        if layout is not None:
+            stack = _rebuild(skeleton, stack)
+        params[key] = stack
     if cfg.mtp_depth:
-        params["mtp"] = {
+        params["mtp"] = place("mtp", {
             "proj": dense_init(generator, 2 * d, d, cfg.dtype, device=device),
             "norm_h": norm_init(cfg, d, device),
             "norm_e": norm_init(cfg, d, device),
             "layer": init_layer(generator, cfg, "dense", device),
             "final_norm": norm_init(cfg, d, device),
-        }
+        })
     if cfg.n_encoder_layers:
-        params["encoder"] = _tree_stack([_enc_layer_init(generator, cfg, device)
-                                         for _ in range(cfg.n_encoder_layers)])
-        params["enc_final_norm"] = norm_init(cfg, d, device)
-        params["enc_pos"] = _pos_table(generator, cfg, cfg.encoder_seq, device)
-        params["cross"] = _tree_stack([_cross_init(generator, cfg, device)
-                                       for _ in range(cfg.n_layers)])
-        params["dec_pos"] = _pos_table(generator, cfg, cfg.max_decoder_positions, device)
+        params["encoder"] = place("encoder", _tree_stack(
+            [_enc_layer_init(generator, cfg, device) for _ in range(cfg.n_encoder_layers)]))
+        params["enc_final_norm"] = place("enc_final_norm", norm_init(cfg, d, device))
+        params["enc_pos"] = place("enc_pos", _pos_table(generator, cfg, cfg.encoder_seq, device))
+        params["cross"] = place("cross", _tree_stack([_cross_init(generator, cfg, device)
+                                                      for _ in range(cfg.n_layers)]))
+        params["dec_pos"] = place("dec_pos", _pos_table(generator, cfg,
+                                                         cfg.max_decoder_positions, device))
     return params
 
 
@@ -450,7 +494,10 @@ def _embed_inputs(cfg: ModelConfig, params, batch: Dict) -> Tuple[torch.Tensor, 
     return h, positions
 
 
-def _train_layer(cfg: ModelConfig, kind: str, p: Dict, x, positions):
+def _train_layer(cfg: ModelConfig, kind: str, p: Dict, x, positions, key: str):
+    """One training layer; under a training policy its stored leaves
+    (``key``'s) are gathered here, inside the recomputed region."""
+    p = AX.materialize(p, key)
     x, _, aux = layer_forward(cfg, kind, p, x, positions, mode="train", cache=None)
     return x, aux
 
@@ -489,7 +536,9 @@ def _run_segments(
             p_layer = _tree_index(stacked, i)
             if mode == "train" and remat:
                 h, aux = checkpoint(_train_layer, cfg, kind, p_layer, h, positions,
-                                    use_reentrant=False)
+                                    f"seg{si}", use_reentrant=False)
+            elif mode == "train":
+                h, aux = _train_layer(cfg, kind, p_layer, h, positions, f"seg{si}")
             else:
                 h, c_new, aux = layer_forward(
                     cfg, kind, p_layer, h, positions,
@@ -532,9 +581,10 @@ def _lm_logits(cfg: ModelConfig, params, h):
     if cfg.tie_embeddings and params["embed"].shape[1] != cfg.d_model:
         n = params["embed"].shape[1]
         c0 = model_coord(f"embed's d_model columns ({n} of {cfg.d_model})")[0] * n
-        logits = psum(h[..., c0:c0 + n] @ params["embed"].T)
+        logits = psum(enter(h)[..., c0:c0 + n] @ params["embed"].T)
     else:
         w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        h = enter(h, w.shape[-1] != cfg.padded_vocab)
         logits = gather_slices(h @ w, cfg.padded_vocab)
     if cfg.padded_vocab != cfg.vocab_size:
         # mask pad columns so logsumexp / sampling never see them (in place:
@@ -547,9 +597,23 @@ def _lm_logits(cfg: ModelConfig, params, h):
 # Training
 # --------------------------------------------------------------------------
 
+def _materialize_top(params):
+    """The leaves outside the layer stacks (embedding, head, norms, MTP,
+    position tables) as the model reads them: gathered under a training
+    policy (:func:`repro_torch.distributed.axes.materialize`), else as
+    they are."""
+    if AX.current() is None:
+        return params
+    return {k: v if is_layer_stack(k) else AX.materialize(v, k) for k, v in params.items()}
+
+
 def forward_train(cfg: ModelConfig, params, batch: Dict, *, remat: bool = True):
     """Returns (per-token logits, the summed MoE auxiliary loss, the final
     hidden states)."""
+    return _forward_train(cfg, _materialize_top(params), batch, remat=remat)
+
+
+def _forward_train(cfg: ModelConfig, params, batch: Dict, *, remat: bool = True):
     if cfg.n_encoder_layers:
         return _forward_encdec_train(cfg, params, batch, remat=remat)
     h, positions = _embed_inputs(cfg, params, batch)
@@ -564,22 +628,26 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean CE over the positions with label >= 0, the logsumexp in fp32,
     divided by max(count, 1).  The label's logit is gathered; the JAX
     package takes it by a masked sum over the vocabulary (for a sharded
-    vocabulary), which adds it to zeros and gives the same value."""
+    vocabulary), which adds it to zeros and gives the same value.  Under a
+    training policy with a data axis the count is the global one (summed
+    over ``data``), so a rank's value is its share of the global mean --
+    never a mean of the ranks' means."""
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     ll = torch.gather(lf, -1, labels.clamp(min=0).long()[..., None])[..., 0]
     mask = (labels >= 0).float()
-    return torch.sum((lse - ll) * mask) / torch.clamp(mask.sum(), min=1.0)
+    return torch.sum((lse - ll) * mask) / torch.clamp(AX.data_sum(mask.sum()), min=1.0)
 
 
 def loss_fn(cfg: ModelConfig, params, batch: Dict, *, remat: bool = True):
     """Next-token LM loss (+ the MoE auxiliary loss, + DeepSeek-V3's MTP
     head at weight 0.1); returns (loss, {"ce", "aux"[, "mtp"]})."""
+    params = _materialize_top(params)
     if cfg.n_encoder_layers:
         logits, aux, _ = _forward_encdec_train(cfg, params, batch, remat=remat)
         loss = cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
         return loss + aux, {"ce": loss, "aux": aux}
-    logits, aux, h = forward_train(cfg, params, batch, remat=remat)
+    logits, aux, h = _forward_train(cfg, params, batch, remat=remat)
     labels = batch["labels"]
     loss = cross_entropy(logits[:, :-1], labels[:, :-1])
     metrics = {"ce": loss, "aux": aux}
@@ -595,7 +663,7 @@ def _mtp_loss(cfg: ModelConfig, params, h, batch):
     token t+2 from [h_t ; emb(token_{t+1})], sharing the output head."""
     p = params["mtp"]
     tokens, labels = batch["tokens"], batch["labels"]
-    e_next = params["embed"][tokens[:, 1:].long()]
+    e_next = _embed(cfg, params, tokens[:, 1:])
     comb = torch.cat([apply_norm(cfg, p["norm_h"], h[:, :-1]),
                       apply_norm(cfg, p["norm_e"], e_next)], dim=-1) @ p["proj"]
     positions = default_positions(comb.shape[0], comb.shape[1], device=comb.device)
@@ -612,10 +680,11 @@ def _forward_encdec_train(cfg: ModelConfig, params, batch: Dict, *, remat: bool 
     enc_out = _encoder_forward(cfg, params, batch["audio_embeds"], remat=remat)
     tokens = batch["tokens"]
     B, S = tokens.shape
-    h = params["embed"][tokens.long()] + params["dec_pos"][None, :S]
+    h = _embed(cfg, params, tokens) + params["dec_pos"][None, :S]
     positions = default_positions(B, S, device=h.device)
 
     def layer(p_layer, p_cross, x):
+        p_layer, p_cross = AX.materialize(p_layer, "seg0"), AX.materialize(p_cross, "cross")
         return _dec_layer(cfg, p_layer, p_cross, x, positions, enc_out, mode="train",
                           cache=None, pos_offset=0)[0]
 
@@ -734,6 +803,7 @@ def _encoder_forward(cfg: ModelConfig, params, audio_embeds: torch.Tensor, *,
     positions = default_positions(h.shape[0], h.shape[1], device=h.device)
 
     def layer(p, x):
+        p = AX.materialize(p, "encoder")
         a, _ = attn.gqa_forward(p["attn"], cfg, apply_norm(cfg, p["ln1"], x), positions,
                                 mode="train", causal=False)
         x = x + a
@@ -748,6 +818,7 @@ def _encoder_forward(cfg: ModelConfig, params, audio_embeds: torch.Tensor, *,
 def _cross_kv(cfg: ModelConfig, pc: Dict, enc_out: torch.Tensor):
     """One decoder layer's cross-attention K/V over the encoder output."""
     B, S = enc_out.shape[:2]
+    enc_out = enter(enc_out, attn.heads_split(pc, cfg))
     ck = (enc_out @ pc["wk"]).reshape(B, S, -1, cfg.d_head)  # the heads wk holds
     cv = (enc_out @ pc["wv"]).reshape(B, S, -1, cfg.d_head)
     return ck, cv

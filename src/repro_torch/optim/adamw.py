@@ -8,6 +8,13 @@ bias correction uses the incremented step, weight decay reaches every
 leaf, and the update runs in fp32 whatever the parameters' type, the
 moments kept in ``OptConfig.moment_dtype``.
 
+On a mesh each rank holds shards of the parameters, gradients and moments:
+the update stays element-wise on the rank's shards, and the global norm
+that clips the gradients is the sum of squares over every shard
+(``reduce_sumsq``, :meth:`repro_torch.distributed.sharding.TrainLayout.
+global_sumsq`: summed over the axes each leaf is split on, a replicated
+leaf counted once).
+
 ``adamw_update(..., donate=True)`` writes the new parameters and moments
 into the tensors it was given (the JAX package donates them to its jitted
 step) and needs no second copy of the state; without it the arguments are
@@ -16,7 +23,7 @@ left as they were and new trees come back.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -50,10 +57,16 @@ def adamw_init(params, oc: "OptConfig" = None) -> Dict[str, Any]:
     }
 
 
+SumsqReducer = Callable[[List[torch.Tensor]], torch.Tensor]
+
+
 @torch.no_grad()
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's fp32 sum of squares."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in T.leaves(tree)))
+def global_norm(tree, reduce_sumsq: Optional[SumsqReducer] = None) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's fp32 sum of squares; on
+    shards, ``reduce_sumsq`` turns the leaves' local sums (flatten order)
+    into the global sum."""
+    sq = [torch.sum(torch.square(x.float())) for x in T.leaves(tree)]
+    return torch.sqrt(sum(sq) if reduce_sumsq is None else reduce_sumsq(sq))
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -73,12 +86,14 @@ def clip_by_global_norm(grads, max_norm: float):
 
 @torch.no_grad()
 def adamw_update(grads, opt_state, params, oc: OptConfig, lr_now, *,
-                 donate: bool = False) -> Tuple[Any, Dict[str, Any]]:
+                 donate: bool = False, reduce_sumsq: Optional[SumsqReducer] = None
+                 ) -> Tuple[Any, Dict[str, Any]]:
     """One AdamW step.  ``grads`` may be bf16 and ``lr_now`` a Python float
     or a 0-d tensor; the math runs in fp32.  Each leaf's gradient is
     clipped as it is used (:func:`clip_by_global_norm`'s values, without
-    an fp32 copy of the whole gradient tree)."""
-    scale = _clip_scale(global_norm(grads), oc.grad_clip)
+    an fp32 copy of the whole gradient tree), by the global norm
+    (:func:`global_norm` with ``reduce_sumsq`` on shards)."""
+    scale = _clip_scale(global_norm(grads, reduce_sumsq), oc.grad_clip)
     step = opt_state["step"] + 1
     t = step.float()
     bc1 = 1.0 - oc.b1 ** t

@@ -59,8 +59,9 @@ from repro_torch.models import model as M
 NULL_PAGE = 0  # reserved physical page: idle-slot writes, unmapped gathers
 
 MESH_REST = ("serving on a data axis of more than one rank (D > 1) is not ported yet "
-             "(ROADMAP.md queue 1 item 26, its rest): the JAX serve mode shards the "
-             "weights 2-D over data x model and the pools over model only")
+             "(ROADMAP.md queue 1 item 26, its rest: D > 1 serving and loading the "
+             "served weights by shards): the JAX serve mode shards the weights 2-D over "
+             "data x model and the pools over model only; the trainer takes D x M meshes")
 
 
 def check_serve_mesh(mesh) -> int:

@@ -95,6 +95,32 @@ def test_port_files_include_the_tensor_parallel_slice():
         assert mod in names, mod
 
 
+@pytest.mark.parametrize("helper", ["torch_mesh_ranks.py", "torch_mesh_train_ranks.py"])
+def test_mesh_rank_helpers_import_no_jax_and_no_repro(helper):
+    """The processes a mesh test starts run the port alone."""
+    bad = _imported_roots(REPO / "tests" / helper) & set(FORBIDDEN)
+    assert not bad, f"tests/{helper} imports {sorted(bad)}"
+
+
+def test_port_files_include_the_training_mesh():
+    """The training mesh's parts live in the port's modules."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import make_batch_sharded
+    from repro_torch.distributed import axes, sharding
+    from repro_torch.launch import mesh
+    from repro_torch.train.compression import compressed_psum
+
+    assert callable(make_batch_sharded) and callable(compressed_psum)
+    for name in ("enter", "psum", "gather_slices", "data_sum", "materialize",
+                 "make_train_policy"):
+        assert callable(getattr(axes, name)), name
+    for name in ("train_placement", "TrainLayout", "Sharding", "gather_full",
+                 "whole_leaves"):
+        assert hasattr(sharding, name), name
+    assert callable(mesh.make_mesh)
+    assert "shardings" in CheckpointManager.restore.__code__.co_varnames
+
+
 @pytest.mark.parametrize("sub", ["optim", "train", "data", "checkpoint", "distributed"])
 def test_training_subpackages_import_no_jax_or_ml_dtypes(sub):
     for path in sorted((PORT / sub).rglob("*.py")):

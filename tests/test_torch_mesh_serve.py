@@ -4,9 +4,12 @@ port's single-device engine and the JAX package's.
 The twins of ``tests/test_mesh_serve.py`` (dense chunked prefill on both
 backends, ``Server`` static waves, the MoE stack, MLA latent pages,
 preemption and recompute, shared-prefix copy-on-write, the non-dividing
-rejection) run at TP 4 with that file's head lifts (and MLA lifted to 4
-heads: the port runs whole heads on each rank); TP 3 takes the JAX rules'
-fallback for a vocab that does not split; then one case per family
+rejection) run at TP 4 with that file's head lifts.  Deviations: the MLA
+twin serves DeepSeek-V3's stock 2 heads, which a 4-way axis does not split
+into whole heads -- where the JAX rules shard the attention's columns and
+GSPMD serves the rest, each rank of the port runs the whole attention and
+skips its sum while the other products stay sharded; TP 3 takes the JAX
+rules' fallback for a vocab that does not split; then one case per family
 the engine serves runs at TP 2, its weights carried as numpy arrays to both
 packages.  Every rank's
 tokens must equal the single-device port engine's (a divergence is excused
@@ -80,7 +83,7 @@ def _twins():
                           prompts=_prompts(vocab, (12, 9, 14)), max_new=8, stagger=2,
                           ec=_ec(backend=backend)))
         cases.append(dict(name=f"mla_{backend}", arch="deepseek-v3-671b",
-                          over={"block": 8, "n_heads": 4, "decode_backend": backend},
+                          over={"block": 8, "decode_backend": backend},
                           prompts=_prompts(256, (8, 7, 6), seed=1), max_new=6, stagger=2,
                           ec=_ec(backend=backend)))
     arch, over = _dense()
@@ -378,8 +381,10 @@ def test_mesh_parity_moe_stack(runs):
 
 @pytest.mark.parametrize("backend", ["cuda", "reference"])
 def test_mesh_parity_mla_latent_pages(runs, backend):
-    """DeepSeek MLA: latent pools replicate (no head axis): every rank holds
-    the whole pool, attends its 1 of 4 heads, and the tokens match."""
+    """DeepSeek MLA at its stock 2 heads on a 4-way axis: latent pools
+    replicate (no head axis), every rank holds the whole pool and runs the
+    whole attention (its heads do not split), the MoE and FFN stay sharded,
+    and the tokens match."""
     name = f"mla_{backend}"
     assert _check_tokens(runs, name) == 0
     _, out = _results(runs, name)

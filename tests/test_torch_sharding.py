@@ -188,8 +188,9 @@ def _normalised(spec):
 @pytest.mark.parametrize("arch", C.arch_ids())
 def test_serve_placement_is_the_jax_serve_spec_or_kept_whole(arch, tp):
     """What a rank of the port holds: the JAX serve spec on a 1 x M mesh,
-    leaf for leaf, except leaves kept whole -- wq_a, and those the serve
-    mode shards only by its 2-D fallback (the base rules replicate them)."""
+    leaf for leaf, except leaves kept whole -- wq_a, an attention whose
+    heads the axis does not split whole, and those the serve mode shards
+    only by its 2-D fallback (the base rules replicate them)."""
     jmesh, mesh = _meshes(f"1x{tp}")
     jcfg, cfg = JC.get_config(arch), C.get_config(arch)
     shapes = _param_shapes(arch)
@@ -205,7 +206,7 @@ def test_serve_placement_is_the_jax_serve_spec_or_kept_whole(arch, tp):
         stacked = any(s.startswith("seg") or s in ("encoder", "cross") for s in path)
         base = JSH._base_tp_spec(path[-1], dict(_flat(_shapes(shapes)))[path],
                                  ("data", "model"), tp, stacked, jcfg)
-        assert path[-1] in SH.KEPT_WHOLE or all(e is None for e in base), path
+        assert path[-1] in SH.whole_leaves(cfg, tp) or all(e is None for e in base), path
         kept.append(path[-1])
     if any(path[-1] == "wq_a" for path, _ in _flat(placed)):
         assert "wq_a" in kept
@@ -254,13 +255,25 @@ def test_shard_params_keeps_each_ranks_slices(arch):
 
 
 def test_check_local_shards_refuses_split_heads():
-    cfg = C.get_config("hymba-1.5b")  # 25 heads over 5 kv heads
+    """Only what cannot run is refused: paged K/V pools whose kv heads the
+    axis does not split (starcoder2's 4 over 3 ranks), with the JAX
+    package's message.  Hymba's 25 heads over 5 kv heads split 2 ways into
+    no whole heads: each rank holds the whole attention (its SWA rings
+    keep every kv head) and the check passes."""
+    cfg = C.get_config("hymba-1.5b")
     mesh = abstract_mesh((1, 2), ("data", "model"))
     shapes = _shapes(_param_shapes("hymba-1.5b"))
-    with pytest.raises(ValueError, match="n_heads=25, n_kv_heads=5"):
-        SH.check_local_shards(cfg, mesh, SH.serve_placement(cfg, mesh, shapes))
-    SH.check_local_shards(C.get_config("starcoder2-7b"), mesh, SH.serve_placement(
-        C.get_config("starcoder2-7b"), mesh, _shapes(_param_shapes("starcoder2-7b"))))
+    placed = SH.serve_placement(cfg, mesh, shapes)
+    SH.check_local_shards(cfg, mesh, placed)
+    attn = [spec for path, spec in _flat(placed) if path[-1] in ("wq", "wk", "wv", "wo")]
+    assert attn and all(all(e is None for e in spec) for spec in attn)
+    sc = C.get_config("starcoder2-7b")
+    mesh3 = abstract_mesh((1, 3), ("data", "model"))
+    with pytest.raises(ValueError, match="n_kv_heads=4 is not divisible"):
+        SH.check_local_shards(sc, mesh3, SH.serve_placement(
+            sc, mesh3, _shapes(_param_shapes("starcoder2-7b"))))
+    SH.check_local_shards(sc, mesh, SH.serve_placement(
+        sc, mesh, _shapes(_param_shapes("starcoder2-7b"))))
 
 
 @pytest.mark.parametrize("whole_vocab", [False, True])

@@ -35,7 +35,7 @@ from repro.train.compression import dequantize_leaf as jdequantize
 from repro.train.compression import quantize_leaf as jquantize
 from repro_torch import tree as T
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.data import SyntheticLMData, TokenFileData, make_batch_sharded
+from repro_torch.data import SyntheticLMData, TokenFileData
 from repro_torch.launch import steps
 from repro_torch.models import model as M
 from repro_torch.optim import OptConfig, adamw_init, wsd_schedule
@@ -315,12 +315,23 @@ def test_trainer_history_matches_jax_trainer(tmp_path):
 
 
 def test_mesh_is_refused():
-    with pytest.raises(NotImplementedError, match="queue 1 item 26"):
+    """The refusals that remain: a non-mesh or an abstract mesh is no mesh
+    of ranks to train on (``TypeError``), and the CLI's production meshes
+    name the dry run's item (``make_production_mesh``, item 27).  A
+    ``DeviceMesh`` trains (``tests/test_torch_mesh_train.py``)."""
+    from repro_torch.distributed.axes import abstract_mesh
+
+    with pytest.raises(TypeError, match="DeviceMesh"):
         Trainer(_tiny_cfg(), object(), TrainerConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 26"):
-        SyntheticLMData(_tiny_cfg(), 2, 8).batch(0, shardings={"tokens": None})
-    with pytest.raises(NotImplementedError, match="queue 1 item 26"):
-        make_batch_sharded((2, 8), np.int32, None, lambda idx: 0)
+    with pytest.raises(TypeError, match="abstract mesh"):
+        Trainer(_tiny_cfg(), abstract_mesh((2, 1), ("data", "model")), TrainerConfig(),
+                device="cpu")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                        "minicpm-2b", "--smoke", "--device", "cpu", "--steps", "1",
+                        "--mesh", "single"], env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode != 0 and "item 27" in r.stderr
 
 
 def test_train_cli_on_the_cpu(tmp_path):
@@ -333,6 +344,3 @@ def test_train_cli_on_the_cpu(tmp_path):
     assert r.returncode == 0, r.stderr
     assert "final loss" in r.stdout and "on cpu" in r.stdout
     assert sorted(os.listdir(ckpt)) == ["step_00000002", "step_00000004"]
-    r = subprocess.run(base + ["--mesh", "local"], env=env, capture_output=True, text=True,
-                       timeout=300)
-    assert r.returncode != 0 and "queue 1 item 26" in r.stderr
