@@ -177,8 +177,8 @@ Phases, each printing one JSON line:
    weights (seed 0) and traffic (8 prompts of 64-512 tokens, prompt 2 the
    first 300 tokens of prompt 0, 16 new tokens, 4 slots, pages and chunks of
    128), the single-device tokens computed first and freed before the
-   spawn: starcoder2-7b at full width and depth (each rank keeps 14.4 GB of
-   the 29 GB of weights; the ranks take turns drawing the full tree),
+   spawn: starcoder2-7b at full width, 8 of its 32 layers (``CUT_DEPTH``;
+   the ranks take turns drawing the full tree, each keeping half),
    DeepSeek-V3's dense prefix (3 layers, 64 heads a rank) and granite
    (8 layers, ``CUT_DEPTH``; 20 of its 40 experts a rank, one-shot prefill).
    Gates: tokens the same on both ranks and equal to the single-device
@@ -187,8 +187,8 @@ Phases, each printing one JSON line:
    single-device run's, one decode launch per layer and step; each rank's
    pool bytes half of the single-device pool's (head-sharded GQA pools) or
    all of it (MLA latent pools); every MLA decode call of the run within
-   1e-6 of its plain version.  Then starcoder2-7b's bf16 decode step
-   median and p90 on the two ranks, labelled by how many cards they share:
+   1e-6 of its plain version.  Then starcoder2-7b's bf16 decode step (all
+   32 layers) median and p90 on the two ranks, labelled by how many cards they share:
    no tensor-parallel speed-up is claimed.
 16. tp train -- training on a data x model mesh: minicpm-2b at full width
    cut to 4 layers (527,010,048 parameters, above ``REPLICATE_BELOW``, so
@@ -204,6 +204,30 @@ Phases, each printing one JSON line:
    its gathered state; no kernel launched.  Printed: each rank's resident
    bytes and ``max_memory_allocated``, and its step ms labelled "2 ranks
    on one card (gloo)" where they share it -- not a DP or TP speed.
+17. dp serve -- serving on a data x model mesh: four spawned ranks on a
+   ``2 x 2`` mesh, placed as in phase 15 (gloo where they share a card:
+   "4 ranks on one card (gloo)").  Each rank first runs phase 15's kernel
+   head-slice checks on its model slice (the pools sit on a model axis of
+   2, as there; phase 15's checks against the plain versions at those
+   per-rank shapes stand for this phase), then draws its shares of the JAX
+   serve mode's resident weights from seed 0 by shards
+   (``ServeLayout``; no rank holds the full tree) for three fp32 runs on
+   phase 15's traffic, each against the single-device engine on the same
+   weights, computed first: starcoder2-7b at full width, 8 of its 32
+   layers, ``CUT_DEPTH`` (weights split over all four ranks; pools over the model axis,
+   18 of 36 heads over 2 of 4 kv heads a rank), DeepSeek-V3's dense prefix
+   (MLA, 64 of 128 heads a model slice) and granite (8 layers, 10 of its
+   40 experts a rank, one-shot prefill).  Gates: tokens the same on every
+   rank and equal to the single-device engine's under the margin rule (and
+   the router rule for granite); each rank's launches exact
+   (paged_attention_decode and mla_paged_attention_decode one per layer
+   and decode step, paged_copy 2 per COW copy and as on one device, no
+   other kernel); each rank's parameter bytes exactly the serve spec's
+   share plus its kept-whole leaves, its peak while loading below the full
+   tree and within its shares plus one full leaf or layer; pool bytes as
+   in phase 15; every MLA decode call within 1e-6 of its plain version.
+   Printed: each rank's ``max_memory_allocated`` beside its prediction,
+   its load and run seconds and steps per second.
 
 Each phase's seconds follow it on a line of their own.  Then the per-kernel
 summary line (the decode kernels' and the page copy's launches per serving
@@ -300,7 +324,8 @@ WHISPER_SEQ = [0, 127, 300, 447]
 WHISPER_CONTEXT = 448
 # the script's time limit stays while it grows: these serving runs, the
 # slowest on the host, keep their full width and 8 of their layers
-CUT_DEPTH = {"granite-moe-3b-a800m": 8, "h2o-danube-3-4b": 8, "hymba-1.5b": 8}
+CUT_DEPTH = {"granite-moe-3b-a800m": 8, "h2o-danube-3-4b": 8, "hymba-1.5b": 8,
+             "starcoder2-7b": 8}  # starcoder2-7b: phases 15 and 17's fp32 runs
 
 
 def paged_decode_case(torch, gen, shape, seq, dtype, label):
@@ -2475,6 +2500,138 @@ TP_MAX_NEW = 16
 TP_DECODE_SEQ = [0, 127, 600, 1023]
 
 
+def join_group(rank: int, world: int, store: str, device_type: str) -> tuple:
+    """A spawned rank's start: no TF32; rank ``r`` on ``cuda:(r %
+    device_count)`` (the CPU for a rehearsal, one thread a rank); the group
+    through ``store`` (NCCL with a card a rank, else gloo), a timeout on
+    every collective.  Returns (device, card count, backend)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if device_type == "cuda":
+        count = torch.cuda.device_count()
+        device = torch.device("cuda", rank % count)
+        torch.cuda.set_device(device)
+        backend = "nccl" if count >= world else "gloo"
+    else:  # a rehearsal of the phase's code on the CPU
+        count, device, backend = 0, torch.device("cpu"), "gloo"
+        torch.set_num_threads(1)  # the ranks share the host's cores
+    dist.init_process_group(backend, store=dist.FileStore(store, world), rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    return device, count, backend
+
+
+def spawn_ranks(target, world: int, tmp: str, plan: dict, what: str) -> tuple:
+    """``world`` spawned processes of ``target(rank, world, store, tmp,
+    plan)``, each writing ``tmp/rank{rank}.pkl``; any left after
+    ``TP_PHASE_TIMEOUT_S`` are killed and the phase fails.  Returns (the
+    ranks' results, seconds)."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(target, args=(world, f"{tmp}/store", tmp, plan),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + TP_PHASE_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{what}: the ranks did not finish in "
+                                     f"{TP_PHASE_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    ranks = []
+    for r in range(world):
+        with open(f"{tmp}/rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    return ranks, time.perf_counter() - t0
+
+
+def one_device_runs(torch, kernels, models: dict, device) -> tuple:
+    """Each fp32 run of a mesh phase on one device first, on phase 15's
+    traffic, its weights drawn from seed 0 and freed after.  Returns
+    (``{model: (config, engine settings, prompts, arrivals)}``, ``{model:
+    tokens, launches, decode steps, COW copies, pool bytes}``)."""
+    from repro_torch.models import model as M
+    from repro_torch.serve import Engine, EngineConfig
+
+    runs, base = {}, {}
+    for name, (cfg, ec) in models.items():
+        prompts, arrivals = tp_traffic(cfg.vocab_size)
+        params = M.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                               device=device)
+        eng = Engine(cfg, params, EngineConfig(**ec), device=device)
+        for rid, (p, t) in enumerate(zip(prompts, arrivals)):
+            eng.submit(p, TP_MAX_NEW, rid=rid, arrival_step=t)
+        _sync(torch, device)
+        kernels.reset_launch_counts()
+        reqs = eng.run()
+        _sync(torch, device)
+        base[name] = {"tokens": [list(map(int, r.out_tokens)) for r in reqs],
+                      "launches": kernels.launch_counts(), "decode_steps": eng.decode_steps,
+                      "cow_copies": eng.kv.cow_copies, "bytes": eng.kv.cache_bytes()}
+        runs[name] = (cfg, ec, prompts, arrivals)
+        del params, eng
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    return runs, base
+
+
+def rank_run(torch, kernels, eng, prompts, arrivals, device) -> dict:
+    """Run this rank's engine on the traffic in step with its peers: the
+    counts set to 0 just before the run and read just after; every
+    mla_paged_attention_decode call of the run also held against its plain
+    version on the same operands (no launch)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.core import backend as B
+    from repro_torch.kernels.paged_attention import mla_decode_plain
+
+    for rid, (p, t) in enumerate(zip(prompts, arrivals)):
+        eng.submit(p, TP_MAX_NEW, rid=rid, arrival_step=t)
+    errs, real = [], B.mla_paged_attention_decode
+
+    def checked(*args, scale):
+        out = real(*args, scale=scale)
+        errs.append((out.float() - mla_decode_plain(*args, scale=scale).float()).abs().max())
+        return out
+
+    cuda = torch.device(device).type == "cuda"
+    B.mla_paged_attention_decode = checked
+    try:
+        _sync(torch, device)
+        dist.barrier()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        reqs = eng.run()
+        _sync(torch, device)
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+    finally:
+        B.mla_paged_attention_decode = real
+    audit = drained_audit(eng)
+    return {"tokens": [list(map(int, r.out_tokens)) for r in reqs], "launches": counts,
+            "decode_steps": eng.decode_steps, "engine_steps": eng.step_count,
+            "cow_copies": eng.kv.cow_copies,
+            "bytes_per_device": eng.kv.cache_bytes_per_device(), "bytes": eng.kv.cache_bytes(),
+            "audit": dataclasses.asdict(audit), "wall_s": wall,
+            "run_peak_bytes": torch.cuda.max_memory_allocated(device) if cuda else None,
+            "mla_calls": len(errs),
+            "mla_max_abs_err": float(torch.stack(errs).max()) if errs else None}
+
+
 def tp_traffic(vocab: int):
     """8 prompts of 64-512 tokens from a numpy seed; prompt 2 is the first
     300 tokens of prompt 0 (a partial tail page: copy-on-write); arrivals
@@ -2499,7 +2656,8 @@ def tp_models(torch) -> dict:
                  moe_d_ff=0, first_k_dense=0, mtp_depth=0)
     ec = {"max_seqs": 4, "max_len": 1024, "page_size": 128, "prefill_chunk": 128}
     return {
-        "starcoder2-7b": (C.get_config("starcoder2-7b", dtype=torch.float32), ec),
+        "starcoder2-7b": (C.get_config("starcoder2-7b", dtype=torch.float32,
+                                       n_layers=CUT_DEPTH["starcoder2-7b"]), ec),
         "deepseek-v3 dense prefix": (dataclasses.replace(
             C.get_config("deepseek-v3-671b", dtype=torch.float32), **dense), ec),
         "granite-moe-3b-a800m": (C.get_config(
@@ -2617,45 +2775,10 @@ def tp_head_slices(torch, rank: int, world: int, device, shapes: dict) -> dict:
 
 
 def tp_rank_serve(torch, kernels, cfg, ec, prompts, arrivals, mesh, device) -> dict:
-    """One fp32 run on this rank: counts set to 0 just before it and read
-    just after; every mla_paged_attention_decode call of the run also held
-    against its plain version on the same operands (no launch)."""
-    import dataclasses
-
-    import torch.distributed as dist
-
-    from repro_torch.core import backend as B
-    from repro_torch.kernels.paged_attention import mla_decode_plain
-
+    """One fp32 run on this rank (:func:`rank_run`) on the engine of
+    :func:`tp_engine`."""
     eng = tp_engine(torch, cfg, ec, mesh, device)
-    for rid, (p, t) in enumerate(zip(prompts, arrivals)):
-        eng.submit(p, TP_MAX_NEW, rid=rid, arrival_step=t)
-    errs, real = [], B.mla_paged_attention_decode
-
-    def checked(*args, scale):
-        out = real(*args, scale=scale)
-        errs.append((out.float() - mla_decode_plain(*args, scale=scale).float()).abs().max())
-        return out
-
-    B.mla_paged_attention_decode = checked
-    try:
-        _sync(torch, device)
-        dist.barrier()
-        kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        reqs = eng.run()
-        _sync(torch, device)
-        wall = time.perf_counter() - t0
-        counts = kernels.launch_counts()
-    finally:
-        B.mla_paged_attention_decode = real
-    audit = drained_audit(eng)
-    res = {"tokens": [list(map(int, r.out_tokens)) for r in reqs], "launches": counts,
-           "decode_steps": eng.decode_steps, "cow_copies": eng.kv.cow_copies,
-           "bytes_per_device": eng.kv.cache_bytes_per_device(), "bytes": eng.kv.cache_bytes(),
-           "audit": dataclasses.asdict(audit), "wall_s": wall,
-           "mla_calls": len(errs),
-           "mla_max_abs_err": float(torch.stack(errs).max()) if errs else None}
+    res = rank_run(torch, kernels, eng, prompts, arrivals, device)
     del eng
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
@@ -2689,24 +2812,12 @@ def tp_rank(rank: int, world: int, store: str, out_dir: str, plan: dict) -> None
     """One rank of phase 15 (a spawned process): join the group, run the
     kernel head-slice checks, each fp32 model of ``plan``, the bf16 timing;
     write the results to ``out_dir/rank{rank}.pkl``."""
-    import datetime
     import pickle
 
     import torch
     import torch.distributed as dist
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    if plan["device_type"] == "cuda":
-        count = torch.cuda.device_count()
-        device = torch.device("cuda", rank % count)
-        torch.cuda.set_device(device)
-        backend = "nccl" if count >= world else "gloo"
-    else:  # a rehearsal of the phase's code on the CPU
-        count, device, backend = 0, torch.device("cpu"), "gloo"
-        torch.set_num_threads(1)  # the ranks share the host's cores
-    dist.init_process_group(backend, store=dist.FileStore(store, world), rank=rank,
-                            world_size=world, timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    device, count, backend = join_group(rank, world, store, plan["device_type"])
     try:
         import repro_torch.kernels as kernels
         from repro_torch.launch.mesh import make_local_mesh
@@ -2758,44 +2869,22 @@ def tp_excused(torch, cfg, prompts, got, want, label, device="cuda") -> list:
 
 def tp_serve_phase(torch, kernels, device_type: str = "cuda", models=None,
                    timing=None) -> tuple:
-    """Phase 15: starcoder2-7b, DeepSeek-V3's dense prefix and granite (8
-    layers, expert-parallel) on a 1 x 2 mesh against the single-device
-    engine on the same weights and traffic, then starcoder2-7b's bf16
-    decode steps on the two ranks.  ``device_type``, ``models`` and
+    """Phase 15: starcoder2-7b and granite (8 layers each, granite
+    expert-parallel) and DeepSeek-V3's dense prefix on a 1 x 2 mesh against
+    the single-device engine on the same weights and traffic, then
+    starcoder2-7b's bf16 decode steps (32 layers) on the two ranks.  ``device_type``, ``models`` and
     ``timing`` let the same code run at small sizes on the CPU (where the
     kernels' checks against their plain versions do not run).  Returns
     ``({model: its line}, {per-rank decode shape: {dtype: max abs error}})``."""
-    import pickle
     import tempfile
 
     import repro_torch.configs as C
-    import torch.multiprocessing as mp
-    from repro_torch.models import model as M
-    from repro_torch.serve import Engine, EngineConfig
 
     t_phase = time.perf_counter()
     models = models or tp_models(torch)
     device = device_type
     plan = {"device_type": device_type, "models": {}}
-    base = {}
-    for name, (cfg, ec) in models.items():
-        prompts, arrivals = tp_traffic(cfg.vocab_size)
-        params = M.init_params(cfg, torch.Generator(device=device).manual_seed(0),
-                               device=device)
-        eng = Engine(cfg, params, EngineConfig(**ec), device=device)
-        for rid, (p, t) in enumerate(zip(prompts, arrivals)):
-            eng.submit(p, TP_MAX_NEW, rid=rid, arrival_step=t)
-        _sync(torch, device)
-        kernels.reset_launch_counts()
-        reqs = eng.run()
-        _sync(torch, device)
-        base[name] = {"tokens": [list(map(int, r.out_tokens)) for r in reqs],
-                      "launches": kernels.launch_counts(), "decode_steps": eng.decode_steps,
-                      "cow_copies": eng.kv.cow_copies, "bytes": eng.kv.cache_bytes()}
-        plan["models"][name] = (cfg, ec, prompts, arrivals)
-        del params, eng
-        if device_type == "cuda":
-            torch.cuda.empty_cache()
+    plan["models"], base = one_device_runs(torch, kernels, models, device)
     cfg16 = timing or C.get_config("starcoder2-7b")
     sc_cfg, sc_ec, sc_prompts, sc_arrivals = plan["models"]["starcoder2-7b"]
     plan["timing"] = (cfg16, sc_ec, sc_prompts, sc_arrivals)
@@ -2812,26 +2901,8 @@ def tp_serve_phase(torch, kernels, device_type: str = "cuda", models=None,
                                     f"{name} per rank of 1 x {TP_RANKS}")
     base_s = time.perf_counter() - t_phase
 
-    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        ctx = mp.start_processes(tp_rank, args=(TP_RANKS, f"{tmp}/store", tmp, plan),
-                                 nprocs=TP_RANKS, join=False, start_method="spawn")
-        deadline = time.monotonic() + TP_PHASE_TIMEOUT_S
-        try:
-            while not ctx.join(timeout=5):
-                if time.monotonic() > deadline:
-                    raise AssertionError(f"tp_serve: the ranks did not finish in "
-                                         f"{TP_PHASE_TIMEOUT_S} s")
-        finally:
-            for p in ctx.processes:
-                if p.is_alive():
-                    p.kill()
-                    p.join()
-        ranks = []
-        for r in range(TP_RANKS):
-            with open(f"{tmp}/rank{r}.pkl", "rb") as f:
-                ranks.append(pickle.load(f))
-    ranks_s = time.perf_counter() - t0
+        ranks, ranks_s = spawn_ranks(tp_rank, TP_RANKS, tmp, plan, "tp_serve")
     emit({"phase": "tp_serve", "ranks": TP_RANKS, "backend": ranks[0]["backend"],
           "device_count": ranks[0]["device_count"],
           "rank_devices": [rk["device"] for rk in ranks]})
@@ -3087,24 +3158,12 @@ def tt_rank(rank: int, world: int, store: str, out_dir: str, plan: dict) -> None
     """One rank of phase 16 (a spawned process): join the group (NCCL with a
     card a rank, else gloo), run each mesh of ``TT_MESHES``, write the
     results to ``out_dir/rank{rank}.pkl``."""
-    import datetime
     import pickle
 
     import torch
     import torch.distributed as dist
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    if plan["device_type"] == "cuda":
-        count = torch.cuda.device_count()
-        device = torch.device("cuda", rank % count)
-        torch.cuda.set_device(device)
-        backend = "nccl" if count >= world else "gloo"
-    else:  # a rehearsal of the phase's code on the CPU
-        count, device, backend = 0, torch.device("cpu"), "gloo"
-        torch.set_num_threads(1)  # the ranks share the host's cores
-    dist.init_process_group(backend, store=dist.FileStore(store, world), rank=rank,
-                            world_size=world, timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    device, count, backend = join_group(rank, world, store, plan["device_type"])
     try:
         import repro_torch.kernels as kernels
         from repro_torch.distributed import sharding
@@ -3129,10 +3188,8 @@ def tp_train_phase(torch, kernels, device_type: str = "cuda", cfg=None,
     module docstring.  ``device_type``, ``cfg`` and ``replicate_below`` (the
     ranks' ``REPLICATE_BELOW``, for a model smaller than it) let the same
     code run at a small size on the CPU.  Returns ``{mesh: its line}``."""
-    import pickle
     import tempfile
 
-    import torch.multiprocessing as mp
 
     t_phase = time.perf_counter()
     cfg = cfg or tt_config(torch)
@@ -3146,25 +3203,7 @@ def tp_train_phase(torch, kernels, device_type: str = "cuda", cfg=None,
                                  f"{single['launches']}")
         plan = {"device_type": device_type, "cfg": cfg, "single_dir": f"{tmp}/single",
                 "replicate_below": replicate_below}
-        t0 = time.perf_counter()
-        ctx = mp.start_processes(tt_rank, args=(TP_RANKS, f"{tmp}/store", tmp, plan),
-                                 nprocs=TP_RANKS, join=False, start_method="spawn")
-        deadline = time.monotonic() + TP_PHASE_TIMEOUT_S
-        try:
-            while not ctx.join(timeout=5):
-                if time.monotonic() > deadline:
-                    raise AssertionError(f"tp_train: the ranks did not finish in "
-                                         f"{TP_PHASE_TIMEOUT_S} s")
-        finally:
-            for p in ctx.processes:
-                if p.is_alive():
-                    p.kill()
-                    p.join()
-        ranks = []
-        for r in range(TP_RANKS):
-            with open(f"{tmp}/rank{r}.pkl", "rb") as f:
-                ranks.append(pickle.load(f))
-        ranks_s = time.perf_counter() - t0
+        ranks, ranks_s = spawn_ranks(tt_rank, TP_RANKS, tmp, plan, "tp_train")
     count, backend = ranks[0]["device_count"], ranks[0]["backend"]
     label = (f"{TP_RANKS} ranks on the CPU ({backend})" if count == 0
              else f"{TP_RANKS} ranks on one card ({backend})" if count < TP_RANKS
@@ -3222,6 +3261,256 @@ def tp_train_phase(torch, kernels, device_type: str = "cuda", cfg=None,
                                  "on one device")
         result[spec] = line
     emit({"phase": "tp_train", "one_device_s": single["fit_s"], "ranks_s": ranks_s,
+          "phase_s": time.perf_counter() - t_phase})
+    return result
+
+
+# phase 17: serving on a data x model mesh, four ranks spawned as in phase
+# 15 on a 2 x 2 mesh, each drawing its shards of the JAX serve mode's
+# resident weights from the seed (no rank holds the full tree), on phase
+# 15's models.
+DP_MESH = "2x2"
+DP_RANKS = 4
+DP_MODEL_AXIS = 2
+# a rank's transient while loading, beyond its shares and one full unit
+# (the caching allocator's rounding, a piece being cut)
+DP_LOAD_SLACK = 256 << 20
+
+
+def dp_load_units(cfg) -> tuple:
+    """(bytes of the full tree, bytes of its largest unit a rank draws whole
+    while loading by shards: one leaf outside the layer stacks, or one
+    layer of a stack) of ``cfg``'s parameters."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    size = torch.empty((), dtype=cfg.dtype).element_size()
+    shapes = M.param_shapes(cfg)
+    total, unit = 0, 0
+    for key, sub in shapes.items():
+        leaves = [s for _p, s in _flat_shapes(sub)]
+        n = sum(math.prod(s) for s in leaves) * size
+        total += n
+        if M.is_layer_stack(key):
+            unit = max(unit, n // leaves[0][0])
+        else:
+            unit = max(unit, max(math.prod(s) for s in leaves) * size)
+    return total, unit
+
+
+def _flat_shapes(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flat_shapes(v, path + (k,))
+    else:
+        yield path, tree
+
+
+def dp_rank_serve(torch, kernels, cfg, ec, prompts, arrivals, mesh, device) -> dict:
+    """One fp32 run on this rank (:func:`rank_run`): its shards drawn from
+    seed 0 (the single-device run's numbers), the peak while loading, the
+    bytes it stores against the serve spec's share, and the engine built
+    on the tree as drawn."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import model as M
+    from repro_torch.serve import Engine, EngineConfig
+
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        base_alloc = torch.cuda.memory_allocated(device)
+    t0 = time.perf_counter()
+    layout = SH.ServeLayout(cfg, mesh)
+    params = M.init_params(cfg, torch.Generator(device=device).manual_seed(0), device=device,
+                           layout=layout)
+    _sync(torch, device)
+    load_s = time.perf_counter() - t0
+    load_peak = torch.cuda.max_memory_allocated(device) - base_alloc if cuda else None
+    leaves = [t for _p, t in SH.flat_items(params)]
+    eng = Engine(cfg, params, EngineConfig(**ec), mesh=mesh, device=device)
+    kept = all(a is b for (_p, a), b in zip(SH.flat_items(eng.params), leaves))
+    res = rank_run(torch, kernels, eng, prompts, arrivals, device)
+    res.update(load_s=load_s, load_peak_bytes=load_peak, placed_tree_kept=kept,
+               param_bytes=sum(t.numel() * t.element_size() for t in leaves),
+               param_bytes_by_spec=layout.share_nbytes(params),
+               gathered_each_step=layout.gathered())
+    del eng, params, leaves
+    if cuda:
+        torch.cuda.empty_cache()
+    return res
+
+
+def dp_rank(rank: int, world: int, store: str, out_dir: str, plan: dict) -> None:
+    """One rank of phase 17 (a spawned process): join the group, build the
+    ``2 x 2`` mesh, run phase 15's kernel head-slice checks on its model
+    slice, then each fp32 model of ``plan``; write the results to
+    ``out_dir/rank{rank}.pkl``."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    device, count, backend = join_group(rank, world, store, plan["device_type"])
+    try:
+        import repro_torch.kernels as kernels
+        from repro_torch.distributed.axes import mesh_coords
+        from repro_torch.launch.mesh import make_serve_mesh
+
+        mesh = make_serve_mesh(DP_MESH)
+        coords = mesh_coords(mesh)
+        out = {"rank": rank, "coords": coords, "device": str(device), "backend": backend,
+               "device_count": count,
+               "head_slices": tp_head_slices(torch, coords["model"], DP_MODEL_AXIS, device,
+                                             plan["shapes"])}
+        for name, (cfg, ec, prompts, arrivals) in plan["models"].items():
+            out[name] = dp_rank_serve(torch, kernels, cfg, ec, prompts, arrivals, mesh, device)
+        with open(f"{out_dir}/rank{rank}.pkl", "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_serve_phase(torch, kernels, device_type: str = "cuda", models=None,
+                   checked=None) -> dict:
+    """Phase 17: starcoder2-7b (8 layers), DeepSeek-V3's dense prefix and
+    granite (8 layers) on a 2 x 2 mesh, four spawned ranks each drawing its
+    shards from seed 0, against the single-device engine on the same
+    weights and traffic.  ``checked``: phase 15's checks of
+    paged_attention_decode against decode_plain at the per-rank decode
+    shapes (the same here: the pools sit on a model axis of 2 as there);
+    run here where not given.  ``device_type`` and ``models`` let the same
+    code run at small sizes on the CPU.  Returns ``{model: its line}``."""
+    import tempfile
+
+
+    t_phase = time.perf_counter()
+    models = models or tp_models(torch)
+    device = device_type
+    plan = {"device_type": device_type, "models": {}, "shapes": tp_decode_shapes(models)}
+    plan["models"], base = one_device_runs(torch, kernels, models, device)
+    if checked is None and device_type == "cuda":
+        checked = {}
+        for name, (kernel, shape) in plan["shapes"].items():
+            if kernel == "paged_attention_decode":
+                rank_shape = tp_rank_shape(shape, kernel, DP_MODEL_AXIS)
+                checked[f"{name} per rank of {DP_MESH} {list(rank_shape)}"] = \
+                    paged_decode_checks(torch, rank_shape, TP_DECODE_SEQ,
+                                        f"{name} per rank of {DP_MESH}")
+    base_s = time.perf_counter() - t_phase
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks, ranks_s = spawn_ranks(dp_rank, DP_RANKS, tmp, plan, "dp_serve")
+    count, backend = ranks[0]["device_count"], ranks[0]["backend"]
+    label = (f"{DP_RANKS} ranks on the CPU ({backend})" if count == 0
+             else f"{DP_RANKS} ranks on one card ({backend})" if count == 1
+             else f"{DP_RANKS} ranks on {min(count, DP_RANKS)} cards ({backend})")
+    emit({"phase": "dp_serve", "mesh": DP_MESH, "ranks": DP_RANKS, "label": label,
+          "backend": backend, "device_count": count,
+          "rank_coords": [rk["coords"] for rk in ranks],
+          "rank_devices": [rk["device"] for rk in ranks],
+          "kernel_checks_vs_plain": sorted(checked or {})})
+    for rk in ranks:
+        emit({"phase": "dp_serve", "rank": rk["rank"], "coords": rk["coords"],
+              "check": "one launch on the model slice's heads == the head slice of the "
+                       "launch on every head, bit for bit (paged_copy: the slice's pool)",
+              "equal": rk["head_slices"]})
+        if not all(ok for by_model in rk["head_slices"].values()
+                   for by_kernel in by_model.values() for ok in by_kernel.values()):
+            raise AssertionError(f"rank {rk['rank']}: a kernel on its heads is not the head "
+                                 f"slice: {rk['head_slices']}")
+
+    result = {}
+    for name, (cfg, ec, prompts, arrivals) in plan["models"].items():
+        mine = [rk[name] for rk in ranks]
+        b = base[name]
+        if any(m["tokens"] != mine[0]["tokens"] for m in mine):
+            raise AssertionError(f"{name}: the ranks sampled different tokens")
+        excused = tp_excused(torch, cfg, prompts, mine[0]["tokens"], b["tokens"],
+                             f"{name} on {DP_MESH} vs one device", device)
+        kernel = "mla_paged_attention_decode" if cfg.attn_type == "mla" else \
+            "paged_attention_decode"
+        b["full_tree_bytes"], b["load_unit_bytes"] = dp_load_units(cfg)
+        bound = [m["param_bytes"] + b["load_unit_bytes"] + DP_LOAD_SLACK for m in mine]
+        line = {"phase": "dp_serve", "model": name, "run": f"fp32, {DP_MESH} mesh",
+                "label": label, "layers": cfg.n_layers, "requests": len(prompts),
+                "prompt_lens": [len(p) for p in prompts], "of": TP_MAX_NEW,
+                "excused": excused_counts(excused), "excused_divergences": excused,
+                "decode_steps": [m["decode_steps"] for m in mine],
+                "decode_steps_one_device": b["decode_steps"],
+                "engine_steps": [m["engine_steps"] for m in mine],
+                "launches_per_rank": [m["launches"] for m in mine],
+                "launches_one_device": b["launches"],
+                "cow_copies": [m["cow_copies"] for m in mine],
+                "param_bytes_per_rank": [m["param_bytes"] for m in mine],
+                "param_bytes_by_spec": [m["param_bytes_by_spec"] for m in mine],
+                "full_tree_bytes": b["full_tree_bytes"],
+                "gathered_each_step": mine[0]["gathered_each_step"],
+                "load_peak_bytes_per_rank": [m["load_peak_bytes"] for m in mine],
+                "load_peak_bound_bytes": bound,
+                "max_memory_allocated_per_rank": [m["run_peak_bytes"] for m in mine],
+                "max_memory_allocated_predicted": [
+                    m["param_bytes"] + m["bytes_per_device"] for m in mine],
+                "pool_bytes_per_rank": [m["bytes_per_device"] for m in mine],
+                "pool_bytes_one_device": b["bytes"],
+                "load_s": [m["load_s"] for m in mine], "wall_s": [m["wall_s"] for m in mine],
+                "engine_steps_per_s": [m["engine_steps"] / m["wall_s"] for m in mine],
+                "decode_steps_per_s": [m["decode_steps"] / m["wall_s"] for m in mine]}
+        if cfg.attn_type == "mla":
+            line["mla_calls_per_rank"] = [m["mla_calls"] for m in mine]
+            line["mla_max_abs_err_vs_plain"] = max(
+                (m["mla_max_abs_err"] for m in mine if m["mla_calls"]), default=None)
+        emit(line)
+        for m in mine:
+            if m["decode_steps"] != b["decode_steps"]:
+                raise AssertionError(f"{name}: {m['decode_steps']} decode steps on a rank, "
+                                     f"{b['decode_steps']} on one device")
+            if m["param_bytes"] != m["param_bytes_by_spec"] or not m["placed_tree_kept"]:
+                raise AssertionError(f"{name}: a rank stores {m['param_bytes']} parameter "
+                                     f"bytes, the serve spec's share is "
+                                     f"{m['param_bytes_by_spec']} (tree kept: "
+                                     f"{m['placed_tree_kept']})")
+            if m["param_bytes"] >= b["full_tree_bytes"]:
+                raise AssertionError(f"{name}: a rank stores the full tree")
+            if device_type != "cuda":
+                continue
+            if m["load_peak_bytes"] >= b["full_tree_bytes"] or \
+                    m["load_peak_bytes"] > m["param_bytes"] + b["load_unit_bytes"] + DP_LOAD_SLACK:
+                raise AssertionError(f"{name}: a rank's peak while loading was "
+                                     f"{m['load_peak_bytes']} bytes: its shares "
+                                     f"{m['param_bytes']}, one unit {b['load_unit_bytes']}, "
+                                     f"the full tree {b['full_tree_bytes']}")
+            if m["launches"][kernel] != cfg.n_layers * m["decode_steps"]:
+                raise AssertionError(f"{name}: {kernel} launched {m['launches'][kernel]} "
+                                     f"times on a rank, not {cfg.n_layers} x "
+                                     f"{m['decode_steps']}")
+            if m["launches"]["paged_copy"] != 2 * m["cow_copies"] or \
+                    m["launches"]["paged_copy"] != b["launches"]["paged_copy"]:
+                raise AssertionError(f"{name}: paged_copy launched "
+                                     f"{m['launches']['paged_copy']} times on a rank for "
+                                     f"{m['cow_copies']} COW copies, "
+                                     f"{b['launches']['paged_copy']} on one device")
+            others = {k: n for k, n in m["launches"].items()
+                      if n and k not in (kernel, "paged_copy")}
+            if others:
+                raise AssertionError(f"{name}: other kernels launched: {others}")
+        sharded = cfg.attn_type != "mla"  # GQA pools head-shard; MLA latents replicate
+        want = b["bytes"] // DP_MODEL_AXIS if sharded else b["bytes"]
+        if any(m["bytes_per_device"] != want for m in mine):
+            raise AssertionError(f"{name}: pool bytes per rank "
+                                 f"{[m['bytes_per_device'] for m in mine]}, want {want}")
+        if cfg.attn_type == "mla":  # every call of the run held against plain
+            if any(m["mla_calls"] != cfg.n_layers * m["decode_steps"] for m in mine):
+                raise AssertionError(f"{name}: {line['mla_calls_per_rank']} MLA decodes "
+                                     f"checked, not {cfg.n_layers} a step")
+            if line["mla_max_abs_err_vs_plain"] > PAGED_TOL:
+                raise AssertionError(f"{name}: MLA decode vs plain "
+                                     f"{line['mla_max_abs_err_vs_plain']} > {PAGED_TOL}")
+        if name == "starcoder2-7b" and mine[0]["cow_copies"] < 1:
+            raise AssertionError("starcoder2-7b: no copy-on-write on the ranks")
+        result[name] = line
+    emit({"phase": "dp_serve", "one_device_s": base_s, "ranks_s": ranks_s,
           "phase_s": time.perf_counter() - t_phase})
     return result
 
@@ -3342,6 +3631,11 @@ def main() -> int:
     done("tp_train")
     tp_rank0 = {name: run["launches_per_rank"][0] for name, run in tp.items()}
 
+    # 17. serving on a data x model mesh: four ranks on 2 x 2, drawn by shards
+    dp = dp_serve_phase(torch, kernels, checked=tp_checked)
+    done("dp_serve")
+    dp_rank0 = {name: run["launches_per_rank"][0] for name, run in dp.items()}
+
     # the decode kernels' launches in each serving run that drives them
     by_run = {
         "paged_attention_decode": {
@@ -3349,23 +3643,32 @@ def main() -> int:
             "granite-moe-3b-a800m fp32": moe["granite"]["paged_attention_decode"],
             "h2o-danube-3-4b fp32": swa["paged_attention_decode"],
             "whisper-tiny fp32": encdec["paged_attention_decode"],
-            "starcoder2-7b fp32, rank 0 of 1 x 2":
+            "starcoder2-7b 8 layers fp32, rank 0 of 1 x 2":
                 tp_rank0["starcoder2-7b"]["paged_attention_decode"],
             "granite-moe-3b-a800m fp32, rank 0 of 1 x 2":
-                tp_rank0["granite-moe-3b-a800m"]["paged_attention_decode"]},
+                tp_rank0["granite-moe-3b-a800m"]["paged_attention_decode"],
+            "starcoder2-7b 8 layers fp32, rank 0 of 2 x 2":
+                dp_rank0["starcoder2-7b"]["paged_attention_decode"],
+            "granite-moe-3b-a800m fp32, rank 0 of 2 x 2":
+                dp_rank0["granite-moe-3b-a800m"]["paged_attention_decode"]},
         "paged_copy": {
             "starcoder2-7b fp32": served["launches"]["paged_copy"],
             "deepseek-v3 dense prefix fp32": mla_counts["paged_copy"],
             "granite-moe-3b-a800m fp32": moe["granite"]["paged_copy"],
             "whisper-tiny fp32": encdec["paged_copy"],
-            "starcoder2-7b fp32, rank 0 of 1 x 2": tp_rank0["starcoder2-7b"]["paged_copy"],
+            "starcoder2-7b 8 layers fp32, rank 0 of 1 x 2": tp_rank0["starcoder2-7b"]["paged_copy"],
             "deepseek-v3 dense prefix fp32, rank 0 of 1 x 2":
-                tp_rank0["deepseek-v3 dense prefix"]["paged_copy"]},
+                tp_rank0["deepseek-v3 dense prefix"]["paged_copy"],
+            "starcoder2-7b 8 layers fp32, rank 0 of 2 x 2": dp_rank0["starcoder2-7b"]["paged_copy"],
+            "deepseek-v3 dense prefix fp32, rank 0 of 2 x 2":
+                dp_rank0["deepseek-v3 dense prefix"]["paged_copy"]},
         "mla_paged_attention_decode": {
             "deepseek-v3 dense prefix fp32": mla_counts["mla_paged_attention_decode"],
             "deepseek-v3 4 layers (moe) bf16": moe["deepseek"]["mla_paged_attention_decode"],
             "deepseek-v3 dense prefix fp32, rank 0 of 1 x 2":
-                tp_rank0["deepseek-v3 dense prefix"]["mla_paged_attention_decode"]},
+                tp_rank0["deepseek-v3 dense prefix"]["mla_paged_attention_decode"],
+            "deepseek-v3 dense prefix fp32, rank 0 of 2 x 2":
+                dp_rank0["deepseek-v3 dense prefix"]["mla_paged_attention_decode"]},
     }
 
     # the decode kernel's checks at the other serving runs' decode shapes

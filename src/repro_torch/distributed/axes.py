@@ -10,9 +10,18 @@ The serving engine and the trainer install a :class:`ShardPolicy` around
 each of their steps (:func:`policy`), and the model reads it.  Serving: the
 row-parallel products (``wo``, ``w_down``), the vocab-sharded embedding and
 logits and the MoE's gated sum add their ranks' shares with :func:`psum`,
-one ``all_reduce`` over the model axis, in place.  Training (a policy made
-by :func:`make_train_policy`) runs the same sites through autograd
-functions in the Megatron pattern:
+one ``all_reduce`` in place, over the ranks the product's inner dim is
+split among (:func:`split_place`): the model axis where a rank holds 1/M of
+it, every rank of a ``D x M`` mesh where it holds 1/(D*M) -- the JAX serve
+mode's weights, resident and split over all axes, model-major (rank ``(d,
+m)`` holds block ``m*D + d``).  Such a column-parallel attention product is
+gathered over the data axis into the rank's model slice of heads
+(:func:`data_gather`), where its pools lie, and the row-parallel ``wo``
+multiplies the rank's data part of the attention output
+(:func:`data_part`).  The rare leaf the serve layout stores in no layout
+the model computes on is gathered before a step reads it
+(:func:`resident`).  Training (a policy made by :func:`make_train_policy`)
+runs the same sites through autograd functions in the Megatron pattern:
 
 * :func:`psum` -- the row-parallel sum: ``all_reduce`` forward, identity
   backward;
@@ -107,19 +116,24 @@ class LeafUse:
     """How the model reads one stored leaf: the dim split over the data
     axis that ZeRO gathers first (None: not split there), then the dim
     split over the model axis that the model runs whole (None: it runs the
-    rank's slice, or the leaf is not split there)."""
+    rank's slice, or the leaf is not split there), then, in serving, the
+    dim whose model slice the rank cuts from the whole (None: none)."""
 
     data_dim: Optional[int] = None
     model_dim: Optional[int] = None
+    cut_dim: Optional[int] = None
 
 
 @dataclasses.dataclass(frozen=True)
 class ShardPolicy:
     """What a rank's model code needs of the mesh: the model axis's process
-    group, this rank's coordinate on it and its size; in training also the
-    data axis's group, coordinate and size, whether the batch rows split
-    over it (``rows_split``), and ``plan``, a :class:`LeafUse` tree per
-    top-level parameter key (per layer for a stacked key)."""
+    group, this rank's coordinate on it and its size; the data axis's
+    group, coordinate and size; in serving the group of every rank
+    (``world``); in training whether the batch rows split over the data
+    axis (``rows_split``); and ``plan``: in training a :class:`LeafUse`
+    tree per top-level parameter key (per layer for a stacked key), in
+    serving one per key whose stored leaves the model cannot read as they
+    are (whole stacks; :func:`resident`)."""
 
     group: object = dataclasses.field(compare=False)
     tp_rank: int
@@ -130,19 +144,19 @@ class ShardPolicy:
     rows_split: bool = False
     train: bool = False
     plan: object = dataclasses.field(default=None, compare=False)
+    world: object = dataclasses.field(default=None, compare=False)
 
 
-def make_policy(mesh) -> ShardPolicy:
-    """The shard policy of a ``DeviceMesh`` with a ``"model"`` axis.  Where
-    the model axis spans every rank (the ``1 x M`` meshes that serving
-    takes) its group is the default group, which carries the caller's
-    timeout; a model axis of part of the world uses the mesh's own group."""
-    if isinstance(mesh, AbstractMesh):
-        raise TypeError("an abstract mesh has no ranks: build the mesh with "
-                        "repro_torch.launch.mesh.make_serve_mesh over a process group")
-    size = mesh_shape(mesh)["model"]
-    group = dist.group.WORLD if size == dist.get_world_size() else mesh.get_group("model")
-    return ShardPolicy(group=group, tp_rank=mesh_coords(mesh)["model"], tp_size=size)
+def make_policy(mesh, plan=None, groups=None) -> ShardPolicy:
+    """The serving policy of a ``D x M`` ``DeviceMesh``: both axes' groups
+    (:func:`axis_groups`, or ``groups`` made by it), the default group as
+    ``world``, this rank's coordinates, and ``plan`` (the serve layout's
+    gathers, :meth:`repro_torch.distributed.sharding.ServeLayout.plan`)."""
+    groups = axis_groups(mesh) if groups is None else groups
+    shape, coords = mesh_shape(mesh), mesh_coords(mesh)
+    return ShardPolicy(group=groups["model"], tp_rank=coords["model"], tp_size=shape["model"],
+                       dp_group=groups["data"], dp_rank=coords["data"], dp_size=shape["data"],
+                       plan=plan, world=dist.group.WORLD)
 
 
 def _default_timeout():
@@ -155,15 +169,21 @@ def _default_timeout():
         return None
 
 
+_GROUPS: Dict[int, Tuple[object, Dict[str, object]]] = {}
+
+
 def axis_groups(mesh) -> Dict[str, object]:
     """This rank's process group on each axis of a ``D x M`` ``DeviceMesh``:
     the default group where the axis spans every rank, else a group made
     here with the default group's timeout (every rank calls this, in the
-    same order: ``new_group`` is collective).  A group's ranks are sorted,
-    so a rank's place in it is its coordinate on the axis."""
+    same order: ``new_group`` is collective), once per mesh.  A group's
+    ranks are sorted, so a rank's place in it is its coordinate on the
+    axis."""
     if isinstance(mesh, AbstractMesh):
         raise TypeError("an abstract mesh has no ranks: build the mesh with "
                         "repro_torch.launch.mesh over a process group")
+    if id(mesh) in _GROUPS:  # the mesh is held there, so its id is not reused
+        return _GROUPS[id(mesh)][1]
     ids = mesh.mesh  # (D, M) global ranks
     coords = mesh_coords(mesh)
     world = dist.get_world_size()
@@ -181,6 +201,7 @@ def axis_groups(mesh) -> Dict[str, object]:
             g = dist.new_group(line, timeout=timeout)
             if line == mine:
                 out[axis] = g
+    _GROUPS[id(mesh)] = (mesh, out)
     return out
 
 
@@ -235,10 +256,10 @@ def model_coord(what: str = "a sharded parameter") -> Tuple[int, int]:
 
 def check_split(local: int, full: int, what: str) -> None:
     """Raise, as :func:`model_coord` does, where a dimension the model reads
-    holds ``local`` of ``full`` (a rank's heads, experts or widths) with no
-    policy installed."""
+    holds ``local`` of ``full`` (a rank's heads, experts or widths) and no
+    installed policy splits it so (:func:`split_place`)."""
     if local != full:
-        model_coord(f"{what} ({local} of {full})")
+        split_place(local, full, what)
 
 
 class _SumForward(torch.autograd.Function):
@@ -321,20 +342,44 @@ def _training(pol: Optional[ShardPolicy]) -> bool:
     return pol is not None and pol.train
 
 
-def psum(x: torch.Tensor, *, split: bool = True) -> torch.Tensor:
-    """Sum ``x`` over the model axis: one ``all_reduce`` (every rank gets
-    the same bits), in place in serving, through :class:`_SumForward` in
-    training.  A no-op outside a policy, on a model axis of one rank, or
-    where the product is not ``split`` (its leaves whole on each rank, so
-    each rank holds the whole sum)."""
+def split_place(local: int, full: int, what: str = "a split dim") -> Tuple[int, int, object]:
+    """(this rank's place, the number of places, their group) of a dim the
+    model reads ``local`` of ``full`` entries of: ``(0, 1, None)`` where it
+    holds all of them; the model axis where it holds 1/M; in serving on a
+    ``D x M`` mesh, every rank, model-major (place ``m*D + d``), where it
+    holds 1/(D*M).  Raises, as :func:`model_coord` does, where no installed
+    policy splits the dim so."""
+    if local == full:
+        return 0, 1, None
     pol = _CURRENT
-    if pol is None or pol.tp_size == 1 or not split:
+    if pol is not None and pol.tp_size > 1 and full == local * pol.tp_size:
+        return pol.tp_rank, pol.tp_size, pol.group
+    if pol is not None and not pol.train and pol.dp_size > 1 and \
+            full == local * pol.dp_size * pol.tp_size:
+        return pol.tp_rank * pol.dp_size + pol.dp_rank, pol.dp_size * pol.tp_size, pol.world
+    model_coord(f"{what} ({local} of {full})")
+    raise RuntimeError(f"{what} holds {local} of {full}: no split of this mesh's axes")
+
+
+def psum(x: torch.Tensor, local: int, full: int, what: str = "a split product") -> torch.Tensor:
+    """Sum ``x``, a product over an inner dim of ``full`` entries of which
+    the rank holds ``local``, over the ranks that share that dim
+    (:func:`split_place`): one ``all_reduce`` (every rank gets the same
+    bits), in place in serving, through :class:`_SumForward` in training.
+    A no-op outside a policy of several ranks, or where the rank holds the
+    whole dim (its leaves whole on each rank, so each rank holds the whole
+    sum)."""
+    pol = _CURRENT
+    if pol is None or pol.tp_size * pol.dp_size == 1:
         return x
-    if pol.group is None:
+    _, n, group = split_place(local, full, what)
+    if n == 1:
+        return x
+    if group is None:
         raise RuntimeError("the shard policy of an abstract mesh has no process group")
-    if pol.train:
-        return _SumForward.apply(x, pol.group)
-    dist.all_reduce(x, group=pol.group)
+    if _CURRENT.train:
+        return _SumForward.apply(x, group)
+    dist.all_reduce(x, group=group)
     return x
 
 
@@ -375,7 +420,18 @@ def data_size() -> int:
     return pol.dp_size if _training(pol) else 1
 
 
-def _use(x: torch.Tensor, use: LeafUse, pol: ShardPolicy) -> torch.Tensor:
+def _use(x: torch.Tensor, use: Optional[LeafUse], pol: ShardPolicy) -> torch.Tensor:
+    if use is None:
+        return x
+    if not pol.train:  # serving: plain collectives, then the model slice
+        if use.data_dim is not None:
+            x = _gather(x, use.data_dim, pol.dp_rank, pol.dp_size, pol.dp_group)
+        if use.model_dim is not None:
+            x = _gather(x, use.model_dim, pol.tp_rank, pol.tp_size, pol.group)
+        if use.cut_dim is not None:
+            n = x.shape[use.cut_dim] // pol.tp_size
+            x = x.narrow(use.cut_dim, pol.tp_rank * n, n).contiguous()
+        return x
     if use.data_dim is not None:
         x = _Gather.apply(x, use.data_dim, pol.dp_rank, pol.dp_size, pol.dp_group, True)
     if use.model_dim is not None:
@@ -385,7 +441,7 @@ def _use(x: torch.Tensor, use: LeafUse, pol: ShardPolicy) -> torch.Tensor:
 
 def _map_uses(tree, uses, pol):
     if isinstance(tree, dict):
-        return {k: _map_uses(v, uses[k], pol) for k, v in tree.items()}
+        return {k: _map_uses(v, uses.get(k), pol) if uses else v for k, v in tree.items()}
     return _use(tree, uses, pol)
 
 
@@ -416,23 +472,72 @@ def gather_stack(key_path: Tuple[str, ...], stack: torch.Tensor) -> torch.Tensor
     return _use(stack, uses, pol)
 
 
-def gather_slices(local: torch.Tensor, full: int, dim: int = -1) -> torch.Tensor:
-    """The whole of a tensor whose ``dim`` is split evenly over the model
-    axis, from this rank's slice: each rank writes its slice into zeros and
-    one :func:`psum` adds them (an all-gather from ``all_reduce`` alone,
-    which every backend offers for CUDA tensors).  Exact: every element is
-    one rank's value plus zeros.  In training the backward keeps the rank's
-    slice of the gradient (every rank's loss is the whole loss)."""
-    if local.shape[dim] == full:
-        return local
-    rank, size = model_coord("a slice of the model axis")
-    dim = dim % local.dim()
-    pol = _CURRENT
-    if pol.train:
-        return _Gather.apply(local, dim, rank, size, pol.group, False)
+def _gather(local: torch.Tensor, dim: int, rank: int, size: int, group) -> torch.Tensor:
+    """Serving's all-gather: zeros with ``local`` at the rank's place, one
+    ``all_reduce`` (exact: every element is one rank's value plus zeros)."""
     n = local.shape[dim]
     shape = list(local.shape)
-    shape[dim] = full
+    shape[dim] = n * size
     out = local.new_zeros(shape)
     out.narrow(dim, rank * n, n).copy_(local)
-    return psum(out)
+    dist.all_reduce(out, group=group)
+    return out
+
+
+def gather_slices(local: torch.Tensor, full: int, dim: int = -1,
+                  what: str = "a slice") -> torch.Tensor:
+    """The whole of a tensor whose ``dim`` is split evenly over the ranks
+    of :func:`split_place`, from this rank's slice: each rank writes its
+    slice into zeros and one ``all_reduce`` adds them (an all-gather from
+    ``all_reduce`` alone, which every backend offers for CUDA tensors).
+    Exact: every element is one rank's value plus zeros.  In training the
+    backward keeps the rank's slice of the gradient (every rank's loss is
+    the whole loss)."""
+    if local.shape[dim] == full:
+        return local
+    rank, size, group = split_place(local.shape[dim], full, what)
+    dim = dim % local.dim()
+    if _CURRENT.train:
+        return _Gather.apply(local, dim, rank, size, group, False)
+    return _gather(local, dim, rank, size, group)
+
+
+def _serving_data(pol: Optional[ShardPolicy]) -> bool:
+    return pol is not None and not pol.train and pol.dp_size > 1
+
+
+def data_gather(local: torch.Tensor, full: int, dim: int = -1) -> torch.Tensor:
+    """A column-parallel product of ``full`` columns that the rank holds
+    1/(D*M) of (the serve layout's model-major block ``m*D + d``), gathered
+    over the data axis into the rank's model slice (1/M of ``full``: the
+    heads its pools hold); anything else as it is."""
+    pol = _CURRENT
+    if not _serving_data(pol) or local.shape[dim] * pol.dp_size * pol.tp_size != full:
+        return local
+    return _gather(local, dim % local.dim(), pol.dp_rank, pol.dp_size, pol.dp_group)
+
+
+def data_part(x: torch.Tensor, n: int, dim: int = -1) -> torch.Tensor:
+    """The part of ``x`` (a model slice) that a row block of ``n`` entries
+    multiplies: ``x`` where the block is all of it; in serving on a data
+    axis, the rank's ``d``-th of ``D`` parts, where the block is the serve
+    layout's 1/(D*M) of the rows."""
+    if x.shape[dim] == n:
+        return x
+    pol = _CURRENT
+    if _serving_data(pol) and x.shape[dim] == n * pol.dp_size:
+        return x.narrow(dim, pol.dp_rank * n, n)
+    raise RuntimeError(f"a row block of {n} does not multiply {x.shape[dim]} entries "
+                       "on this mesh")
+
+
+def resident(tree, key: str):
+    """Serving: the stored leaves of parameter ``key`` (whole stacks) as
+    the model reads them -- the leaves of the serve policy's plan gathered
+    (:class:`LeafUse`: over ``data``, over ``model``, then the rank's model
+    slice cut), the rest as they are.  The tree as it is outside a serving
+    policy with a plan, or for a key the plan does not name."""
+    pol = _CURRENT
+    if pol is None or pol.train or not pol.plan or key not in pol.plan:
+        return tree
+    return _map_uses(tree, pol.plan[key], pol)

@@ -25,16 +25,20 @@ valid specs for every architecture in the pool.
 
 Where the JAX package hands the specs to ``device_put`` and GSPMD, this port
 places tensors itself.  :func:`local_shard` cuts one rank's slice of a full
-tensor by a spec.  The serving engine keeps, on each rank, the shards of
-:func:`serve_placement`: the base TP rules over the model axis, which is
-where the JAX package's serve mode puts every leaf those rules shard.  The
-rest of the JAX serve spec -- its 2-D fallback over ``data x model`` for
-norms, routers, SSM weights, ``wkv_a`` and position tables, ``wq_a``, whose
+tensor by a spec.  The serving engine keeps, on each rank of a ``D x M``
+mesh, exactly its share of the JAX serve spec (:class:`ServeLayout`,
+:func:`serve_placement`): weights resident and split over all axes, 1-D
+over ``("data", "model")`` wherever the base rules divide ``D*M``, else 2-D
+or TP plus ZeRO storage.  A dim split over both axes is stored
+**model-major** (rank ``(d, m)`` holds block ``m*D + d``, where a
+``NamedSharding`` holds ``d*M + m``): each rank stores as many bytes, and a
+gather over ``data`` yields the contiguous model slice that the pools, over
+``model`` only, and the ``1 x M`` path use.  Leaves the ``1 x M`` rules
+replicate -- norms, routers, SSM weights, ``wkv_a`` and position tables,
+which the serve mode shards only by its 2-D fallback -- ``wq_a``, whose
 output the q RMSNorm needs whole (GSPMD gathers it there), and an attention
 whose heads the model axis does not split whole (GSPMD shards its columns)
--- the port keeps whole on every rank (:func:`whole_leaves`).  Serving on a
-data axis of more than one rank is not ported yet (ROADMAP.md queue 1 item
-26, its rest).
+the port keeps whole on every rank (:func:`whole_leaves`).
 
 The trainer stores, on each rank, its slice of every leaf and of both its
 moments under :func:`train_placement` -- exactly the train-mode specs:
@@ -464,22 +468,52 @@ def local_shard(tensor: torch.Tensor, spec: Spec, mesh, coords=None) -> torch.Te
     return tensor[shard_index(tuple(tensor.shape), spec, mesh, coords)]
 
 
-def serve_placement(cfg: ModelConfig, mesh, params_shape) -> Any:
-    """The spec tree of what each rank of the serving port holds: the base
-    TP rules over the model axis (the JAX serve mode's placement of every
-    leaf those rules shard, on a ``1 x M`` mesh), :func:`whole_leaves`
+def _model_major(entry, sizes: Dict[str, int]):
+    """A spec entry as the serve layout stores it: axes of one rank
+    dropped, and an entry of several axes led by ``"model"`` (model-major
+    blocks)."""
+    axes = [a for a in _entry_axes(entry) if sizes[a] > 1]
+    axes.sort(key=lambda a: a != "model")
+    return None if not axes else axes[0] if len(axes) == 1 else tuple(axes)
+
+
+def _target_rule(cfg: ModelConfig, mesh) -> Callable:
+    """``rule(path, leaf)``: the spec of what the ``1 x M`` port reads of a
+    leaf -- the base TP rules over the model axis, :func:`whole_leaves`
     whole."""
-    ax = MeshAxes.from_mesh(mesh)
-    tp_size = _axis_size(mesh, ax.tp)
+    tp_size = _axis_size(mesh, "model")
     whole = whole_leaves(cfg, tp_size)
 
     def rule(path, leaf):
         name, shape = _leaf_name(path), _shape(leaf)
         if name in whole:
             return (None,) * len(shape)
-        return _base_tp_spec(name, shape, ax.tp, tp_size, _stacked(path), cfg)
+        return _base_tp_spec(name, shape, "model", tp_size, _stacked(path), cfg)
 
-    return _map_with_path(rule, params_shape)
+    return rule
+
+
+def _serve_rule(cfg: ModelConfig, mesh) -> Callable:
+    """``rule(path, leaf)``: the spec a serving rank stores a leaf by --
+    whole where the ``1 x M`` port reads it whole, else the JAX serve spec
+    with its entries model-major (:func:`_model_major`)."""
+    sizes = mesh_shape(mesh)
+    target, jax_rule = _target_rule(cfg, mesh), _param_rule(cfg, mesh, mode="serve")
+
+    def rule(path, leaf):
+        want = target(path, leaf)
+        if all(e is None for e in want):
+            return want
+        return tuple(_model_major(e, sizes) for e in jax_rule(path, leaf))
+
+    return rule
+
+
+def serve_placement(cfg: ModelConfig, mesh, params_shape) -> Any:
+    """The spec tree of what each rank of the serving port stores
+    (:class:`ServeLayout`): on a ``1 x M`` mesh the base TP rules over the
+    model axis, :func:`whole_leaves` whole."""
+    return _map_with_path(_serve_rule(cfg, mesh), params_shape)
 
 
 def check_local_shards(cfg: ModelConfig, mesh, placement) -> None:
@@ -496,23 +530,8 @@ def check_local_shards(cfg: ModelConfig, mesh, placement) -> None:
 
 def shard_params(cfg: ModelConfig, params, mesh, device: torch.device) -> Any:
     """The rank's shards of the full ``params`` (on any device), on
-    ``device``: each leaf cut by :func:`serve_placement` and copied, so the
-    caller may free the full tree; a leaf kept whole that already lives on
-    ``device`` is shared, not copied."""
-    placement = serve_placement(cfg, mesh, params)
-    check_local_shards(cfg, mesh, placement)
-    coords = mesh_coords(mesh)
-
-    def cut(path, leaf):
-        spec = _get(placement, path)
-        if all(e is None for e in spec):
-            return leaf.to(device)
-        piece = local_shard(leaf, spec, mesh, coords)
-        if piece.device == device:
-            return piece.clone(memory_format=torch.contiguous_format)
-        return piece.to(device).contiguous()
-
-    return _map_with_path(cut, params)
+    ``device`` (:meth:`ServeLayout.place`)."""
+    return ServeLayout(cfg, mesh).place(params, device)
 
 
 # --------------------------------------------------------------------------
@@ -562,34 +581,31 @@ def gather_full(local: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     return out
 
 
-class TrainLayout:
-    """One rank's side of the training mesh: the train-mode spec of every
-    leaf (:func:`train_placement`'s rule, applied as the leaves are drawn:
-    :meth:`cut`, :meth:`stack`, :meth:`cut_layer`), the plan by which the
-    model gathers each leaf before use, and the reductions of the step --
-    gradients over ``data`` where a leaf is not split there, the global norm
-    and the int8 scale over the axes each leaf is split on.
+class _Layout:
+    """A rank's placement of a parameter tree on a mesh, leaf by leaf as
+    the leaves are drawn (:meth:`cut`, :meth:`stack`, :meth:`cut_layer`,
+    which ``repro_torch.models.model.init_params(layout=)`` calls) by
+    ``rule(path, full shape)``; an :class:`AbstractMesh` (shapes only, at
+    ``coords``) places leaves with no group."""
 
-    A ``DeviceMesh`` gets its axes' process groups here (collective: every
-    rank builds its layout at the same point); an :class:`AbstractMesh`
-    (shapes only, at ``coords``) places leaves and plans, with no group."""
-
-    def __init__(self, cfg: ModelConfig, mesh, coords=None):
+    def __init__(self, cfg: ModelConfig, mesh, coords, rule: Callable):
         self.cfg, self.mesh = cfg, mesh
         self.sizes = mesh_shape(mesh)
         self.coords = mesh_coords(mesh) if coords is None else coords
-        self.whole = whole_leaves(cfg, self.sizes["model"])
-        self._rule = _param_rule(cfg, mesh, mode="train")
+        self._rule = rule
         self._specs: Dict[Tuple[str, ...], Spec] = {}
         self._full: Dict[Tuple[str, ...], Tuple[int, ...]] = {}
-        self.groups = None if isinstance(mesh, AbstractMesh) else AX.axis_groups(mesh)
-
-    # ---- placement, leaf by leaf as the leaves are drawn ----
 
     def _place(self, path, full_shape) -> Spec:
         spec = self._rule(path, full_shape)
         self._specs[path], self._full[path] = spec, tuple(full_shape)
         return spec
+
+    def local_shape(self, path, full_shape) -> Tuple[int, ...]:
+        """The shape of the rank's slice of a leaf of ``full_shape``."""
+        idx = shard_index(tuple(full_shape), self._place(path, full_shape), self.mesh,
+                          self.coords)
+        return tuple(sl.stop - sl.start for sl in idx)
 
     def cut(self, path: Tuple[str, ...], full: torch.Tensor) -> torch.Tensor:
         """The rank's slice of a whole leaf, copied (the caller frees the
@@ -616,6 +632,179 @@ class TrainLayout:
     def specs(self, tree) -> Any:
         """The spec tree of a parameter tree placed here."""
         return _map_with_path(lambda path, _leaf: self._specs[path], tree)
+
+    def nbytes(self, tree) -> Tuple[int, int]:
+        """(the bytes this rank stores of ``tree``, the bytes of its full
+        leaves)."""
+        from repro_torch import tree as T
+
+        local = sum(x.numel() * x.element_size() for x in T.leaves(tree))
+        full = global_nbytes(tree, self.specs(tree), self.mesh)
+        return local, full
+
+
+# The leaves the model computes on as a serving rank stores them, split
+# 1/(D*M) a rank: each one's product is summed over every rank, or, a
+# column-parallel attention product, gathered over ``data`` into the model
+# slice (``wkv_b`` only where its blocks are whole heads).
+_FLAT_READ = ("embed", "lm_head", "wq", "wk", "wv", "bq", "bk", "bv", "wq_b", "wo",
+              "w_gate", "w_up", "b_up", "w_down")
+
+
+class ServeLayout(_Layout):
+    """One rank's side of a serving mesh ``D x M``: what it stores of each
+    leaf (:func:`serve_placement`'s rule, applied as the leaves are drawn
+    or to a full tree by :meth:`place`) and how the model reads it.
+
+    The stored bytes of a leaf are its share under the JAX serve spec,
+    but for the leaves the ``1 x M`` port reads whole (:func:`whole_leaves`,
+    and those the base rules replicate), which every rank keeps whole.  The
+    model computes on the ``1/(D*M)`` blocks of :data:`_FLAT_READ` as they
+    are (:mod:`repro_torch.distributed.axes`: ``psum`` over every rank,
+    ``data_gather`` into the model slice); any other split leaf (the serve
+    mode's 2-D fallback or TP plus ZeRO storage) is gathered into what the
+    ``1 x M`` port reads before each step (:meth:`plan`,
+    :func:`repro_torch.distributed.axes.resident`): the only per-step
+    weight gathers, listed by :meth:`gathered`."""
+
+    def __init__(self, cfg: ModelConfig, mesh, coords=None):
+        super().__init__(cfg, mesh, coords, _serve_rule(cfg, mesh))
+        self._target = _target_rule(cfg, mesh)
+        self._jax = _param_rule(cfg, mesh, mode="serve")
+        self._groups = None
+
+    @property
+    def ranks(self) -> int:
+        return math.prod(self.sizes.values())
+
+    def kept_whole(self, path) -> bool:
+        """Whether the rank keeps leaf ``path`` whole where the JAX serve
+        spec may split it (the ``1 x M`` port reads it whole)."""
+        return all(e is None for e in self._target(path, self._full[path]))
+
+    def place(self, params, device: torch.device) -> Any:
+        """The rank's tree on ``device`` from either the full ``params``
+        (the JAX API; on any device, each leaf cut and copied, so the caller
+        may free the full tree; a leaf kept whole that already lives on
+        ``device`` is shared) or a tree this layout already placed (its
+        leaves as they are, moved to ``device`` where they live elsewhere).
+        Refuses a kv-head count the model axis does not split first
+        (:func:`check_local_shards`)."""
+        from repro_torch.models.model import param_shapes
+
+        check_local_shards(self.cfg, self.mesh, None)
+        full = dict(flat_items(param_shapes(self.cfg)))
+        cut_any, placed_any = False, False
+        for path, leaf in flat_items(params):
+            shape = full.get(path, tuple(leaf.shape))
+            local = self.local_shape(path, shape)
+            if local == shape:
+                continue
+            if tuple(leaf.shape) == shape:
+                cut_any = True
+            elif tuple(leaf.shape) == local:
+                placed_any = True
+            else:
+                raise ValueError(f"{'/'.join(path)}: shape {tuple(leaf.shape)} is neither the "
+                                 f"full leaf's {shape} nor this rank's share {local}")
+        if cut_any and placed_any:
+            raise ValueError("params mix full leaves and a rank's shares")
+
+        def cut(path, leaf):
+            spec = self._specs[path]
+            if placed_any or all(e is None for e in spec):
+                return leaf.to(device)
+            piece = local_shard(leaf, spec, self.mesh, self.coords)
+            if piece.device == device:
+                return piece.clone(memory_format=torch.contiguous_format)
+            return piece.to(device).contiguous()
+
+        return _map_with_path(cut, params)
+
+    def _use(self, path) -> "AX.LeafUse | None":
+        """How the model reads stored leaf ``path``: None as it is, else
+        the gathers into the ``1 x M`` port's leaf."""
+        sizes = self.sizes
+        norm = lambda spec: tuple(_model_major(e, sizes) for e in spec)  # noqa: E731
+        stored, want = norm(self._specs[path]), norm(self._target(path, self._full[path]))
+        if stored == want:
+            return None
+        split = [e for e in stored if e is not None]
+        every = {a for a, n in sizes.items() if n > 1}
+        name = _leaf_name(path)
+        flat_ok = name in _FLAT_READ or (name == "wkv_b" and self.cfg.n_heads % self.ranks == 0)
+        if flat_ok and len(split) == 1 and set(_entry_axes(split[0])) == every:
+            return None
+        data_dim = _axis_dim(stored, ("data",))
+        stripped = tuple(_model_major(tuple(a for a in _entry_axes(e) if a != "data"), sizes)
+                         for e in stored)
+        if stripped == want:
+            return AX.LeafUse(data_dim=data_dim)
+        return AX.LeafUse(data_dim, _axis_dim(stripped, ("model",)), _axis_dim(want, ("model",)))
+
+    def plan(self) -> Dict[str, Any]:
+        """The serving policy's plan: per top-level key, a tree of the
+        :class:`~repro_torch.distributed.axes.LeafUse` of each stored leaf
+        the model cannot read as it is (whole stacks); keys with none, and
+        DeepSeek-V3's MTP head (only training reads it), are left out."""
+        out: Dict[str, Any] = {}
+        for path in self._specs:
+            use = self._use(path)
+            if use is None or path[0] == "mtp":
+                continue
+            node = out
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = use
+        return out
+
+    def gathered(self) -> list:
+        """The paths of the leaves gathered before each step (``/``-joined)."""
+        return ["/".join(path) for key, uses in self.plan().items()
+                for path, _use in flat_items(uses, (key,))]
+
+    def policy(self) -> AX.ShardPolicy:
+        """The serving policy (collective the first time on a mesh: every
+        rank builds its layout's policy at the same point)."""
+        if self._groups is None:
+            self._groups = AX.axis_groups(self.mesh)
+        return AX.make_policy(self.mesh, self.plan(), self._groups)
+
+    def share_nbytes(self, tree) -> int:
+        """The bytes a rank stores of ``tree`` (a rank's tree of this
+        config) under the JAX serve spec, each leaf kept whole counted
+        whole: what :meth:`place` and the draw by shards must leave on the
+        rank."""
+        from repro_torch.models.model import param_shapes
+
+        shapes = dict(flat_items(param_shapes(self.cfg)))
+        total = 0
+        for path, leaf in flat_items(tree):
+            full = shapes[path]
+            self._place(path, full)
+            n = math.prod(full) * leaf.element_size()
+            if not self.kept_whole(path):
+                n //= split_ways(self._jax(path, full), self.sizes)
+            total += n
+        return total
+
+
+class TrainLayout(_Layout):
+    """One rank's side of the training mesh: the train-mode spec of every
+    leaf (:func:`train_placement`'s rule, applied as the leaves are drawn:
+    :meth:`cut`, :meth:`stack`, :meth:`cut_layer`), the plan by which the
+    model gathers each leaf before use, and the reductions of the step --
+    gradients over ``data`` where a leaf is not split there, the global norm
+    and the int8 scale over the axes each leaf is split on.
+
+    A ``DeviceMesh`` gets its axes' process groups here (collective: every
+    rank builds its layout at the same point); an :class:`AbstractMesh`
+    (shapes only, at ``coords``) places leaves and plans, with no group."""
+
+    def __init__(self, cfg: ModelConfig, mesh, coords=None):
+        super().__init__(cfg, mesh, coords, _param_rule(cfg, mesh, mode="train"))
+        self.whole = whole_leaves(cfg, self.sizes["model"])
+        self.groups = None if isinstance(mesh, AbstractMesh) else AX.axis_groups(mesh)
 
     def shardings(self, tree) -> Any:
         """:class:`Sharding` records of ``tree`` (parameters, or the
@@ -721,15 +910,6 @@ class TrainLayout:
             if self.sizes[axis] > 1:
                 dist.all_reduce(values, op=dist.ReduceOp.MAX, group=self.groups[axis])
         return values
-
-    def nbytes(self, tree) -> Tuple[int, int]:
-        """(the bytes this rank stores of ``tree``, the bytes of its full
-        leaves)."""
-        from repro_torch import tree as T
-
-        local = sum(x.numel() * x.element_size() for x in T.leaves(tree))
-        full = global_nbytes(tree, self.specs(tree), self.mesh)
-        return local, full
 
 
 def _get(tree, path):

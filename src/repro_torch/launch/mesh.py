@@ -8,8 +8,8 @@ initialises (``torch.distributed.init_process_group`` with its backend,
 rank, world size and a ``timeout``; ``torchrun``,
 ``python -m repro_torch.launch.serve --mesh DxM`` or
 ``python -m repro_torch.launch.train --mesh local`` starts the ranks).
-The trainer takes any ``D x M`` mesh (:func:`make_mesh`); serving takes
-``1 x M`` (:func:`make_serve_mesh`).
+The trainer (:func:`make_mesh`) and serving (:func:`make_serve_mesh`) take
+any ``D x M`` mesh.
 """
 from __future__ import annotations
 
@@ -68,10 +68,10 @@ def parse_mesh(spec: str):
 
 
 def make_serve_mesh(spec: str):
-    """Parse a ``--mesh DxM`` spec (e.g. ``1x4``) into a ``(D, M)`` mesh
-    named ``("data", "model")``: ``D`` the data axis (serving replicas),
-    ``M`` the model (tensor-parallel) axis the KV pools and weights shard
-    over.  Needs a default group of exactly ``D*M`` ranks."""
+    """Parse a ``--mesh DxM`` spec (e.g. ``2x2``) into a ``(D, M)`` mesh
+    named ``("data", "model")``: the weights shard over both axes, the KV
+    pools over ``M``, the model (tensor-parallel) axis, and replicate over
+    ``D``.  Needs a default group of exactly ``D*M`` ranks."""
     return make_mesh(spec)
 
 

@@ -34,26 +34,23 @@ its multi-request workload takes ``--engine static``: the continuous
 engine has no cache adapter for it and refuses it before anything is
 allocated, as the JAX CLI does.
 
-``--mesh 1xM`` serves tensor-parallel over ``M`` ranks: each holds its
-shards of the weights (its attention heads, its share of the FFN width or
-its experts, a vocab slice of the embedding and the head) and of the KV
-pools, and the ranks sum their shares with ``all_reduce``.  Started alone,
-the CLI spawns its ``M`` ranks (gloo on the CPU or where the ranks share a
-card, NCCL where each rank has a card of its own); under ``torchrun
---nproc-per-node M`` it joins the group torchrun set up.  Rank 0 alone
-prints:
+``--mesh DxM`` serves over ``D*M`` ranks, as the JAX serve mode places
+the weights: each rank keeps its share of every weight, resident and split
+over both axes (its attention heads' columns, its share of the FFN width or
+its experts, a vocab slice of the embedding and the head), and the KV pools
+of its model slice of heads (replicated over the data axis); the ranks sum
+their shares with ``all_reduce``.  Each rank draws only its own shares from
+``--seed`` (the same numbers as the run without a mesh), so no rank ever
+holds the full tree: its peak while loading is its shares plus one full
+leaf or one layer.  Started alone, the CLI spawns its ``D*M`` ranks (gloo
+on the CPU or where the ranks share a card, NCCL where each rank has a card
+of its own); under ``torchrun --nproc-per-node D*M`` it joins the group
+torchrun set up.  Rank 0 alone prints:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm-2b --smoke \
-      --device cpu --num-requests 6 --max-seqs 2 --mesh 1x2
+      --device cpu --num-requests 6 --max-seqs 2 --mesh 2x2
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
       --arch starcoder2-7b --num-requests 8 --prompt-len 512 --mesh 1x2
-
-Every rank draws the full weights (on its card, one layer at a time) into
-host memory and its engine keeps its shards, so ``M`` full weight trees
-must fit in the host's memory at once: a model too large for that cannot be
-loaded this way yet (loading the served weights by shards, and a data axis
-of more than one rank, ``D > 1``, are ROADMAP.md queue 1 item 26's rest;
-the training CLI's ``--mesh local`` trains on a mesh).
 """
 from __future__ import annotations
 
@@ -70,6 +67,7 @@ import torch
 
 import repro_torch.configs as C
 from repro_torch.core.encoder import resolve_device
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import adapters as A
 from repro_torch.models import model as M
 from repro_torch.serve import (
@@ -284,9 +282,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="run the paged-KV refcount auditor after every step")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh", default="",
-                    help="DxM mesh (e.g. 1x2): serve tensor-parallel over M ranks -- "
-                         "sharded weights, head-sharded KV pools, all_reduce over the "
-                         "model axis.  Spawns the ranks unless started under torchrun")
+                    help="DxM mesh (e.g. 2x2): serve over D*M ranks -- the weights "
+                         "resident and split over both axes, each rank drawing its "
+                         "own shares, KV pools head-sharded over the model axis, "
+                         "all_reduce sums.  Spawns the ranks unless started under "
+                         "torchrun")
     return ap
 
 
@@ -313,15 +313,19 @@ def serve(args, device: torch.device, mesh=None) -> None:
     caches = ("static (no cache adapter)" if A.unsupported_reason(cfg)
               else ", ".join(ad.family for ad in A.all_adapters(cfg)))
     _say(f"serving {cfg.name} ({kinds} layers; caches: {caches}) on {device}")
+    layout = None
     if mesh is not None:
         shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
         _say(f"serving on mesh {args.mesh}: {shape['data']} data x {shape['model']} model")
-    # every rank draws the same full weights from the seed, on its device
-    # (the numbers of the run without a mesh); under a mesh the full tree
-    # is kept in host memory and the engines copy each rank's shards to
-    # its device, so the card holds one layer of the full tree at a time
+        layout = SH.ServeLayout(cfg, mesh)
+    # the weights from the seed, on the device (the numbers of the run
+    # without a mesh); under a mesh each rank draws its own shares
     params = M.init_params(cfg, torch.Generator(device=device).manual_seed(args.seed),
-                           device=device if mesh is None else "cpu")
+                           device=device, layout=layout)
+    if layout is not None:
+        mine, whole = layout.nbytes(params)
+        _say(f"weights drawn by shards: {mine / 2**20:.1f} MiB a rank of "
+             f"{whole / 2**20:.1f} MiB")
     if args.num_requests > 0:
         run_workload(cfg, params, args, device, mesh)
     else:
@@ -371,10 +375,6 @@ def main(argv=None):
     from repro_torch.launch.mesh import parse_mesh
 
     d, m = parse_mesh(args.mesh)
-    if d > 1:  # refused before any rank starts
-        from repro_torch.serve.kvcache import MESH_REST
-
-        raise SystemExit(MESH_REST)
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:  # under torchrun
         _run_rank(int(os.environ["RANK"]), args, int(os.environ["WORLD_SIZE"]), "")
         return

@@ -16,16 +16,21 @@ Where the JAX package rebuilds a cache functionally (``dynamic_update_slice``,
 tensors in place and returns the same tensors: the decode steps mutate the
 cache they are given.
 
-Tensor-parallel serving: every function here runs on the heads its weights
-hold.  Head counts come from the weights' and caches' shapes, never from
-``cfg``, so a rank holding the column-parallel shards of ``wq``/``wk``/
-``wv`` (``wq_b``/``wkv_b`` for MLA) attends its local heads against its
-local kv heads (or the whole latent pages), and the row-parallel ``wo``
-product is summed over the model axis by
-:func:`repro_torch.distributed.axes.psum` (a no-op without a mesh).  Where
-the axis does not split the heads whole, each rank holds the whole
-attention (:func:`repro_torch.distributed.sharding.whole_leaves`) and the
-sum is skipped.  In training, :func:`repro_torch.distributed.axes.enter`
+Serving on a mesh: every function here runs on the heads its weights hold.
+Head counts come from the weights' and caches' shapes, never from ``cfg``,
+so a rank holding the column-parallel shards of ``wq``/``wk``/``wv``
+(``wq_b``/``wkv_b`` for MLA) attends its model slice of heads against its
+kv heads (or the whole latent pages), and the row-parallel ``wo`` product
+is summed over the ranks that split its rows by
+:func:`repro_torch.distributed.axes.psum` (a no-op without a mesh).  On a
+data axis of ``D`` ranks a rank holds 1/D of its model slice's columns:
+its q/k/v products are gathered over ``data`` into the model slice
+(:func:`~repro_torch.distributed.axes.data_gather`), MLA's ``wkv_b``
+products run on the rank's part of the heads, and ``wo`` multiplies the
+rank's part of the output (:func:`~repro_torch.distributed.axes.data_part`).
+Where the model axis does not split the heads whole, each rank holds the
+whole attention (:func:`repro_torch.distributed.sharding.whole_leaves`) and
+the sum is skipped.  In training, :func:`repro_torch.distributed.axes.enter`
 marks where a replicated activation enters the rank's heads, so its
 gradient is summed over the model axis.
 """
@@ -37,7 +42,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.backend import resolve_backend
-from repro_torch.distributed.axes import check_split, enter, psum
+from repro_torch.distributed.axes import check_split, data_gather, data_part, enter, psum
 from repro_torch.models.common import (
     MASK,
     apply_mrope,
@@ -89,6 +94,16 @@ def heads_split(p, cfg: ModelConfig) -> bool:
     return p["wq"].shape[-1] != cfg.n_heads * cfg.d_head
 
 
+def _out_proj(cfg: ModelConfig, out, wo, full: int, mm=None):
+    """The row-parallel output projection of ``out`` (B, S, the model
+    slice's head outputs): the part the rank's rows of ``wo`` multiply,
+    through ``dense`` (or ``mm``), summed over the ranks that split the
+    ``full`` rows."""
+    part = data_part(out, wo.shape[-2])
+    y = dense(cfg, part, wo) if mm is None else mm(part, wo)
+    return psum(y, wo.shape[-2], full, "wo's rows")
+
+
 def _project_qkv(p, cfg: ModelConfig, x, positions):
     B, S, _ = x.shape
     dh = cfg.d_head
@@ -98,6 +113,9 @@ def _project_qkv(p, cfg: ModelConfig, x, positions):
     v = dense(cfg, x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = data_gather(q, cfg.n_heads * dh)
+    k = data_gather(k, cfg.n_kv_heads * dh)
+    v = data_gather(v, cfg.n_kv_heads * dh)
     # the heads the weights hold: all of them, or a rank's share
     q = q.reshape(B, S, -1, dh)
     check_split(q.shape[2], cfg.n_heads, "wq's query heads")
@@ -158,7 +176,7 @@ def gqa_forward(
                 ks, vs, pos = ks[:, inv], vs[:, inv], pos[inv]
             new_cache = {"k": ks, "v": vs, "pos": pos[None].expand(B, slots).contiguous()}
     out = out.reshape(B, S, -1)
-    return psum(dense(cfg, out, p["wo"]), split=heads_split(p, cfg)), new_cache
+    return _out_proj(cfg, out, p["wo"], cfg.n_heads * cfg.d_head), new_cache
 
 
 # --------------------------------------------------------------------------
@@ -249,7 +267,7 @@ def gqa_paged_decode(
     out = be.paged_attention_decode(q, cache["k_pages"], cache["v_pages"], page_table,
                                     seq_pos)
     out = out.reshape(B, 1, -1)
-    return psum(dense(cfg, out, p["wo"]), split=heads_split(p, cfg)), cache
+    return _out_proj(cfg, out, p["wo"], cfg.n_heads * cfg.d_head), cache
 
 
 def paged_copy_page(cache: Dict, src: int, dst: int) -> Dict:
@@ -310,7 +328,7 @@ def gqa_paged_prefill_chunk(
     out = chunked_attention(q, kg, vg, causal=True, q_offset=q_off, k_positions=kpos,
                             q_chunk=cfg.q_chunk)
     out = out.reshape(B, C, -1)
-    return psum(dense(cfg, out, p["wo"]), split=heads_split(p, cfg)), cache
+    return _out_proj(cfg, out, p["wo"], cfg.n_heads * cfg.d_head), cache
 
 
 # --------------------------------------------------------------------------
@@ -357,7 +375,7 @@ def gqa_ring_prefill_chunk(
     cache_row["v"][:, widx] = v[:, C - w:].to(cache_row["v"].dtype)
     cache_row["pos"][:, widx] = wpos[None].to(torch.int32)
     out = out.reshape(B, C, -1)
-    return psum(dense(cfg, out, p["wo"]), split=heads_split(p, cfg)), cache_row
+    return _out_proj(cfg, out, p["wo"], cfg.n_heads * cfg.d_head), cache_row
 
 
 def cross_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -369,11 +387,12 @@ def cross_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     drift apart.  x: (B, S, d); k, v: (B, encoder_seq, Hkv, dh).
     """
     B, S, _ = x.shape
-    split = heads_split(p, cfg)
-    q = (enter(x, split) @ p["wq"]).reshape(B, S, -1, cfg.d_head)
+    q = data_gather(enter(x, heads_split(p, cfg)) @ p["wq"], cfg.n_heads * cfg.d_head)
+    q = q.reshape(B, S, -1, cfg.d_head)
     check_split(q.shape[2], cfg.n_heads, "the cross-attention's query heads")
     out = chunked_attention(q, k, v, causal=False, q_chunk=cfg.q_chunk)
-    return psum(out.reshape(B, S, -1) @ p["wo"], split=split)
+    return _out_proj(cfg, out.reshape(B, S, -1), p["wo"], cfg.n_heads * cfg.d_head,
+                     torch.matmul)
 
 
 def gqa_ring_decode(
@@ -413,7 +432,7 @@ def gqa_ring_decode(
         ring[rows, slot] = val
     out = decode_attention(q, cache["k"], cache["v"], cache["pos"], seq_pos, window=window)
     out = out.reshape(B, 1, -1)
-    return psum(dense(cfg, out, p["wo"]), split=heads_split(p, cfg)), cache
+    return _out_proj(cfg, out, p["wo"], cfg.n_heads * cfg.d_head), cache
 
 
 # --------------------------------------------------------------------------
@@ -465,7 +484,8 @@ def _mla_qkv_latent(p, cfg: ModelConfig, x, positions):
     # enter the rank's heads
     split = heads_split(p, cfg)
     q = enter(_rms(x @ p["wq_a"], p["q_norm"]), split) @ p["wq_b"]
-    q = q.reshape(B, S, -1, dn + dr)  # the heads wq_b holds
+    q = data_gather(q, cfg.n_heads * (dn + dr))
+    q = q.reshape(B, S, -1, dn + dr)  # the model slice of heads
     check_split(q.shape[2], cfg.n_heads, "wq_b's query heads")
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
@@ -523,6 +543,19 @@ def _mla_scale(cfg: ModelConfig) -> float:
     return (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
 
 
+def _wkv_b(p, cfg: ModelConfig):
+    """``wkv_b`` as (r_kv, its heads, dn + dv): the model slice of heads or,
+    on a data axis, the rank's part of them."""
+    return p["wkv_b"].reshape(cfg.kv_lora_rank, -1, cfg.qk_nope_dim + cfg.v_head_dim)
+
+
+def _mla_out(cfg: ModelConfig, p, out):
+    """MLA's output projection of (B, S, heads, dv)."""
+    B, S = out.shape[:2]
+    return _out_proj(cfg, out.reshape(B, S, -1), p["wo"], cfg.n_heads * cfg.v_head_dim,
+                     torch.matmul)
+
+
 def _mla_absorbed_attend(cfg: ModelConfig, wkv_b, q_nope, q_rope, ckv_c, kr_c, valid):
     """Absorbed-matmul MLA attention over a latent cache.
 
@@ -530,7 +563,8 @@ def _mla_absorbed_attend(cfg: ModelConfig, wkv_b, q_nope, q_rope, ckv_c, kr_c, v
           = (q_nope W_k^T) . c + q_rope . k_rope
     ``valid``: (B, K) key mask.  Returns (B, S, H, v_head_dim).
     """
-    dn = cfg.qk_nope_dim
+    dn, H = cfg.qk_nope_dim, wkv_b.shape[1]
+    q_nope, q_rope = data_part(q_nope, H, 2), data_part(q_rope, H, 2)
     q_lat = torch.einsum("bshd,rhd->bshr", q_nope, wkv_b[..., :dn])
     o_lat = mla_latent_attend(q_lat, q_rope, ckv_c, kr_c, valid, scale=_mla_scale(cfg))
     return torch.einsum("bshr,rhd->bshd", o_lat, wkv_b[..., dn:])  # value expand
@@ -544,7 +578,8 @@ def _mla_expanded_attend(cfg: ModelConfig, wkv_b, q_nope, q_rope, ckv, k_rope, *
     same call serves contiguous latents and page-gathered ones (with
     ``k_positions`` labelling the gathered order).
     """
-    H = q_nope.shape[2]
+    H = wkv_b.shape[1]  # the query heads of wkv_b's part
+    q_nope, q_rope = data_part(q_nope, H, 2), data_part(q_rope, H, 2)
     dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
     B, K = ckv.shape[:2]
     kv = torch.einsum("bsr,rhd->bshd", ckv, wkv_b)
@@ -571,9 +606,8 @@ def mla_forward(
     attends in the absorbed formulation; ``prefill`` returns a new cache
     holding the sequence's latents."""
     B, S, _ = x.shape
-    dn, dv = cfg.qk_nope_dim, cfg.v_head_dim
     q_nope, q_rope, ckv, k_rope = _mla_qkv_latent(p, cfg, x, positions)
-    wkv_b = p["wkv_b"].reshape(cfg.kv_lora_rank, -1, dn + dv)
+    wkv_b = _wkv_b(p, cfg)
     if mode == "decode":
         assert cache is not None and S == 1
         cache["ckv"][:, pos_offset] = ckv[:, 0]
@@ -590,8 +624,7 @@ def mla_forward(
         if mode == "prefill":
             pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
             new_cache = {"ckv": ckv, "krope": k_rope, "pos": pos.contiguous()}
-    out = out.reshape(B, S, -1)
-    return psum(out @ p["wo"], split=heads_split(p, cfg)), new_cache
+    return _mla_out(cfg, p, out), new_cache
 
 
 # --------------------------------------------------------------------------
@@ -638,9 +671,10 @@ def mla_paged_decode(
     """
     B, S, _ = x.shape
     assert S == 1
-    dn, dv = cfg.qk_nope_dim, cfg.v_head_dim
+    dn = cfg.qk_nope_dim
     q_nope, q_rope, ckv, k_rope = _mla_qkv_latent(p, cfg, x, positions)
-    wkv_b = p["wkv_b"].reshape(cfg.kv_lora_rank, -1, dn + dv)
+    wkv_b = _wkv_b(p, cfg)
+    H = wkv_b.shape[1]  # the query heads of wkv_b's part
     page = cache["ckv_pages"].shape[1]
     pos = seq_pos.long()
     phys = torch.gather(page_table.long(), 1, (pos // page)[:, None])[:, 0]
@@ -649,15 +683,17 @@ def mla_paged_decode(
     off = pos % page
     cache["ckv_pages"].index_put_((phys, off), ckv[:, 0])
     cache["krope_pages"].index_put_((phys, off), k_rope[:, 0])
-    # the kernel reads contiguous operands; einsum may hand back a permuted view
-    q_lat = torch.einsum("bshd,rhd->bshr", q_nope, wkv_b[..., :dn]).contiguous()
+    # the rank's part of the heads absorbed, then (a data axis) gathered
+    # into the model slice the kernel runs on; the kernel reads contiguous
+    # operands, and einsum may hand back a permuted view
+    q_lat = torch.einsum("bshd,rhd->bshr", data_part(q_nope, H, 2), wkv_b[..., :dn])
+    q_lat = data_gather(q_lat, cfg.n_heads, dim=2).contiguous()
     be = resolve_backend(cfg.decode_backend)
     o_lat = be.mla_paged_attention_decode(q_lat, q_rope, cache["ckv_pages"],
                                           cache["krope_pages"], page_table, seq_pos,
                                           scale=_mla_scale(cfg))
-    out = torch.einsum("bshr,rhd->bshd", o_lat, wkv_b[..., dn:])  # value expand
-    out = out.reshape(B, 1, -1)
-    return psum(out @ p["wo"], split=heads_split(p, cfg)), cache
+    out = torch.einsum("bshr,rhd->bshd", data_part(o_lat, H, 2), wkv_b[..., dn:])
+    return _mla_out(cfg, p, out), cache
 
 
 def mla_paged_prefill_chunk(
@@ -681,10 +717,9 @@ def mla_paged_prefill_chunk(
     """
     B, C, _ = x.shape
     assert B == 1
-    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
-    r_kv = cfg.kv_lora_rank
+    dr, r_kv = cfg.qk_rope_dim, cfg.kv_lora_rank
     q_nope, q_rope, ckv, k_rope = _mla_qkv_latent(p, cfg, x, positions)
-    wkv_b = p["wkv_b"].reshape(r_kv, -1, dn + dv)
+    wkv_b = _wkv_b(p, cfg)
     phys, off = phys_tok.long(), off_tok.long()
     cache["ckv_pages"].index_put_((phys, off), ckv[0])
     cache["krope_pages"].index_put_((phys, off), k_rope[0])
@@ -696,5 +731,4 @@ def mla_paged_prefill_chunk(
     kpos = torch.arange(maxp * page, dtype=torch.int32, device=x.device)[None]
     out = _mla_expanded_attend(cfg, wkv_b, q_nope, q_rope, ckv_g, kr_g,
                                pos_offset=q_off, k_positions=kpos)
-    out = out.reshape(B, C, -1)
-    return psum(out @ p["wo"], split=heads_split(p, cfg)), cache
+    return _mla_out(cfg, p, out), cache

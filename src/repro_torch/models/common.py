@@ -49,10 +49,11 @@ def activation(cfg: ModelConfig, x):
 def dense_init(generator: torch.Generator, d_in: int, d_out: int, dtype,
                scale: Optional[float] = None, device=None):
     """A (d_in, d_out) weight drawn N(0, scale^2) in fp32 from ``generator``
-    on its own device, then cast to ``dtype`` and moved to ``device``."""
+    on its own device (without one, on ``device``: the meta device's
+    shapes), then cast to ``dtype`` and moved to ``device``."""
     s = scale if scale is not None else d_in ** -0.5
     w = torch.randn((d_in, d_out), generator=generator, dtype=torch.float32,
-                    device=generator.device)
+                    device=device if generator is None else generator.device)
     return w.mul_(s).to(device=device, dtype=dtype)
 
 

@@ -7,17 +7,19 @@ gathered into an (E, C, d) buffer.  The router, the dispatch and the expert
 products are plain PyTorch, as they are plain XLA ops outside any Pallas
 kernel in the JAX package.
 
-Tensor-parallel serving: a rank holding the column-parallel ``w_gate`` /
+Serving on a mesh: a rank holding the column-parallel ``w_gate`` /
 ``w_up`` and row-parallel ``w_down`` shards computes its share of the hidden
-width and the shares are summed over the model axis
-(:func:`repro_torch.distributed.axes.psum`).  The MoE's expert weights are
-either expert-parallel (a rank holds ``E/M`` whole experts) or, where the
-experts do not split, sharded along each expert's hidden width; either way
-every rank computes the router and the capacity dispatch on the same rows
-(the drop pattern is the single device's), multiplies the slots of the
-experts it holds, and the gated outputs are summed over the model axis.
-A product the model axis does not split (a hidden width it does not
-divide) runs whole on each rank, with no sum.
+width and the shares are summed over the ranks that split it -- the model
+axis, or every rank of a ``D x M`` mesh where the serve layout splits the
+width over both (:func:`repro_torch.distributed.axes.psum`).  The MoE's
+expert weights are either expert-parallel (a rank holds ``E/M`` or
+``E/(D*M)`` whole experts) or, where the experts do not split, sharded
+along each expert's hidden width; either way every rank computes the
+router and the capacity dispatch on the same rows (the drop pattern is the
+single device's), multiplies the slots of the experts it holds, and the
+gated outputs are summed over the same ranks.  A product the mesh does not
+split (a hidden width it does not divide) runs whole on each rank, with no
+sum.
 
 Training on a data axis: each data rank holds its rows of the global batch,
 and the MoE computes its share of the single device's dispatch over the
@@ -35,7 +37,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import axes as AX
-from repro_torch.distributed.axes import check_split, enter, model_coord, psum
+from repro_torch.distributed.axes import check_split, enter, psum, split_place
 from repro_torch.models.common import dense, dense_init
 
 
@@ -63,16 +65,17 @@ def ffn_init(generator: torch.Generator, cfg: ModelConfig, d_ff: int = 0,
 
 def ffn_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor, d_ff: int = 0) -> torch.Tensor:
     """The FFN of hidden width ``d_ff`` (``cfg.d_ff`` when 0), or a rank's
-    share of it, summed over the model axis."""
-    split = p["w_down"].shape[-2] != (d_ff or cfg.d_ff)
-    x = enter(x, split)
+    share of it, summed over the ranks that split it."""
+    f, here = d_ff or cfg.d_ff, p["w_down"].shape[-2]
+    x = enter(x, here != f)
     if "w_gate" in p:
         gate = F.silu(dense(cfg, x, p["w_gate"]))
-        return psum(dense(cfg, gate * dense(cfg, x, p["w_up"]), p["w_down"]), split=split)
+        return psum(dense(cfg, gate * dense(cfg, x, p["w_up"]), p["w_down"]), here, f,
+                    "the FFN's hidden width")
     # GELU in its tanh form, jax.nn.gelu's default; the output bias is
     # added once, after the row-parallel sum
     h = F.gelu(dense(cfg, x, p["w_up"]) + p["b_up"], approximate="tanh")
-    return psum(dense(cfg, h, p["w_down"]), split=split) + p["b_down"]
+    return psum(dense(cfg, h, p["w_down"]), here, f, "the FFN's hidden width") + p["b_down"]
 
 
 # --------------------------------------------------------------------------
@@ -81,9 +84,10 @@ def ffn_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor, d_ff: int = 0) -> to
 
 def _expert_init(generator: torch.Generator, shape, fan_in: int, dtype, device):
     """Stacked expert weights N(0, 1/fan_in), drawn in fp32 one expert at a
-    time (the peak is the stack plus one expert's fp32 draw)."""
+    time (the peak is the stack plus one expert's fp32 draw); without a
+    generator (the meta device's shapes) the empty stack."""
     w = torch.empty(shape, dtype=dtype, device=device)
-    for e in range(shape[0]):
+    for e in range(shape[0] if generator is not None else 0):
         draw = torch.randn(shape[1:], generator=generator, dtype=torch.float32,
                            device=generator.device)
         w[e].copy_(draw.mul_(fan_in ** -0.5))
@@ -197,15 +201,15 @@ def moe_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor
     xe = xe.reshape(G, E, Cg, d)
 
     # ---- expert computation (one batched product per weight, over E) ----
-    # a rank holding E/M whole experts (expert parallelism) multiplies their
-    # slots only; the other experts' outputs are zeros here and come from
-    # their ranks in the sum below
-    e_here = p["w_gate"].shape[0]
-    check_split(p["w_gate"].shape[2], cfg.moe_d_ff, "the experts' hidden width")
-    split = e_here != E or p["w_gate"].shape[2] != cfg.moe_d_ff
+    # a rank holding E/M (or E/(D*M)) whole experts (expert parallelism)
+    # multiplies their slots only; the other experts' outputs are zeros here
+    # and come from their ranks in the sum below
+    e_here, f_here = p["w_gate"].shape[0], p["w_gate"].shape[2]
+    check_split(f_here, cfg.moe_d_ff, "the experts' hidden width")
+    split = e_here != E or f_here != cfg.moe_d_ff
     xe = enter(xe, split)  # the replicated slots enter the rank's experts
     if e_here != E:
-        e0 = model_coord(f"the MoE's experts ({e_here} of {E})")[0] * e_here
+        e0 = split_place(e_here, E, "the MoE's experts")[0] * e_here
         xe = xe[:, e0:e0 + e_here]
     h = F.silu(torch.einsum("gecd,edf->gecf", xe, p["w_gate"]))
     h = h * torch.einsum("gecd,edf->gecf", xe, p["w_up"])
@@ -225,7 +229,9 @@ def moe_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor
     # so the per-token combine is a reshape and a sum over k, last
     inv_order = torch.argsort(order, dim=1)
     contrib = _take_rows(contrib, inv_order)
-    out = psum(contrib.reshape(G, Tg, k, d).sum(dim=2), split=split)
+    # one of the two is split: the experts, or each expert's hidden width
+    out = psum(contrib.reshape(G, Tg, k, d).sum(dim=2), e_here * f_here, E * cfg.moe_d_ff,
+               "the MoE's experts")
 
     if cfg.n_shared_experts:
         out = out + ffn_forward(p["shared"], cfg, xg, cfg.moe_d_ff * cfg.n_shared_experts)

@@ -13,16 +13,19 @@ Layers are grouped into homogeneous *segments*; each segment's parameters
 (and caches) are stacked along a leading L axis, as in the JAX package, and
 a Python loop over the layers takes the place of ``jax.lax.scan``.
 
-Tensor-parallel serving (a ``1 x M`` mesh, :mod:`repro_torch.distributed`):
-where the JAX package pins activation layouts with sharding constraints and
-leaves the collectives to GSPMD, each rank here runs the same functions on
-the parameter shards it holds, under the engine's shard policy: attention
-on its local heads, the FFN on its share of the hidden width, the MoE on
-its experts, each summed over the model axis after the row-parallel
-product; the vocab-sharded embedding as a masked local lookup and the
-logits as vocab slices, each completed by one ``all_reduce``.  The norms,
-the SSM mixers and everything else outside those products run replicated,
-on identical inputs, as the JAX rules leave them.
+Serving on a ``D x M`` mesh (:mod:`repro_torch.distributed`): where the
+JAX package pins activation layouts with sharding constraints and leaves
+the collectives to GSPMD, each rank here runs the same functions on the
+parameter shards it holds, under the engine's shard policy: attention on
+the model slice of heads its pools hold (a product split over every rank
+gathered over ``data`` first), the FFN on its share of the hidden width,
+the MoE on its experts, each summed after the row-parallel product over
+the ranks that split it; the vocab-sharded embedding as a masked local
+lookup and the logits as vocab slices, each completed by one
+``all_reduce``.  The norms, the SSM mixers and everything else outside
+those products run replicated, on identical inputs, as the JAX rules leave
+them.  Each serving entry first gathers the rare leaf the serve layout
+stores in no layout the model computes on (:func:`_resident`).
 
 Training on a ``D x M`` mesh (:class:`repro_torch.train.Trainer` with a
 mesh): each rank stores its ZeRO slices and gathers a layer's leaves just
@@ -47,6 +50,7 @@ and raise without it; the forward functions run where their tensors live.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -57,7 +61,7 @@ from repro_torch import tree as T
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.encoder import resolve_device
 from repro_torch.distributed import axes as AX
-from repro_torch.distributed.axes import enter, gather_slices, model_coord, psum
+from repro_torch.distributed.axes import enter, gather_slices, psum, split_place
 from repro_torch.distributed.sharding import flat_items
 from repro_torch.models import adapters as A
 from repro_torch.models import attention as attn
@@ -321,6 +325,20 @@ def _rebuild(tree, leaves, path=()):
     return leaves[path]
 
 
+def _draw_device(generator: Optional[torch.Generator], device) -> torch.device:
+    """Where a leaf is drawn: on the generator's device, or on ``device``
+    (the meta device of :func:`param_shapes`) without one."""
+    return device if generator is None else generator.device
+
+
+@functools.lru_cache(maxsize=16)
+def param_shapes(cfg: ModelConfig) -> Dict:
+    """The shape tree of :func:`init_params` for ``cfg`` (tuples), from a
+    draw on the meta device: no memory and no numbers.  Read it, do not
+    change it (the tree is cached per config)."""
+    return _tree_map(lambda a: tuple(a.shape), init_params(cfg, device="meta"))
+
+
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device=None, *, layout=None) -> Dict:
     """Random parameters with the JAX package's keys, shapes and scales.
@@ -336,14 +354,16 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     a projection, two norms, one dense layer and a final norm), which only
     training reads.
 
-    With ``layout`` (a :class:`repro_torch.distributed.sharding.TrainLayout`)
-    the draw is by shards: the same numbers from the same generator
-    sequence, each leaf (each layer of a stack) cut to the rank's slice as
-    it is drawn and the whole freed, so the peak is the rank's slices plus
-    one layer (plus one whole leaf outside the stacks).
+    With ``layout`` (a :class:`repro_torch.distributed.sharding.TrainLayout`
+    or :class:`~repro_torch.distributed.sharding.ServeLayout`) the draw is
+    by shards: the same numbers from the same generator sequence, each leaf
+    (each layer of a stack) cut to the rank's slice as it is drawn and the
+    whole freed, so the peak is the rank's slices plus one layer (plus one
+    whole leaf outside the stacks).  On the meta device the draw takes no
+    generator (:func:`param_shapes`).
     """
     device = resolve_device(device)
-    if generator is None:
+    if generator is None and device.type != "meta":
         generator = torch.Generator(device=device).manual_seed(0)
 
     def place(key, tree):
@@ -354,7 +374,7 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
     d, V = cfg.d_model, cfg.padded_vocab
     emb = torch.randn((V, d), generator=generator, dtype=torch.float32,
-                      device=generator.device)
+                      device=_draw_device(generator, device))
     params: Dict[str, Any] = {"embed": place("embed", emb.mul_(0.02).to(device=device,
                                                                        dtype=cfg.dtype))}
     del emb
@@ -413,7 +433,7 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 def _pos_table(generator: torch.Generator, cfg: ModelConfig, n: int, device) -> torch.Tensor:
     """A learned position table, N(0, 0.02^2) drawn in fp32."""
     t = torch.randn((n, cfg.d_model), generator=generator, dtype=torch.float32,
-                    device=generator.device)
+                    device=_draw_device(generator, device))
     return t.mul_(0.02).to(device=device, dtype=cfg.dtype)
 
 
@@ -561,16 +581,17 @@ def _run_segments(
 
 def _embed(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
     """Token embeddings.  On a rank holding a vocab slice of ``embed``: the
-    rows of the ids in its slice, zeros for the rest, summed over the model
-    axis (exact: each id's row comes from one rank); on a rank holding a
-    d_model slice: its columns, gathered."""
+    rows of the ids in its slice, zeros for the rest, summed over the ranks
+    that split the vocab (exact: each id's row comes from one rank); on a
+    rank holding a d_model slice: its columns, gathered."""
     emb, ids = params["embed"], tokens.long()
-    if emb.shape[0] != cfg.padded_vocab:  # vocab-sharded
-        n = emb.shape[0]
-        ids = ids - model_coord(f"embed's vocab rows ({n} of {cfg.padded_vocab})")[0] * n
+    n, V = emb.shape[0], cfg.padded_vocab
+    if n != V:  # vocab-sharded
+        ids = ids - split_place(n, V, "embed's vocab rows")[0] * n
         here = (ids >= 0) & (ids < n)
-        return psum(emb[ids.clamp(0, n - 1)].masked_fill(~here[..., None], 0))
-    return gather_slices(emb[ids], cfg.d_model)
+        return psum(emb[ids.clamp(0, n - 1)].masked_fill(~here[..., None], 0), n, V,
+                    "embed's vocab rows")
+    return gather_slices(emb[ids], cfg.d_model, what="embed's d_model columns")
 
 
 def _lm_logits(cfg: ModelConfig, params, h):
@@ -580,17 +601,29 @@ def _lm_logits(cfg: ModelConfig, params, h):
     products summed."""
     if cfg.tie_embeddings and params["embed"].shape[1] != cfg.d_model:
         n = params["embed"].shape[1]
-        c0 = model_coord(f"embed's d_model columns ({n} of {cfg.d_model})")[0] * n
-        logits = psum(enter(h)[..., c0:c0 + n] @ params["embed"].T)
+        c0 = split_place(n, cfg.d_model, "embed's d_model columns")[0] * n
+        logits = psum(enter(h)[..., c0:c0 + n] @ params["embed"].T, n, cfg.d_model,
+                      "embed's d_model columns")
     else:
         w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
         h = enter(h, w.shape[-1] != cfg.padded_vocab)
-        logits = gather_slices(h @ w, cfg.padded_vocab)
+        logits = gather_slices(h @ w, cfg.padded_vocab, what="the head's vocab columns")
     if cfg.padded_vocab != cfg.vocab_size:
         # mask pad columns so logsumexp / sampling never see them (in place:
         # the product's backward reads its operands, not its output)
         logits[..., cfg.vocab_size:] = torch.finfo(logits.dtype).min
     return logits
+
+
+def _resident(params):
+    """Serving on a mesh: each parameter as the model reads it -- the
+    leaves the serve layout stores in no layout the model computes on
+    gathered (:func:`repro_torch.distributed.axes.resident`), the rest as
+    they are."""
+    pol = AX.current()
+    if pol is None or pol.train or not pol.plan:
+        return params
+    return {k: AX.resident(v, k) for k, v in params.items()}
 
 
 # --------------------------------------------------------------------------
@@ -704,6 +737,7 @@ def prefill(cfg: ModelConfig, params, batch: Dict, last_idx: Optional[int] = Non
     the logits at the last *real* token (:func:`supports_padded_prefill`).
     An enc-dec config reads the batch's ``audio_embeds``.
     """
+    params = _resident(params)
     if cfg.n_encoder_layers:
         return _prefill_encdec(cfg, params, batch)
     h, positions = _embed_inputs(cfg, params, batch)
@@ -718,6 +752,7 @@ def decode_step(cfg: ModelConfig, params, caches, tokens, pos: int):
     position, on all three streams of an M-RoPE config (the JAX package's
     rule).  Writes the caches in place; returns (logits (B, 1, V), caches)."""
     B = tokens.shape[0]
+    params = _resident(params)
     h = _embed(cfg, params, tokens)
     shape = (3, B, 1) if cfg.mrope_sections else (B, 1)
     positions = torch.full(shape, pos, dtype=torch.int32, device=h.device)
@@ -743,6 +778,7 @@ def decode_step_paged(cfg: ModelConfig, params, caches, tokens, seq_pos,
     go to the null page, so the lockstep step cannot corrupt a half-prefilled
     slot.  Returns (logits (B, 1, V), caches), the caches written in place.
     """
+    params = _resident(params)
     h = _embed(cfg, params, tokens)
     if cfg.n_encoder_layers:
         # learned decoder positions, gathered per slot (enc-dec decode)
@@ -773,6 +809,7 @@ def prefill_chunk(cfg: ModelConfig, params, caches, tokens, slot: int, q_off: in
     """
     B, C = tokens.shape
     assert B == 1
+    params = _resident(params)
     h = _embed(cfg, params, tokens)
     positions = (q_off + torch.arange(C, dtype=torch.int32, device=h.device))[None]
     if cfg.n_encoder_layers:
@@ -819,8 +856,9 @@ def _cross_kv(cfg: ModelConfig, pc: Dict, enc_out: torch.Tensor):
     """One decoder layer's cross-attention K/V over the encoder output."""
     B, S = enc_out.shape[:2]
     enc_out = enter(enc_out, attn.heads_split(pc, cfg))
-    ck = (enc_out @ pc["wk"]).reshape(B, S, -1, cfg.d_head)  # the heads wk holds
-    cv = (enc_out @ pc["wv"]).reshape(B, S, -1, cfg.d_head)
+    kv = cfg.n_kv_heads * cfg.d_head  # the model slice of kv heads, gathered over data
+    ck = AX.data_gather(enc_out @ pc["wk"], kv).reshape(B, S, -1, cfg.d_head)
+    cv = AX.data_gather(enc_out @ pc["wv"], kv).reshape(B, S, -1, cfg.d_head)
     return ck, cv
 
 
@@ -882,6 +920,7 @@ def encdec_cross_kv(cfg: ModelConfig, params, audio_embeds: torch.Tensor) -> Dic
     the result into the slot's immutable cross rows.  Returns stacked
     {"k", "v"} of shape (n_layers, B, encoder_seq, n_kv_heads, d_head).
     """
+    params = _resident(params)
     enc_out = _encoder_forward(cfg, params, audio_embeds)
     ks, vs = [], []
     for i in range(cfg.n_layers):

@@ -34,7 +34,7 @@ def ssm_init(generator: torch.Generator, cfg: ModelConfig, device=None) -> Dict:
     conv_dim = d_in + 2 * G * N
     in_proj = dense_init(generator, d, 2 * d_in + 2 * G * N + H, cfg.dtype, device=device)
     conv_w = torch.randn((cfg.ssm_conv, conv_dim), generator=generator, dtype=torch.float32,
-                         device=generator.device)
+                         device=device if generator is None else generator.device)
     return {
         "in_proj": in_proj,
         "conv_w": conv_w.mul_(0.1).to(device=device, dtype=cfg.dtype),

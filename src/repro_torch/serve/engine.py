@@ -39,18 +39,21 @@ them for its compiled-artifact linter), this engine calls the model's
 functions eagerly.  Entry points run on the CUDA device unless ``device``
 says otherwise.
 
-**Tensor-parallel serving** (``mesh=``, a ``1 x M`` mesh from
+**Serving on a mesh** (``mesh=``, a ``D x M`` mesh from
 :func:`repro_torch.launch.mesh.make_serve_mesh`): every rank builds the
-engine with the same full parameters (the JAX API), keeps its shards
-(:func:`repro_torch.distributed.sharding.shard_params`) once, at
-construction, and runs the same host schedule.  So each rank holds the
-full tree once while its engine is built, on its card or in host memory.  The model runs on the
-rank's local heads and widths and sums over the model axis with
-``all_reduce`` (the rank's pools hold its kv heads; the paged kernels
-simply receive them); every rank reads the same reduced logits, so the
-sampled tokens -- greedy, or drawn from the same seeded generator -- are
-the same on every rank without a collective of their own.  A data axis of
-more than one rank raises (ROADMAP.md queue 1 item 26, its rest).
+engine at the same point and runs the same host schedule on the same full
+batch.  It takes either the full parameters (the JAX API; the rank keeps
+its shards once, at construction) or a tree its
+:class:`~repro_torch.distributed.sharding.ServeLayout` drew by shards
+(``init_params(layout=)``: no rank ever holds the full tree), and stores
+the JAX serve mode's share of each leaf, resident.  The model runs on the
+rank's model slice of heads and its share of the widths and experts,
+summing row-parallel products over the ranks that split them with
+``all_reduce`` (the rank's pools hold the model slice's kv heads,
+replicated over the data axis; the paged kernels simply receive them);
+every rank reads the same reduced logits, so the sampled tokens -- greedy,
+or drawn from the same seeded generator -- are the same on every rank
+without a collective of their own.
 """
 from __future__ import annotations
 
@@ -186,13 +189,17 @@ def _check_params_device(params, device: torch.device) -> None:
 
 
 def _rank_params(cfg: ModelConfig, params, mesh, device: torch.device):
-    """The parameters the engine runs: the caller's, which must live on
-    ``device``; under a mesh, this rank's shards of them (the full tree may
-    live anywhere), copied to ``device``."""
+    """(the parameters the engine runs, its shard policy): the caller's,
+    which must live on ``device``, and none; under a mesh, this rank's
+    shards (cut from the full tree, which may live anywhere, or a tree the
+    serve layout placed), on ``device``, and the serve layout's policy
+    where the mesh has several ranks."""
     if mesh is None:
         _check_params_device(params, device)
-        return params
-    return SH.shard_params(cfg, params, mesh, device)
+        return params, None
+    layout = SH.ServeLayout(cfg, mesh)
+    placed = layout.place(params, device)
+    return placed, (layout.policy() if layout.ranks > 1 else None)
 
 
 class Server:
@@ -202,15 +209,15 @@ class Server:
     and must hold ``params``.  Sampling at ``temperature > 0`` draws from a
     ``torch.Generator`` seeded with ``ServeConfig.seed``: other numbers
     than the JAX package's ``jax.random`` for the same seed.  ``mesh``: a
-    ``1 x M`` mesh; the rank keeps its shards of the full ``params``.
+    ``D x M`` mesh; the rank keeps its shards of the full ``params``, or
+    takes a tree its serve layout placed.
     """
 
     def __init__(self, cfg: ModelConfig, params, sc: ServeConfig, mesh=None, device=None):
         self.tp_size = check_serve_mesh(mesh)
         self.cfg, self.sc, self.mesh = cfg, sc, mesh
         self.device = resolve_device(device)
-        self.params = _rank_params(cfg, params, mesh, self.device)
-        self._policy = AX.make_policy(mesh) if self.tp_size > 1 else None
+        self.params, self._policy = _rank_params(cfg, params, mesh, self.device)
         self._prefill = functools.partial(M.prefill, cfg)
         self._decode = functools.partial(M.decode_step, cfg)
 
@@ -366,15 +373,16 @@ class Engine:
     """Continuous-batching serving engine (scheduler + paged KV cache).
 
     ``device`` (default ``"cuda"``; raises without CUDA) holds the page
-    pool and must hold ``params``.  ``mesh``: a ``1 x M`` mesh; the rank
+    pool and must hold ``params``.  ``mesh``: a ``D x M`` mesh; the rank
     keeps its shards of the full ``params`` (which may then live on any
-    device) and of the pools.  A kv-head count the model axis does not
-    divide raises before anything is allocated.
+    device), or takes a tree its serve layout placed, and holds its share
+    of the pools.  A kv-head count the model axis does not divide raises
+    before anything is allocated.
     """
 
     def __init__(self, cfg: ModelConfig, params, ec: EngineConfig, mesh=None,
                  device=None):
-        tp_size = check_serve_mesh(mesh)
+        check_serve_mesh(mesh)
         # fold the backend selector into the frozen config; resolve eagerly
         # so an unknown name fails here, not mid-step
         resolve_backend(ec.backend)
@@ -382,8 +390,7 @@ class Engine:
             cfg = dataclasses.replace(cfg, decode_backend=ec.backend)
         self.cfg, self.ec, self.mesh = cfg, ec, mesh
         self.device = resolve_device(device)
-        self.params = _rank_params(cfg, params, mesh, self.device)
-        self._policy = AX.make_policy(mesh) if tp_size > 1 else None
+        self.params, self._policy = _rank_params(cfg, params, mesh, self.device)
         # recompute families rely on prefix chunks replaying the publisher's
         # exact chunk grid; one-shot prefill groups the whole prompt per
         # request, so sharing is only sound there for compute-skippable

@@ -32,12 +32,14 @@ allocates once; where the JAX package jits its install and COW steps with
 the pool donated, this port updates the pool tensors in place, eagerly --
 the pool is never copied.
 
-Under a ``1 x M`` mesh (``mesh=``) each rank allocates its share of every
-pool as the adapters' ``pool_pspecs`` place it (kv-head-sharded K/V pages,
-ring and cross rows; whole MLA latent pages and SSM rows).  The page
-tables, free lists, refcounts and prefix index are host state that every
-rank computes identically from the same schedule, so a page id names the
-same page of every rank's shard.
+Under a ``D x M`` mesh (``mesh=``) each rank allocates its share of every
+pool as the adapters' ``pool_pspecs`` place it over the model axis
+(kv-head-sharded K/V pages, ring and cross rows; whole MLA latent pages and
+SSM rows), replicated over the data axis as in the JAX package: the ``D``
+ranks of a model slice hold the same kv heads and write the same values.
+The page tables, free lists, refcounts and prefix index are host state
+that every rank computes identically from the same schedule, so a page id
+names the same page of every rank's shard.
 """
 from __future__ import annotations
 
@@ -58,28 +60,21 @@ from repro_torch.models import model as M
 
 NULL_PAGE = 0  # reserved physical page: idle-slot writes, unmapped gathers
 
-MESH_REST = ("serving on a data axis of more than one rank (D > 1) is not ported yet "
-             "(ROADMAP.md queue 1 item 26, its rest: D > 1 serving and loading the "
-             "served weights by shards): the JAX serve mode shards the weights 2-D over "
-             "data x model and the pools over model only; the trainer takes D x M meshes")
-
-
 def check_serve_mesh(mesh) -> int:
     """The model-axis size of a serving mesh (1 without one).  Raises
     ``TypeError`` for an object that is not a mesh (or an abstract one of
-    several ranks) and ``NotImplementedError`` for a data axis of more than
-    one rank."""
+    several ranks) and ``ValueError`` for axes other than ``("data",
+    "model")``."""
     if mesh is None:
         return 1
     if not AX.is_mesh(mesh):
         raise TypeError(f"mesh must be a DeviceMesh named ('data', 'model') (see "
                         f"repro_torch.launch.mesh.make_serve_mesh), got {type(mesh).__name__}")
     shape = AX.mesh_shape(mesh)
-    if "model" not in shape:
-        raise ValueError(f"the mesh has no 'model' axis: {AX.mesh_names(mesh)}")
-    if any(n != 1 for a, n in shape.items() if a != "model"):
-        raise NotImplementedError(MESH_REST)
-    if isinstance(mesh, AX.AbstractMesh) and shape["model"] > 1:
+    if set(shape) != {"data", "model"}:
+        raise ValueError(f"a serving mesh has the axes ('data', 'model'), not "
+                         f"{AX.mesh_names(mesh)}")
+    if isinstance(mesh, AX.AbstractMesh) and math.prod(shape.values()) > 1:
         raise TypeError("an abstract mesh has no ranks to serve on; build the mesh with "
                         "repro_torch.launch.mesh.make_serve_mesh over a process group")
     return shape["model"]
@@ -373,8 +368,8 @@ class PagedKVCache:
     """Device cache pool + host page tables for the continuous-batching engine.
 
     The pools live on ``device`` (default ``"cuda"``; raises without CUDA).
-    ``mesh``: a ``1 x M`` mesh (:func:`check_serve_mesh`); the rank then
-    holds its share of the pools.
+    ``mesh``: a ``D x M`` mesh (:func:`check_serve_mesh`); the rank then
+    holds its share of the pools (1/M of a head-sharded one).
     """
 
     def __init__(self, cfg: ModelConfig, pc: PagedCacheConfig, mesh=None, device=None):

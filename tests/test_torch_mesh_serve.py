@@ -4,7 +4,8 @@ port's single-device engine and the JAX package's.
 The twins of ``tests/test_mesh_serve.py`` (dense chunked prefill on both
 backends, ``Server`` static waves, the MoE stack, MLA latent pages,
 preemption and recompute, shared-prefix copy-on-write, the non-dividing
-rejection) run at TP 4 with that file's head lifts.  Deviations: the MLA
+rejection) run at TP 4 with that file's head lifts, and the same four ranks
+serve as a ``2 x 2`` mesh once.  Deviations: the MLA
 twin serves DeepSeek-V3's stock 2 heads, which a 4-way axis does not split
 into whole heads -- where the JAX rules shard the attention's columns and
 GSPMD serves the rest, each rank of the port runs the whole attention and
@@ -102,7 +103,7 @@ def _twins():
         dict(name="reject", kind="reject", arch="minicpm-2b", over={"block": 8},
              ec=_ec()),
         dict(name="data_axis", kind="data_axis", arch=arch, over=over, ec=_ec(),
-             mesh="2x2"),
+             serve_mesh="2x2", prompts=_prompts(vocab, (12, 9, 14)), max_new=8, stagger=2),
     ]
     for c in cases:
         c.setdefault("kind", "engine")
@@ -245,7 +246,8 @@ def runs(tmp_path_factory):
         pickle.dump(cases, f)
     started = {tp: _start_ranks(cases_path, tmp, tp) for tp in (2, 3, 4)}
     # meanwhile: the baselines in this process
-    base = {c["name"]: _baseline(c) for c in cases if c["kind"] in ("engine", "server")}
+    base = {c["name"]: _baseline(c) for c in cases
+            if c["kind"] in ("engine", "server", "data_axis")}
     jax_logits = {c["name"]: _jax_first_logits(c) for c in cases if c["jax"]}
     deadline = time.monotonic() + RANKS_TIMEOUT_S
     ranks = {}
@@ -410,16 +412,15 @@ def test_mesh_shared_prefix_cow_parity(runs):
 def test_mesh_rejects_nondividing_kv_heads(runs):
     """6 kv heads on a 4-way model axis raise at construction, before a
     shard or a pool is cut, with the JAX package's message; 2-way
-    constructs; a data axis of 2 is not ported."""
+    constructs; the same four ranks as a 2 x 2 mesh (a data axis of 2)
+    serve the single device's tokens."""
     _, out = _results(runs, "reject")
     for r in out:
         assert r["error"] is not None
         assert "n_kv_heads=6" in r["error"] and "model-axis size 4" in r["error"]
     _, out = _results(runs, "reject_constructs")
     assert all(r["bytes_per_device"] > 0 for r in out)
-    _, out = _results(runs, "data_axis")
-    for r in out:
-        assert r["error"] is not None and "queue 1 item 26" in r["error"]
+    assert _check_tokens(runs, "data_axis") == 0
 
 
 # --------------------------------------------------------------------------
@@ -523,7 +524,7 @@ def test_mesh_entry_points_refuse_what_is_not_a_mesh():
     params = M.init_params(cfg, device="cpu")
     with pytest.raises(TypeError, match="DeviceMesh"):
         Engine(cfg, params, EngineConfig(), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 26"):
+    with pytest.raises(TypeError, match="no ranks"):
         Engine(cfg, params, EngineConfig(), mesh=abstract_mesh((2, 2), ("data", "model")),
                device="cpu")
     with pytest.raises(TypeError, match="no ranks"):

@@ -170,7 +170,7 @@ def test_kvcache_admission_accounting_and_device_rule():
     kv.audit()
     with pytest.raises(TypeError, match="DeviceMesh"):
         PagedKVCache(cfg, PagedCacheConfig(), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 26"):
+    with pytest.raises(TypeError, match="no ranks"):
         PagedKVCache(cfg, PagedCacheConfig(), mesh=abstract_mesh((2, 2), ("data", "model")),
                      device="cpu")
 
@@ -350,7 +350,7 @@ def test_engine_refuses_unported_families_mesh_and_backends():
     with pytest.raises(TypeError, match="DeviceMesh"):
         Server(cfg, params, ServeConfig(), mesh=object(), device="cpu")
     for cls, conf in ((Engine, EngineConfig()), (Server, ServeConfig())):
-        with pytest.raises(NotImplementedError, match="queue 1 item 26"):
+        with pytest.raises(TypeError, match="no ranks"):
             cls(cfg, params, conf, mesh=abstract_mesh((2, 4), ("data", "model")),
                 device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):

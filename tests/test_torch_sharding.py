@@ -302,3 +302,124 @@ def test_a_ranks_shards_outside_a_policy_raise(arch, whole_vocab):
     with AX.policy(one), pytest.raises(RuntimeError, match="no shard policy"):
         M.prefill(cfg, shards, batch)
     M.prefill(cfg, params, batch)  # the whole tree runs without a policy
+
+
+# --------------------------------------------------------------------------
+# Serving on a data x model mesh: the serve layout
+# --------------------------------------------------------------------------
+
+SERVE_MESHES = {"2x2": (2, 2), "2x4": (2, 4), "16x16": (16, 16)}
+
+
+def _jax_shard_shape(shape, spec, sizes):
+    """A leaf's shard shape under a JAX spec: each dim over the product of
+    the sizes of the axes its entry names (a NamedSharding's even split)."""
+    out = []
+    for n, e in zip(shape, tuple(spec) + (None,) * len(shape)):
+        axes = () if e is None else e if isinstance(e, tuple) else (e,)
+        k = 1
+        for a in axes:
+            k *= sizes[a]
+        assert n % k == 0
+        out.append(n // k)
+    return tuple(out)
+
+
+@pytest.mark.parametrize("mesh_name", list(SERVE_MESHES))
+@pytest.mark.parametrize("arch", C.arch_ids())
+def test_serve_layout_stores_the_jax_serve_share(arch, mesh_name):
+    """On a D x M mesh each stored leaf has the shard shape of the JAX
+    serve spec, except the leaves kept whole: wq_a, an attention whose heads
+    the model axis does not split whole, and those the base rules over the
+    model axis replicate (norms, routers, SSM leaves, position tables),
+    which the serve mode shards only by its 2-D fallback or ZeRO.  A dim
+    split over both axes is stored model-major: the blocks of the D ranks
+    of model slice m, in data order, are the 1 x M rank m's slice."""
+    d, m = SERVE_MESHES[mesh_name]
+    jmesh = j_abstract_mesh((d, m), ("data", "model"))
+    mesh = abstract_mesh((d, m), ("data", "model"))
+    jcfg, cfg = JC.get_config(arch), C.get_config(arch)
+    shapes = _param_shapes(arch)
+    jspecs = dict(_flat(_entries(JSH.param_pspecs(jcfg, jmesh, shapes, mode="serve"))))
+    full = dict(_flat(_shapes(shapes)))
+    sizes = {"data": d, "model": m}
+    layout = SH.ServeLayout(cfg, mesh)
+    tp = abstract_mesh((1, m), ("data", "model"))
+    one_by_m = dict(_flat(SH.serve_placement(cfg, tp, _shapes(shapes))))
+    stored = dict(_flat(SH.serve_placement(cfg, mesh, _shapes(shapes))))
+    kept, flat = [], 0
+    for path, shape in full.items():
+        local = layout.local_shape(path, shape)
+        if layout.kept_whole(path):
+            assert local == shape, path
+            stacked = any(s.startswith("seg") or s in ("encoder", "cross") for s in path)
+            base = JSH._base_tp_spec(path[-1], shape, "model", m, stacked, jcfg)
+            assert path[-1] in SH.whole_leaves(cfg, m) or all(e is None for e in base), path
+            kept.append(path)
+            continue
+        assert local == _jax_shard_shape(shape, jspecs[path], sizes), (path, jspecs[path])
+        for dim, e in enumerate(stored[path]):
+            if not (isinstance(e, tuple) and set(e) == {"data", "model"}):
+                continue
+            flat += 1
+            assert e == ("model", "data"), path  # model-major
+            for mm in range(m):
+                want = SH.shard_index(shape, one_by_m[path], tp, {"data": 0, "model": mm})
+                got = [SH.shard_index(shape, stored[path], mesh, {"data": dd, "model": mm})[dim]
+                       for dd in range(d)]
+                assert got[0].start == want[dim].start and got[-1].stop == want[dim].stop
+                assert all(a.stop == b.start for a, b in zip(got, got[1:])), path
+    assert flat  # every arch keeps some weights split over both axes
+    if any(p[-1] == "wq_a" for p in full):
+        assert any(p[-1] == "wq_a" for p in kept)
+
+
+@pytest.mark.parametrize("arch", C.arch_ids())
+def test_serve_draw_by_shards_is_the_full_draws_slices(arch):
+    """Every rank of an abstract 2 x 2 mesh draws its shares from the seed
+    (``init_params(layout=ServeLayout)``): each bit-equal to the same slice
+    of the full draw (``ServeLayout.place``), the serve spec's share of
+    bytes; ``place`` keeps a placed tree as it is and refuses a tree of
+    neither shape."""
+    _, cfg = _smoke(arch)
+    mesh = abstract_mesh((2, 2), ("data", "model"))
+    full = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    for d in range(2):
+        for m in range(2):
+            coords = {"data": d, "model": m}
+            layout = SH.ServeLayout(cfg, mesh, coords)
+            mine = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu",
+                                 layout=layout)
+            cut = SH.ServeLayout(cfg, mesh, coords).place(full, torch.device("cpu"))
+            for (path, a), (_, b) in zip(_flat(mine), _flat(cut)):
+                assert torch.equal(a, b), path
+            nbytes = sum(t.numel() * t.element_size() for _, t in _flat(mine))
+            assert nbytes == layout.share_nbytes(mine)
+            kept = layout.place(mine, torch.device("cpu"))
+            assert all(a is b for (_, a), (_, b) in zip(_flat(kept), _flat(mine)))
+    bad = dict(full, embed=full["embed"][:3])
+    with pytest.raises(ValueError, match="neither the full leaf"):
+        SH.ServeLayout(cfg, mesh).place(bad, torch.device("cpu"))
+
+
+def test_serve_layout_plans_gathers_only_where_the_model_cannot_read():
+    """The leaves a serving rank reads as stored: split over both axes (the
+    1-D rule), or as the 1 x M port holds them.  starcoder2's smoke FFN at
+    a hidden width of 42 on 2 x 2 takes the 2-D fallback: w_up and b_up
+    gathered over data into the model slice, w_down gathered whole and cut
+    (rows over data, columns over model, where the 1 x M port splits rows);
+    nothing is gathered at 1 x M."""
+    import dataclasses
+
+    from repro_torch.distributed.axes import LeafUse
+
+    cfg = dataclasses.replace(C.get_config("starcoder2-7b", smoke=True), d_ff=42)
+    shapes = M.param_shapes(cfg)
+    for spec, want in (((1, 2), {}), ((2, 2), {
+            ("seg0", "ffn", "w_up"): LeafUse(data_dim=1),
+            ("seg0", "ffn", "b_up"): LeafUse(data_dim=0),
+            ("seg0", "ffn", "w_down"): LeafUse(1, 2, 1)})):
+        layout = SH.ServeLayout(cfg, abstract_mesh(spec, ("data", "model")))
+        for path, shape in _flat(shapes):
+            layout.local_shape(path, shape)
+        assert dict(_flat(layout.plan())) == want

@@ -1,13 +1,17 @@
-"""One rank of the port's tensor-parallel serving cases (gloo, on the CPU).
+"""One rank of the port's serving cases on a mesh (gloo, on the CPU).
 
-``tests/test_torch_mesh_serve.py`` starts ``world`` of these processes:
+``tests/test_torch_mesh_serve.py`` and ``tests/test_torch_mesh_serve_dp.py``
+start ``world`` of these processes:
 
-    python tests/torch_mesh_ranks.py CASES_PICKLE STORE_FILE RANK WORLD OUT_DIR
+    python tests/torch_mesh_ranks.py CASES_PICKLE STORE_FILE RANK WORLD OUT_DIR [DxM]
 
 Each joins a ``gloo`` group through a ``FileStore`` (with a timeout, so a
-collective that hangs fails the rank), builds the ``1 x world`` mesh, runs
-every case of the pickle whose ``tp`` is ``world`` and writes its results to
-``OUT_DIR/rank{RANK}.pkl``.  It imports neither ``jax`` nor ``repro``.
+collective that hangs fails the rank), builds the ``DxM`` mesh (default
+``1 x world``), runs every case of the pickle made for that mesh (its
+``mesh``, else ``1 x`` its ``tp``) and writes its results to
+``OUT_DIR/rank{RANK}.pkl``.  A case with ``draw="shards"`` draws the rank's
+shares of the weights from seed 0 (``init_params(layout=)``) and gives the
+engine that tree.  It imports neither ``jax`` nor ``repro``.
 """
 import dataclasses
 import datetime
@@ -23,13 +27,17 @@ import torch.distributed as dist
 TIMEOUT_S = 60
 
 
-def build(case):
+def build(case, mesh=None):
     import repro_torch.configs as C
+    from repro_torch.distributed import sharding as SH
     from repro_torch.models import model as M
 
     cfg = dataclasses.replace(C.get_config(case["arch"], smoke=True, dtype=torch.float32),
                               **case["over"])
-    if case["params"] is None:
+    if case.get("draw") == "shards":
+        params = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu",
+                               layout=SH.ServeLayout(cfg, mesh))
+    elif case["params"] is None:
         params = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     else:
         params = M.params_from_numpy(case["params"], device="cpu")
@@ -68,16 +76,23 @@ def run_case(case, mesh):
     from repro_torch.models import model as M
     from repro_torch.serve import Engine, EngineConfig, ServeConfig, Server
 
-    cfg, params = build(case)
+    cfg, params = build(case, mesh)
     kind = case["kind"]
     if kind == "engine":
         eng, toks, logits = run_engine(case, cfg, params, mesh)
+        layout = SH.ServeLayout(cfg, mesh)
         return {"tokens": toks, "first_logits": logits,
                 "bytes_per_device": eng.kv.cache_bytes_per_device(),
                 "bytes": eng.kv.cache_bytes(), "cow_copies": eng.kv.cow_copies,
                 "pages_aliased": eng.kv.pages_aliased,
                 "preemptions": sum(r.stats.n_preemptions
-                                   for r in eng.sched.finished.values())}
+                                   for r in eng.sched.finished.values()),
+                "param_bytes": sum(t.numel() * t.element_size()
+                                   for _p, t in SH.flat_items(eng.params)),
+                "param_bytes_by_spec": layout.share_nbytes(eng.params),
+                "placed_tree_kept": all(a is b for (_p, a), (_q, b) in zip(
+                    SH.flat_items(eng.params), SH.flat_items(params))),
+                "gathered": layout.gathered()}
     if kind == "server":
         batch = {"tokens": np.stack(case["prompts"])}
         out = Server(cfg, params, ServeConfig(max_len=64), mesh=mesh,
@@ -93,21 +108,17 @@ def run_case(case, mesh):
             except ValueError as e:
                 return {"error": str(e)}
         return {"error": None}
-    if kind == "data_axis":
-        try:
-            Engine(cfg, params, EngineConfig(**case["ec"]),
-                   mesh=make_serve_mesh(case["mesh"]), device="cpu")
-        except NotImplementedError as e:
-            return {"error": str(e)}
-        return {"error": None}
+    if kind == "data_axis":  # the world's ranks as the case's D x M mesh
+        _eng, toks, _logits = run_engine(case, cfg, params, make_serve_mesh(case["serve_mesh"]))
+        return {"tokens": toks}
     if kind == "constructs":
         eng = Engine(cfg, params, EngineConfig(**case["ec"]), mesh=mesh, device="cpu")
         return {"bytes_per_device": eng.kv.cache_bytes_per_device()}
     raise ValueError(kind)
 
 
-def main(cases_path, store, rank, world, out_dir):
-    from repro_torch.launch.mesh import make_local_mesh
+def main(cases_path, store, rank, world, out_dir, spec=None):
+    from repro_torch.launch.mesh import make_serve_mesh
 
     torch.set_num_threads(1)  # the ranks share the host's cores
     dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
@@ -115,10 +126,11 @@ def main(cases_path, store, rank, world, out_dir):
                             timeout=datetime.timedelta(seconds=TIMEOUT_S))
     with open(cases_path, "rb") as f:
         cases = pickle.load(f)
-    mesh = make_local_mesh()  # 1 x world
+    spec = spec or f"1x{world}"
+    mesh = make_serve_mesh(spec)
     results = {}
     for case in cases:
-        if case["tp"] != world:
+        if (case.get("mesh") or f"1x{case['tp']}") != spec:
             continue
         try:
             results[case["name"]] = run_case(case, mesh)
@@ -131,4 +143,4 @@ def main(cases_path, store, rank, world, out_dir):
 
 if __name__ == "__main__":
     a = sys.argv[1:]
-    main(a[0], a[1], int(a[2]), int(a[3]), a[4])
+    main(a[0], a[1], int(a[2]), int(a[3]), a[4], *a[5:])
