@@ -228,6 +228,24 @@ Phases, each printing one JSON line:
    in phase 15; every MLA decode call within 1e-6 of its plain version.
    Printed: each rank's ``max_memory_allocated`` beside its prediction,
    its load and run seconds and steps per second.
+18. memmodel -- the paper's trace-driven memory model
+   (``repro_torch.core.memmodel``) on the card: every ``MemStats`` field of
+   every component equal to the same model's CPU run at the reduced layer
+   (seq 128, d 192, 3 heads, d_ff 768) for the three accelerators, both
+   layouts and 1, 2, 4 cores, and at the full BERT-base layer for SA16x16
+   (both layouts, one core); then the full-size Fig. 6a (three
+   accelerators), Fig. 6b (SA16x16 at 1, 2, 4 cores), Fig. 7 (GEMM share),
+   Fig. 8 (L1 misses, L2 and DRAM accesses, address cycles) and §3.2
+   conversion figures, with the model's seconds on the card; SA16x16's
+   single-core speedup within the JAX test's 1.8-3.8 band.
+19. dryrun -- ``repro_torch.launch.dryrun`` on one device: mamba2-130m's
+   decode_32k and prefill_32k cells traced on the meta device, then the
+   same steps run once on the card with real tensors (bf16, weights from a
+   seed; prefill at the rows whose predicted peak fits half the card, the
+   full cell's prediction printed beside).  Gates: the dry run's argument
+   bytes equal the real inputs' bytes, its FLOPs equal FlopCounterMode's
+   on the real run, no collective, finite logits.  Printed: the predicted
+   peak (arguments + temporaries) beside ``max_memory_allocated``.
 
 Each phase's seconds follow it on a line of their own.  Then the per-kernel
 summary line (the decode kernels' and the page copy's launches per serving
@@ -3515,6 +3533,176 @@ def dp_serve_phase(torch, kernels, device_type: str = "cuda", models=None,
     return result
 
 
+# --------------------------------------------------------------------------
+# 18. the paper's memory model on the card
+# --------------------------------------------------------------------------
+
+MM_SMALL = dict(seq=128, d_model=192, n_heads=3, d_head=64, d_ff=768)
+MM_SPEEDUP_BAND = (1.8, 3.8)  # the JAX package's full-size test band
+MM_CLOCK_HZ = 2.3e9  # the simulated SoC's CPU clock (paper §4.1)
+
+
+def memmodel_phase(torch, device: str = "cuda", full=None) -> dict:
+    """The memory model on the card against its own CPU run (SMALL: every
+    accelerator, layout and core count; full size: SA16x16, both layouts,
+    one core), then the paper's full-size figures.  ``device`` and ``full``
+    (default the BERT-base layer) let the CPU rehearse the phase."""
+    import dataclasses
+
+    from repro_torch.core import memmodel as mm
+
+    small = mm.WorkloadConfig(**MM_SMALL)
+    full = full or mm.WorkloadConfig()
+    checked = 0
+    cases = [(small, a, lay, c) for a in mm.PAPER_ACCELERATORS for lay in ("rwma", "bwma")
+             for c in (1, 2, 4)]
+    cases += [(full, mm.AccelSpec.sa(16), lay, 1) for lay in ("rwma", "bwma")]
+    for wl, accel, layout, cores in cases:
+        got = mm.simulate_layer(wl, accel, layout, cores, device=device)
+        want = mm.simulate_layer(wl, accel, layout, cores, device="cpu")
+        for comp in want:
+            if dataclasses.asdict(got[comp]) != dataclasses.asdict(want[comp]):
+                raise AssertionError(f"memmodel {accel.name} {layout} cores={cores} "
+                                     f"seq={wl.seq} {comp}: card {got[comp]} != cpu "
+                                     f"{want[comp]}")
+            checked += 1
+    emit({"phase": "memmodel_check", "components_equal": checked,
+          "cases": len(cases), "full_size": "SA16x16 rwma+bwma, 1 core"})
+
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    ms = 1e3 / MM_CLOCK_HZ
+    res = {a.name: {lay: mm.simulate_layer(full, a, lay, device=device)
+                    for lay in ("rwma", "bwma")} for a in mm.PAPER_ACCELERATORS}
+    fig6a = {name: {"rwma_ms": r["rwma"]["total"].cycles * ms,
+                    "bwma_ms": r["bwma"]["total"].cycles * ms,
+                    "speedup": r["rwma"]["total"].cycles / r["bwma"]["total"].cycles,
+                    "l1_miss_ratio": r["rwma"]["total"].l1_misses
+                    / max(r["bwma"]["total"].l1_misses, 1)}
+             for name, r in res.items()}
+    sa16 = mm.AccelSpec.sa(16)
+    fig6b = {}
+    for cores in (1, 2, 4):
+        r = mm.simulate_layer(full, sa16, "rwma", cores, device=device)["total"].cycles
+        b = mm.simulate_layer(full, sa16, "bwma", cores, device=device)["total"].cycles
+        fig6b[cores] = {"rwma_ms": r * ms, "bwma_ms": b * ms, "speedup": r / b}
+    r16 = res[sa16.name]
+    fig7 = {lay: sum(r16[lay][c].cycles for c in mm.GEMM_COMPONENTS) / r16[lay]["total"].cycles
+            for lay in ("rwma", "bwma")}
+    fig8 = {f: [getattr(r16["rwma"]["total"], f), getattr(r16["bwma"]["total"], f)]
+            for f in ("l1_misses", "l2_accesses", "dram_accesses", "addr_cycles")}
+    conversion = mm.conversion_overhead_fraction(full, sa16, device=device)
+    _sync(torch, device)
+    seconds = time.perf_counter() - t0
+    speed = fig6a[sa16.name]["speedup"]
+    lo, hi = MM_SPEEDUP_BAND
+    if not lo < speed < hi:
+        raise AssertionError(f"memmodel: SA16x16 single-core speedup {speed} outside {lo}-{hi}")
+    emit({"phase": "memmodel", "workload": dataclasses.asdict(full),
+          "fig6a": fig6a, "fig6b": fig6b, "fig7_gemm_share": fig7,
+          "fig8_rwma_bwma": fig8, "conversion_fraction_12_layers": conversion,
+          "sa16_speedup_band": list(MM_SPEEDUP_BAND),
+          "model_seconds": seconds, "model_device": device,
+          "trace_lines": {name: {lay: sum(t.numel() for _n, t, _m in mm.bert_layer_components(
+              full, a, lay, device="meta")) for lay in ("rwma", "bwma")}
+              for name, a in ((a.name, a) for a in mm.PAPER_ACCELERATORS)}})
+    return fig6a
+
+
+# --------------------------------------------------------------------------
+# 19. the dry run on one device, held against a real run
+# --------------------------------------------------------------------------
+
+DRYRUN_ARCH = "mamba2-130m"
+DRYRUN_FIT = 0.5  # the share of the card a real run's predicted peak may take
+
+
+def _real_args(torch, cfg, kind: str, rows: int, seq: int, device: str):
+    """The arguments of the dry run's one-device step, on the card with
+    numbers: weights from seed 0, an empty cache, seeded tokens."""
+    from repro_torch.models import model as M
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = M.init_params(cfg, gen, device=device)
+    if kind == "decode":
+        tokens = torch.randint(0, cfg.vocab_size, (rows, 1), generator=gen,
+                               device=device, dtype=torch.int32)
+        return (params, M.init_cache(cfg, rows, seq, device=device), tokens)
+    tokens = torch.randint(0, cfg.vocab_size, (rows, seq), generator=gen, device=device,
+                           dtype=torch.int32)
+    return (params, {"tokens": tokens})
+
+
+def dryrun_phase(torch, device: str = "cuda", cfg=None, budget=None) -> dict:
+    """mamba2-130m's decode_32k and prefill_32k on a 1 x 1 mesh: traced on
+    the meta device, then the same step once on the card.  ``device``,
+    ``cfg`` (default the full config) and ``budget`` (default half the
+    card's memory) let the CPU rehearse the phase."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    import repro_torch.configs as C
+    from repro_torch.analysis.aot import argument_bytes, trace_step
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch import dryrun as D
+
+    cfg = cfg or C.get_config(DRYRUN_ARCH)
+    if budget is None:
+        budget = DRYRUN_FIT * torch.cuda.get_device_properties(0).total_memory
+    out = {}
+    for shape in ("decode_32k", "prefill_32k"):
+        shp = SHAPES[shape]
+        fn, args, _info = D.build_cell(cfg, shape, None)
+        t0 = time.perf_counter()
+        art = trace_step(fn, args)
+        full_peak = art.memory["argument_size_in_bytes"] + art.memory["temp_size_in_bytes"]
+        rows = shp.global_batch
+        if full_peak > budget:  # the cell's rows cut to fit, by the prediction
+            while rows > 1 and full_peak * rows / shp.global_batch > budget:
+                rows //= 2
+            fn, args, _info = D.build_cell(cfg, shape, None, rows=rows)
+            art = trace_step(fn, args)
+        trace_s = time.perf_counter() - t0
+        real = _real_args(torch, cfg, "decode" if shp.kind == "decode" else "prefill", rows,
+                          shp.seq_len, device)
+        _sync(torch, device)
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        counter = FlopCounterMode(display=False)
+        t0 = time.perf_counter()
+        with counter:
+            logits, _caches = fn(*real)
+        _sync(torch, device)
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
+        predicted = art.memory["argument_size_in_bytes"] + art.memory["temp_size_in_bytes"]
+        row = {"cell": f"{cfg.name} x {shape} x 1x1", "rows": rows,
+               "rows_of_cell": shp.global_batch,
+               "argument_bytes": art.memory["argument_size_in_bytes"],
+               "real_argument_bytes": argument_bytes(real),
+               "flops": art.flops, "real_flops": int(counter.get_total_flops()),
+               "collectives": art.collectives["count"],
+               "predicted_peak_bytes": predicted, "max_memory_allocated": peak,
+               "full_cell_predicted_peak_bytes": full_peak,
+               "trace_s": trace_s, "real_run_s": run_s}
+        emit({"phase": "dryrun_cell", **row})
+        if row["argument_bytes"] != row["real_argument_bytes"]:
+            raise AssertionError(f"dryrun {shape}: argument bytes {row['argument_bytes']} != "
+                                 f"real {row['real_argument_bytes']}")
+        if row["flops"] != row["real_flops"]:
+            raise AssertionError(f"dryrun {shape}: FLOPs {row['flops']} != real "
+                                 f"{row['real_flops']}")
+        if row["collectives"]:
+            raise AssertionError(f"dryrun {shape}: {row['collectives']} collectives on 1 x 1")
+        if tuple(logits.shape) != (rows, 1, cfg.padded_vocab) or \
+                not torch.isfinite(logits[..., :cfg.vocab_size].float()).all():
+            raise AssertionError(f"dryrun {shape}: logits {tuple(logits.shape)} not finite")
+        out[shape] = row
+        del real, logits, _caches
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         raise SystemExit(f"chip_smoke.py: no src/repro_torch beside {__file__}; "
@@ -3635,6 +3823,14 @@ def main() -> int:
     dp = dp_serve_phase(torch, kernels, checked=tp_checked)
     done("dp_serve")
     dp_rank0 = {name: run["launches_per_rank"][0] for name, run in dp.items()}
+
+    # 18. the paper's memory model on the card
+    memmodel_phase(torch)
+    done("memmodel")
+
+    # 19. the dry run on one device against a real run
+    dryrun_phase(torch)
+    done("dryrun")
 
     # the decode kernels' launches in each serving run that drives them
     by_run = {

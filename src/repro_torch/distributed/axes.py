@@ -2,9 +2,12 @@
 
 Counterpart of ``repro.distributed.axes``.  A mesh here is either a
 ``torch.distributed.device_mesh.DeviceMesh`` named ``("data", "model")``
-(what :mod:`repro_torch.launch.mesh` builds over the initialised default
-group) or an :class:`AbstractMesh`, a plain record of axis sizes and names:
-the sharding rules need shapes only, never 256 ranks.
+or ``("pod", "data", "model")`` (what :mod:`repro_torch.launch.mesh`
+builds over the initialised default group) or an :class:`AbstractMesh`, a
+plain record of axis sizes and names: the sharding rules need shapes only,
+never 256 ranks.  The runtime takes the data axes, ``("data",)`` or
+``("pod", "data")``, as one axis (:func:`data_coord`), as a spec entry
+``("pod", "data")`` splits a dim.
 
 The serving engine and the trainer install a :class:`ShardPolicy` around
 each of their steps (:func:`policy`), and the model reads it.  Serving: the
@@ -111,6 +114,23 @@ def mesh_coords(mesh) -> Dict[str, int]:
     return dict(zip(mesh_names(mesh), coord))
 
 
+def data_axes(mesh) -> Tuple[str, ...]:
+    """The mesh's data axes: every axis but ``"model"`` (``("data",)``, or
+    ``("pod", "data")`` on the multi-pod mesh)."""
+    return tuple(n for n in mesh_names(mesh) if n != "model")
+
+
+def data_coord(mesh) -> Tuple[int, int]:
+    """(this rank's place on the data axes taken as one, their size): the
+    data axes flattened in mesh order, the first major -- the order in
+    which a spec entry ``("pod", "data")`` splits a dim."""
+    shape, coords = mesh_shape(mesh), mesh_coords(mesh)
+    place, size = 0, 1
+    for a in data_axes(mesh):
+        place, size = place * shape[a] + coords[a], size * shape[a]
+    return place, size
+
+
 @dataclasses.dataclass(frozen=True)
 class LeafUse:
     """How the model reads one stored leaf: the dim split over the data
@@ -125,15 +145,29 @@ class LeafUse:
 
 
 @dataclasses.dataclass(frozen=True)
+class DecodeSplit:
+    """How a decode step's static caches are split (the JAX package's
+    ``cache_pspecs``): ``rows`` -- (this rank's place, places, group) of
+    its block of batch rows over the data axes, or None; ``seq`` -- the
+    same of its block of cache slots, over the model axis or over every
+    axis (one row), or None."""
+
+    rows: Optional[Tuple[int, int, object]] = None
+    seq: Optional[Tuple[int, int, object]] = None
+
+
+@dataclasses.dataclass(frozen=True)
 class ShardPolicy:
     """What a rank's model code needs of the mesh: the model axis's process
     group, this rank's coordinate on it and its size; the data axis's
     group, coordinate and size; in serving the group of every rank
     (``world``); in training whether the batch rows split over the data
-    axis (``rows_split``); and ``plan``: in training a :class:`LeafUse`
-    tree per top-level parameter key (per layer for a stacked key), in
-    serving one per key whose stored leaves the model cannot read as they
-    are (whole stacks; :func:`resident`)."""
+    axis (``rows_split``); ``plan``: in training a :class:`LeafUse` tree
+    per top-level parameter key (per layer for a stacked key), in serving
+    one per key whose stored leaves the model cannot read as they are
+    (whole stacks; :func:`resident`); and in the dry run's decode on a
+    production mesh, ``decode``, the static caches' split
+    (:class:`DecodeSplit`, :func:`decode_split`)."""
 
     group: object = dataclasses.field(compare=False)
     tp_rank: int
@@ -145,6 +179,7 @@ class ShardPolicy:
     train: bool = False
     plan: object = dataclasses.field(default=None, compare=False)
     world: object = dataclasses.field(default=None, compare=False)
+    decode: Optional[DecodeSplit] = dataclasses.field(default=None, compare=False)
 
 
 def make_policy(mesh, plan=None, groups=None) -> ShardPolicy:
@@ -154,8 +189,9 @@ def make_policy(mesh, plan=None, groups=None) -> ShardPolicy:
     gathers, :meth:`repro_torch.distributed.sharding.ServeLayout.plan`)."""
     groups = axis_groups(mesh) if groups is None else groups
     shape, coords = mesh_shape(mesh), mesh_coords(mesh)
+    dp_rank, dp_size = data_coord(mesh)
     return ShardPolicy(group=groups["model"], tp_rank=coords["model"], tp_size=shape["model"],
-                       dp_group=groups["data"], dp_rank=coords["data"], dp_size=shape["data"],
+                       dp_group=groups["data"], dp_rank=dp_rank, dp_size=dp_size,
                        plan=plan, world=dist.group.WORLD)
 
 
@@ -173,19 +209,22 @@ _GROUPS: Dict[int, Tuple[object, Dict[str, object]]] = {}
 
 
 def axis_groups(mesh) -> Dict[str, object]:
-    """This rank's process group on each axis of a ``D x M`` ``DeviceMesh``:
-    the default group where the axis spans every rank, else a group made
-    here with the default group's timeout (every rank calls this, in the
-    same order: ``new_group`` is collective), once per mesh.  A group's
-    ranks are sorted, so a rank's place in it is its coordinate on the
-    axis."""
+    """This rank's process group on the model axis and on the data axes
+    taken as one (:func:`data_coord`) of a ``DeviceMesh``: the default
+    group where the axis spans every rank, else a group made here with the
+    default group's timeout (every rank calls this, in the same order:
+    ``new_group`` is collective), once per mesh.  A group's ranks are
+    sorted, so a rank's place in it is its coordinate on the axis (on the
+    data axes, its flattened place)."""
     if isinstance(mesh, AbstractMesh):
         raise TypeError("an abstract mesh has no ranks: build the mesh with "
                         "repro_torch.launch.mesh over a process group")
     if id(mesh) in _GROUPS:  # the mesh is held there, so its id is not reused
         return _GROUPS[id(mesh)][1]
-    ids = mesh.mesh  # (D, M) global ranks
-    coords = mesh_coords(mesh)
+    names = mesh_names(mesh)
+    ids = mesh.mesh.movedim(names.index("model"), -1)
+    ids = ids.reshape(-1, ids.shape[-1])  # (data places, M) global ranks
+    here = {"model": mesh_coords(mesh)["model"], "data": data_coord(mesh)[0]}
     world = dist.get_world_size()
     timeout = _default_timeout()
     out = {}
@@ -196,7 +235,7 @@ def axis_groups(mesh) -> Dict[str, object]:
         if lines.shape[1] == world:
             out[axis] = dist.group.WORLD
             continue
-        mine = lines[coords["model" if axis == "data" else "data"]].tolist()
+        mine = lines[here["model" if axis == "data" else "data"]].tolist()
         for line in lines.tolist():  # every rank makes every group
             g = dist.new_group(line, timeout=timeout)
             if line == mine:
@@ -211,9 +250,10 @@ def make_train_policy(mesh, plan, *, rows_split: bool, groups=None) -> ShardPoli
     coordinates, and ``plan`` (:class:`LeafUse` trees by parameter key)."""
     groups = axis_groups(mesh) if groups is None else groups
     shape, coords = mesh_shape(mesh), mesh_coords(mesh)
+    dp_rank, dp_size = data_coord(mesh)
     return ShardPolicy(group=groups["model"], tp_rank=coords["model"], tp_size=shape["model"],
-                       dp_group=groups["data"], dp_rank=coords["data"],
-                       dp_size=shape["data"], rows_split=rows_split, train=True, plan=plan)
+                       dp_group=groups["data"], dp_rank=dp_rank, dp_size=dp_size,
+                       rows_split=rows_split, train=True, plan=plan)
 
 
 _CURRENT: Optional[ShardPolicy] = None
@@ -521,10 +561,13 @@ def data_part(x: torch.Tensor, n: int, dim: int = -1) -> torch.Tensor:
     """The part of ``x`` (a model slice) that a row block of ``n`` entries
     multiplies: ``x`` where the block is all of it; in serving on a data
     axis, the rank's ``d``-th of ``D`` parts, where the block is the serve
-    layout's 1/(D*M) of the rows."""
+    layout's 1/(D*M) of the rows.  Under a :class:`DecodeSplit` ``x`` is
+    whole and the part is the block's place (:func:`split_place`)."""
     if x.shape[dim] == n:
         return x
     pol = _CURRENT
+    if pol is not None and pol.decode is not None:
+        return x.narrow(dim, split_place(n, x.shape[dim], "a row block")[0] * n, n)
     if _serving_data(pol) and x.shape[dim] == n * pol.dp_size:
         return x.narrow(dim, pol.dp_rank * n, n)
     raise RuntimeError(f"a row block of {n} does not multiply {x.shape[dim]} entries "
@@ -541,3 +584,114 @@ def resident(tree, key: str):
     if pol is None or pol.train or not pol.plan or key not in pol.plan:
         return tree
     return _map_uses(tree, pol.plan[key], pol)
+
+
+# --------------------------------------------------------------------------
+# The dry run's decode on a production mesh: split static caches
+# --------------------------------------------------------------------------
+
+def decode_split() -> Optional[DecodeSplit]:
+    """The installed policy's :class:`DecodeSplit`, or None.  Under one,
+    every rank computes the projections for all batch rows (the tokens'
+    rows gathered first), each attention or SSM mixer reads its block of
+    rows of the caches (:func:`rows_take`, :func:`rows_gather`), an
+    attention's query and key heads are gathered whole
+    (:func:`heads_whole`) and each rank attends its block of cache slots,
+    the blocks' softmax maxima and sums combined over the ranks that split
+    the slots (:func:`seq_max`, :func:`seq_sum`)."""
+    pol = _CURRENT
+    return None if pol is None else pol.decode
+
+
+def rows_take(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """This rank's block of the batch rows of ``x`` (all rows): the rows
+    its caches hold.  ``x`` as it is where the rows are not split."""
+    d = decode_split()
+    if d is None or d.rows is None:
+        return x
+    place, n, _ = d.rows
+    b = x.shape[dim] // n
+    return x.narrow(dim, place * b, b)
+
+
+def rows_gather(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Every rank's block of batch rows of ``x`` gathered into all rows
+    (one ``all_reduce`` over the data axes, exact)."""
+    d = decode_split()
+    if d is None or d.rows is None:
+        return x
+    place, n, group = d.rows
+    return _gather(x, dim % x.dim(), place, n, group)
+
+
+def heads_whole(local: torch.Tensor, full: int, dim: int = -1) -> torch.Tensor:
+    """An attention projection's output: under a :class:`DecodeSplit` the
+    whole of it, all heads (:func:`gather_slices`); otherwise the rank's
+    model slice (:func:`data_gather`)."""
+    if decode_split() is None:
+        return data_gather(local, full, dim)
+    return gather_slices(local, full, dim, "an attention projection")
+
+
+def model_gather(x: torch.Tensor, full: int, dim: int) -> torch.Tensor:
+    """``x``, this rank's model slice of ``full`` entries along ``dim``,
+    gathered whole over the model axis; ``x`` as it is where it is whole."""
+    pol = _CURRENT
+    if x.shape[dim] == full:
+        return x
+    return _gather(x, dim % x.dim(), pol.tp_rank, pol.tp_size, pol.group)
+
+
+def model_slice(x: torch.Tensor, n: int, dim: int) -> torch.Tensor:
+    """This rank's model slice, ``n`` entries, of ``x`` (whole) along
+    ``dim``; ``x`` where ``n`` is all of it."""
+    pol = _CURRENT
+    if x.shape[dim] == n:
+        return x
+    return x.narrow(dim, pol.tp_rank * n, n)
+
+
+def seq_block() -> Tuple[int, int]:
+    """(this rank's place, places) of its block of the self-attention
+    cache slots."""
+    d = decode_split()
+    if d is None or d.seq is None:
+        return 0, 1
+    return d.seq[0], d.seq[1]
+
+
+def slots_split(local: int, full: int):
+    """The split of a cache of ``full`` slots of which the rank holds
+    ``local`` (as ``cache_pspecs`` places a fixed-length cache, e.g. the
+    enc-dec cross K/V): None when whole, else (place, places, group) over
+    the model axis or, data-major, over every axis."""
+    pol = _CURRENT
+    if local == full:
+        return None
+    if full == local * pol.tp_size:
+        return pol.tp_rank, pol.tp_size, pol.group
+    if full == local * pol.tp_size * pol.dp_size:
+        return pol.dp_rank * pol.tp_size + pol.tp_rank, pol.dp_size * pol.tp_size, pol.world
+    raise RuntimeError(f"a cache of {full} slots holds {local} here: no split of this mesh")
+
+
+def _seq_reduce(x: torch.Tensor, op, seq) -> torch.Tensor:
+    if seq is None:
+        d = decode_split()
+        seq = None if d is None else d.seq
+    if seq is None or seq[1] == 1:
+        return x
+    x = x.contiguous()
+    dist.all_reduce(x, op=op, group=seq[2])
+    return x
+
+
+def seq_max(x: torch.Tensor, seq=None) -> torch.Tensor:
+    """The maximum of ``x`` over the ranks that split the cache slots
+    (``seq``, default the self-attention caches' split)."""
+    return _seq_reduce(x, dist.ReduceOp.MAX, seq)
+
+
+def seq_sum(x: torch.Tensor, seq=None) -> torch.Tensor:
+    """The sum of ``x`` over the ranks that split the cache slots."""
+    return _seq_reduce(x, dist.ReduceOp.SUM, seq)

@@ -592,6 +592,10 @@ class _Layout:
         self.cfg, self.mesh = cfg, mesh
         self.sizes = mesh_shape(mesh)
         self.coords = mesh_coords(mesh) if coords is None else coords
+        # the data axes (("data",), or ("pod", "data")), which the runtime
+        # takes as one axis of their product's size (AX.data_coord)
+        self.data_axes = AX.data_axes(mesh)
+        self.dp_size = math.prod(self.sizes[a] for a in self.data_axes)
         self._rule = rule
         self._specs: Dict[Tuple[str, ...], Spec] = {}
         self._full: Dict[Tuple[str, ...], Tuple[int, ...]] = {}
@@ -665,12 +669,28 @@ class ServeLayout(_Layout):
     mode's 2-D fallback or TP plus ZeRO storage) is gathered into what the
     ``1 x M`` port reads before each step (:meth:`plan`,
     :func:`repro_torch.distributed.axes.resident`): the only per-step
-    weight gathers, listed by :meth:`gathered`."""
+    weight gathers, listed by :meth:`gathered`.
 
-    def __init__(self, cfg: ModelConfig, mesh, coords=None):
-        super().__init__(cfg, mesh, coords, _serve_rule(cfg, mesh))
-        self._target = _target_rule(cfg, mesh)
+    With ``exact=True`` (the dry run's decode on a production mesh) every
+    leaf is stored as its JAX serve share, the leaves the ``1 x M`` port
+    reads whole too: the attention products of :data:`_FLAT_READ` are
+    computed on as stored (their outputs gathered to all heads under the
+    decode split, :func:`repro_torch.distributed.axes.heads_whole`), the
+    rest gathered each step as the plan says.  Its step runs under
+    :meth:`decode_policy`."""
+
+    def __init__(self, cfg: ModelConfig, mesh, coords=None, *, exact: bool = False):
         self._jax = _param_rule(cfg, mesh, mode="serve")
+        rule = _serve_rule(cfg, mesh)
+        if exact:
+            sizes = mesh_shape(mesh)
+
+            def rule(path, leaf):
+                return tuple(_model_major(e, sizes) for e in self._jax(path, leaf))
+
+        super().__init__(cfg, mesh, coords, rule)
+        self.exact = exact
+        self._target = _target_rule(cfg, mesh)
         self._groups = None
 
     @property
@@ -735,8 +755,9 @@ class ServeLayout(_Layout):
         flat_ok = name in _FLAT_READ or (name == "wkv_b" and self.cfg.n_heads % self.ranks == 0)
         if flat_ok and len(split) == 1 and set(_entry_axes(split[0])) == every:
             return None
-        data_dim = _axis_dim(stored, ("data",))
-        stripped = tuple(_model_major(tuple(a for a in _entry_axes(e) if a != "data"), sizes)
+        data_dim = _axis_dim(stored, self.data_axes)
+        stripped = tuple(_model_major(tuple(a for a in _entry_axes(e)
+                                            if a not in self.data_axes), sizes)
                          for e in stored)
         if stripped == want:
             return AX.LeafUse(data_dim=data_dim)
@@ -757,6 +778,29 @@ class ServeLayout(_Layout):
                 node = node.setdefault(k, {})
             node[path[-1]] = use
         return out
+
+    def decode_policy(self, cache_shape, rows_here: int, rows: int) -> AX.ShardPolicy:
+        """The serving policy of a decode step whose static caches (of
+        global shapes ``cache_shape``) are split as :func:`cache_pspecs`
+        places them, the rank holding ``rows_here`` of the ``rows`` batch
+        rows (:class:`repro_torch.distributed.axes.DecodeSplit`)."""
+        if self._groups is None:
+            self._groups = AX.axis_groups(self.mesh)
+        pol = AX.make_policy(self.mesh, self.plan(), self._groups)
+        dp_rank, dp_size = pol.dp_rank, pol.dp_size
+        split_rows = (dp_rank, dp_size, pol.dp_group) if rows_here != rows else None
+        seq = None
+        specs = cache_pspecs(self.cfg, self.mesh, cache_shape)
+        for path, spec in flat_items(specs):  # the self-attention caches' slot dim
+            if path[-1] in ("k", "ckv") and "cross" not in path and spec[2] is not None:
+                axes = _entry_axes(spec[2])
+                if axes == ("model",):
+                    seq = (pol.tp_rank, pol.tp_size, pol.group)
+                else:  # every axis, data-major
+                    seq = (dp_rank * pol.tp_size + pol.tp_rank, dp_size * pol.tp_size,
+                           dist.group.WORLD)
+                break
+        return dataclasses.replace(pol, decode=AX.DecodeSplit(rows=split_rows, seq=seq))
 
     def gathered(self) -> list:
         """The paths of the leaves gathered before each step (``/``-joined)."""
@@ -860,7 +904,7 @@ class TrainLayout(_Layout):
             if isinstance(sub, dict):  # flatten order: keys sorted
                 return [x for k in sorted(sub) for x in walk(sub[k], path + (k,))]
             spec = self._specs[path]
-            return [(_axis_dim(spec, ("data",)) is not None,
+            return [(_axis_dim(spec, self.data_axes) is not None,
                      _axis_dim(spec, ("model",)) is not None)]
 
         return walk(tree, ())
@@ -872,7 +916,7 @@ class TrainLayout(_Layout):
         (the ZeRO gather's backward has summed the others), one bucketed
         fp32 ``all_reduce``; each rank's loss is a share of the global
         loss, so the sum is the global gradient."""
-        if self.sizes["data"] == 1:
+        if self.dp_size == 1:
             return grads
         todo = [i for i, (d, _m) in enumerate(self.split_axes(params)) if not d]
         if todo:
@@ -892,7 +936,7 @@ class TrainLayout(_Layout):
         for s, (d, m) in zip(sumsq, self.split_axes(params)):
             parts[2 * m + d] += s
         # parts: [whole, data-split, model-split, split over both]
-        if self.sizes["data"] > 1:
+        if self.dp_size > 1:
             both = parts[1::2].contiguous()
             dist.all_reduce(both, group=self.groups["data"])
             parts[1::2] = both
@@ -906,8 +950,8 @@ class TrainLayout(_Layout):
         """Per-leaf maxima of shards, as the maxima of the whole leaves (a
         leaf replicated on an axis has one value there)."""
         values = values.contiguous()
-        for axis in ("data", "model"):
-            if self.sizes[axis] > 1:
+        for axis, n in (("data", self.dp_size), ("model", self.sizes["model"])):
+            if n > 1:
                 dist.all_reduce(values, op=dist.ReduceOp.MAX, group=self.groups[axis])
         return values
 

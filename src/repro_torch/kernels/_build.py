@@ -180,12 +180,14 @@ def refuse_autograd(kernel: str, *tensors: Optional[torch.Tensor]) -> None:
 
 def on_cuda(kernel: str, *tensors: torch.Tensor) -> bool:
     """True when every tensor is on one CUDA device, False when all are on
-    the CPU; raise on a mix or on any other device, and (every wrapper asks
-    here before it runs) on an operand that autograd would track
-    (:func:`refuse_autograd`)."""
+    the CPU or all on the meta device (shapes only: the plain version gives
+    the output's shape and dtype and computes nothing, as the dry run's
+    meta-device step needs); raise on a mix or on any other device, and
+    (every wrapper asks here before it runs) on an operand that autograd
+    would track (:func:`refuse_autograd`)."""
     refuse_autograd(kernel, *tensors)
     devices = {t.device for t in tensors}
-    if devices == {torch.device("cpu")}:
+    if devices in ({torch.device("cpu")}, {torch.device("meta")}):
         return False
     if len(devices) == 1 and next(iter(devices)).type == "cuda":
         return True

@@ -9,22 +9,40 @@ rank, world size and a ``timeout``; ``torchrun``,
 ``python -m repro_torch.launch.serve --mesh DxM`` or
 ``python -m repro_torch.launch.train --mesh local`` starts the ranks).
 The trainer (:func:`make_mesh`) and serving (:func:`make_serve_mesh`) take
-any ``D x M`` mesh.
+any ``D x M`` mesh.  :func:`make_production_mesh` builds the JAX package's
+production meshes, ``(16, 16)`` ``("data", "model")`` over 256 ranks and
+``(2, 16, 16)`` ``("pod", "data", "model")`` over 512, whose data axes are
+``("pod", "data")``; the dry run (:mod:`repro_torch.launch.dryrun`) builds
+them over a ``fake`` process group, which needs no ranks.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 
+PRODUCTION_MESHES = {
+    False: ((16, 16), ("data", "model")),
+    True: ((2, 16, 16), ("pod", "data", "model")),
+}
+
+
 def make_production_mesh(*, multi_pod: bool = False):
-    """The JAX package's 256- and 512-chip production meshes exist for the
-    dry run, which is not ported yet (ROADMAP.md queue 1 item 27).  The
-    sharding rules take :func:`repro_torch.distributed.axes.abstract_mesh`
-    records of those shapes."""
-    raise NotImplementedError(
-        "make_production_mesh belongs to the dry run, not ported yet (ROADMAP.md "
-        "queue 1 item 27); validate rules on abstract_mesh((16, 16), "
-        "('data', 'model')) instead")
+    """The single-pod ``(16, 16)`` ``("data", "model")`` mesh over a
+    default group of 256 ranks, or the multi-pod ``(2, 16, 16)``
+    ``("pod", "data", "model")`` mesh over 512 (rank ``(p*16 + d)*16 + m``
+    at ``(p, d, m)``)."""
+    shape, names = PRODUCTION_MESHES[multi_pod]
+    dist = _require_group()
+    n, need = dist.get_world_size(), math.prod(shape)
+    if n != need:
+        raise ValueError(
+            f"the {'multi' if multi_pod else 'single'}-pod production mesh "
+            f"{'x'.join(map(str, shape))} needs {need} ranks but the process group "
+            f"has {n}; start {need} (torchrun), or dry-run it on a fake group "
+            f"(python -m repro_torch.launch.dryrun)")
+    return _mesh(shape, names)
 
 
 def _require_group():
@@ -39,21 +57,21 @@ def _require_group():
     return dist
 
 
-def _mesh(d: int, m: int):
+def _mesh(shape, names=("data", "model")):
     from torch.distributed.device_mesh import DeviceMesh
 
     dist = _require_group()
     # gloo (the CPU, or ranks sharing one card) keeps its groups on the CPU
     # side; NCCL's are the card's
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return DeviceMesh(device_type, torch.arange(d * m).reshape(d, m),
-                      mesh_dim_names=("data", "model"))
+    return DeviceMesh(device_type, torch.arange(math.prod(shape)).reshape(shape),
+                      mesh_dim_names=tuple(names))
 
 
 def make_local_mesh():
     """Every rank of the default group on the model axis: ``(1, world)``."""
     dist = _require_group()
-    return _mesh(1, dist.get_world_size())
+    return _mesh((1, dist.get_world_size()))
 
 
 def parse_mesh(spec: str):
@@ -88,4 +106,4 @@ def make_mesh(spec: str):
             f"--mesh {spec} needs {d * m} ranks but the process group has {n}; "
             f"start {d * m} (torchrun --nproc-per-node {d * m} ..., or "
             f"`python -m repro_torch.launch.serve --mesh {spec}`, which spawns them)")
-    return _mesh(d, m)
+    return _mesh((d, m))

@@ -22,9 +22,11 @@ card, NCCL where each has its own; rank 0 alone prints:
       -m repro_torch.launch.train --arch minicpm-2b --smoke --device cpu \
       --steps 30 --batch 8 --seq 64 --mesh local
 
-``--mesh single`` and ``--mesh multi`` (the JAX CLI's production meshes)
-raise: ``make_production_mesh`` belongs to the dry run, not ported yet
-(ROADMAP.md queue 1 item 27).
+``--mesh single`` and ``--mesh multi`` train on the JAX CLI's production
+meshes (``make_production_mesh``: 16 x 16 over 256 ranks, 2 x 16 x 16 over
+512) under a ``torchrun`` of that many ranks; started alone, the CLI says
+so and exits.  ``python -m repro_torch.launch.dryrun`` traces those cells
+on the meta device without the ranks.
 """
 from __future__ import annotations
 
@@ -58,7 +60,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--mesh", choices=["local", "single", "multi"], default=None,
                     help="local: train on a 1 x world mesh (spawns the ranks unless "
-                         "started under torchrun); single/multi: not ported, raise")
+                         "started under torchrun); single/multi: the production meshes "
+                         "(256 / 512 ranks under torchrun)")
     ap.add_argument("--wsd", action="store_true",
                     help="WSD schedule (MiniCPM) instead of cosine")
     ap.add_argument("--grad-compression", choices=["int8"], default=None)
@@ -85,7 +88,8 @@ def train(args, device: torch.device, mesh=None) -> None:
     _, _, hist = tr.fit(data)
     if not tr.rank0:
         return
-    where = f"{device}" if mesh is None else f"{device}, mesh 1x{mesh.shape[1]}"
+    where = (f"{device}" if mesh is None
+             else f"{device}, mesh {'x'.join(map(str, mesh.shape))}")
     out = [f"final loss: {hist[-1]['loss']:.6f} (start {hist[0]['loss']:.6f}) on {where}"]
     if tr.straggler_events:
         out.append(f"straggler events: {len(tr.straggler_events)}")
@@ -97,7 +101,7 @@ def _run_rank(rank: int, args, world: int, store: str) -> None:
     torchrun's environment when ``store`` is empty), train, leave."""
     import torch.distributed as dist
 
-    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
     from repro_torch.launch.serve import DIST_TIMEOUT_S, _backend, _rank_device
 
     device = _rank_device(args, rank)
@@ -110,26 +114,28 @@ def _run_rank(rank: int, args, world: int, store: str) -> None:
     dist.init_process_group(_backend(device.type, world),
                             timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S), **kw)
     try:
-        train(args, device, make_local_mesh())
+        mesh = (make_local_mesh() if args.mesh == "local"
+                else make_production_mesh(multi_pod=args.mesh == "multi"))
+        train(args, device, mesh)
     finally:
         dist.destroy_process_group()
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.mesh in ("single", "multi"):
-        from repro_torch.launch.mesh import make_production_mesh
-
-        try:
-            make_production_mesh(multi_pod=args.mesh == "multi")
-        except NotImplementedError as e:
-            raise SystemExit(str(e)) from None
+    torchrun = "RANK" in os.environ and "WORLD_SIZE" in os.environ
+    if args.mesh in ("single", "multi") and not torchrun:
+        n = 512 if args.mesh == "multi" else 256
+        raise SystemExit(f"--mesh {args.mesh} trains on the production mesh of {n} ranks: "
+                         f"start them under torchrun (--nproc-per-node ... --nnodes ...), "
+                         f"or trace its cells on the meta device with "
+                         f"python -m repro_torch.launch.dryrun --mesh {args.mesh}")
     # "cuda" resolves like an entry point's default: it raises without CUDA
     device = resolve_device(None if args.device == "cuda" else args.device)
     if args.mesh is None:
         train(args, device)
         return
-    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:  # under torchrun
+    if torchrun:
         _run_rank(int(os.environ["RANK"]), args, int(os.environ["WORLD_SIZE"]), "")
         return
     import torch.multiprocessing as mp

@@ -42,6 +42,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.backend import resolve_backend
+from repro_torch.distributed import axes as AX
 from repro_torch.distributed.axes import check_split, data_gather, data_part, enter, psum
 from repro_torch.models.common import (
     MASK,
@@ -87,6 +88,55 @@ def gqa_cache_init(cfg: ModelConfig, batch: int, max_len: int, device=None,
     }
 
 
+def _write_split_slot(cache: Dict, pos: int, rows: Dict[str, torch.Tensor],
+                      ref: str) -> None:
+    """Under a decode split: write the new token's ``rows`` (this rank's
+    batch rows) and its position label into slot ``pos`` of the cache (a
+    ring of the global slots) where this rank holds that slot."""
+    place, n = AX.seq_block()
+    local = cache[ref].shape[1]
+    slot = pos % (local * n)
+    if slot // local != place:
+        return
+    j = slot - place * local
+    for name, t in rows.items():
+        cache[name][:, j] = t
+    cache["pos"][:, j] = pos
+
+
+def split_decode_attention(q, k_cache, v_cache, k_positions, q_pos: int, *,
+                           window: Optional[int] = None) -> torch.Tensor:
+    """:func:`~repro_torch.models.common.decode_attention` over this rank's
+    block of cache slots under a decode split: the block's scores, their
+    maximum over the ranks that split the slots, then the exponentials'
+    sums and products with V summed over them (one reduction each); fp32
+    throughout, the output in ``v_cache.dtype``."""
+    B, Sc, Hkv, Dq = k_cache.shape
+    H, Dv = q.shape[2], v_cache.shape[-1]
+    g = H // Hkv
+    s = torch.einsum("bhgd,bkhd->bhgk", q.reshape(B, Hkv, g, Dq).float(),
+                     k_cache.float()) * Dq ** -0.5
+    kpos = k_positions.long()
+    valid = (kpos >= 0) & (kpos <= q_pos)
+    if window is not None:
+        valid = valid & (q_pos - kpos < window)
+    s = torch.where(valid[:, None, None, :], s, MASK)
+    return _split_softmax_product(s, v_cache, "bhgk,bkhd->bhgd").reshape(B, 1, H, Dv)
+
+
+def _split_softmax_product(s, values, eq: str, seq=None) -> torch.Tensor:
+    """softmax(s) (last dim, split over the ranks of the slots: ``seq``,
+    default the self-attention caches' split) times ``values`` by ``eq``,
+    in ``values.dtype``."""
+    m = AX.seq_max(s.amax(-1, keepdim=True), seq)
+    p = torch.exp(s - m)
+    o = torch.einsum(eq, p, values.float())
+    dv = o.shape[-1]
+    both = AX.seq_sum(torch.cat([o, p.sum(-1, keepdim=True).expand(*o.shape[:-1], 1)], -1),
+                      seq)
+    return (both[..., :dv] / both[..., dv:]).to(values.dtype)
+
+
 def heads_split(p, cfg: ModelConfig) -> bool:
     """Whether ``p`` holds a rank's share of the heads (not all of them)."""
     if "wq_b" in p:  # MLA
@@ -113,9 +163,9 @@ def _project_qkv(p, cfg: ModelConfig, x, positions):
     v = dense(cfg, x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = data_gather(q, cfg.n_heads * dh)
-    k = data_gather(k, cfg.n_kv_heads * dh)
-    v = data_gather(v, cfg.n_kv_heads * dh)
+    q = AX.heads_whole(q, cfg.n_heads * dh)
+    k = AX.heads_whole(k, cfg.n_kv_heads * dh)
+    v = AX.heads_whole(v, cfg.n_kv_heads * dh)
     # the heads the weights hold: all of them, or a rank's share
     q = q.reshape(B, S, -1, dh)
     check_split(q.shape[2], cfg.n_heads, "wq's query heads")
@@ -151,7 +201,14 @@ def gqa_forward(
     B, S, _ = x.shape
     window = cfg.window if cfg.attn_type == "swa" else None  # repro: noqa RPR004 -- the mask's width, not family dispatch
     q, k, v = _project_qkv(p, cfg, x, positions)
-    if mode == "decode":
+    if mode == "decode" and AX.decode_split() is not None:
+        assert cache is not None and S == 1
+        q, k, v = AX.rows_take(q), AX.rows_take(k), AX.rows_take(v)
+        _write_split_slot(cache, pos_offset, {"k": k[:, 0], "v": v[:, 0]}, "k")
+        out = AX.rows_gather(split_decode_attention(q, cache["k"], cache["v"], cache["pos"],
+                                                    pos_offset, window=window))
+        new_cache = cache
+    elif mode == "decode":
         assert cache is not None and S == 1
         slot = pos_offset % cache["k"].shape[1]
         cache["k"][:, slot] = k[:, 0]
@@ -387,12 +444,29 @@ def cross_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     drift apart.  x: (B, S, d); k, v: (B, encoder_seq, Hkv, dh).
     """
     B, S, _ = x.shape
-    q = data_gather(enter(x, heads_split(p, cfg)) @ p["wq"], cfg.n_heads * cfg.d_head)
+    q = AX.heads_whole(enter(x, heads_split(p, cfg)) @ p["wq"], cfg.n_heads * cfg.d_head)
     q = q.reshape(B, S, -1, cfg.d_head)
     check_split(q.shape[2], cfg.n_heads, "the cross-attention's query heads")
-    out = chunked_attention(q, k, v, causal=False, q_chunk=cfg.q_chunk)
+    if AX.decode_split() is not None:
+        out = AX.rows_gather(_split_cross_attend(cfg, AX.rows_take(q), k, v))
+    else:
+        out = chunked_attention(q, k, v, causal=False, q_chunk=cfg.q_chunk)
     return _out_proj(cfg, out.reshape(B, S, -1), p["wo"], cfg.n_heads * cfg.d_head,
                      torch.matmul)
+
+
+def _split_cross_attend(cfg: ModelConfig, q, k, v):
+    """Cross-attention under a decode split: this rank's rows of the cross
+    K/V, their encoder positions whole or split as ``cache_pspecs`` places
+    them (:func:`repro_torch.distributed.axes.slots_split`)."""
+    B, S, H, dh = q.shape
+    Hkv = k.shape[2]
+    s = torch.einsum("bshgd,bkhd->bhgsk", q.reshape(B, S, Hkv, H // Hkv, dh).float(),
+                     k.float()) * dh ** -0.5
+    seq = AX.slots_split(k.shape[1], cfg.encoder_seq)
+    out = _split_softmax_product(s, v, "bhgsk,bkhd->bhgsd", seq) if seq else \
+        torch.einsum("bhgsk,bkhd->bhgsd", torch.softmax(s, -1).to(v.dtype), v)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, dh)
 
 
 def gqa_ring_decode(
@@ -570,6 +644,31 @@ def _mla_absorbed_attend(cfg: ModelConfig, wkv_b, q_nope, q_rope, ckv_c, kr_c, v
     return torch.einsum("bshr,rhd->bshd", o_lat, wkv_b[..., dn:])  # value expand
 
 
+def _mla_split_decode(cfg: ModelConfig, wkv_b, q_nope, q_rope, ckv, k_rope, cache: Dict,
+                      pos: int):
+    """The absorbed MLA decode under a decode split: the rank's heads of
+    ``wkv_b`` absorb its query heads, the latent queries gathered to all
+    heads; each rank attends its rows and block of latent slots (the
+    blocks combined by :func:`_split_softmax_product`), the latent outputs
+    gathered to all rows, its heads expanded and gathered whole for the
+    output projection."""
+    dn, H, h_here = cfg.qk_nope_dim, cfg.n_heads, wkv_b.shape[1]
+    q_lat = torch.einsum("bshd,rhd->bshr", q_nope, wkv_b[..., :dn])
+    q_lat = AX.rows_take(AX.model_gather(q_lat, H, 2))
+    q_rope = AX.rows_take(AX.model_gather(q_rope, H, 2))
+    _write_split_slot(cache, pos, {"ckv": AX.rows_take(ckv)[:, 0],
+                                   "krope": AX.rows_take(k_rope)[:, 0]}, "ckv")
+    kpos = cache["pos"].long()
+    valid = (kpos >= 0) & (kpos <= pos)
+    s = torch.einsum("bshr,bkr->bhsk", q_lat.float(), cache["ckv"].float())
+    s = s + torch.einsum("bshd,bkd->bhsk", q_rope.float(), cache["krope"].float())
+    s = torch.where(valid[:, None, None, :], s * _mla_scale(cfg), MASK)
+    o_lat = _split_softmax_product(s, cache["ckv"], "bhsk,bkr->bhsr").transpose(1, 2)
+    o_lat = AX.model_slice(AX.rows_gather(o_lat), h_here, 2)
+    out = torch.einsum("bshr,rhd->bshd", o_lat, wkv_b[..., dn:])
+    return AX.model_gather(out, H, 2)
+
+
 def _mla_expanded_attend(cfg: ModelConfig, wkv_b, q_nope, q_rope, ckv, k_rope, *,
                          pos_offset, k_positions=None):
     """Expanded-formulation MLA attention (prefill and prefill chunk).
@@ -608,7 +707,11 @@ def mla_forward(
     B, S, _ = x.shape
     q_nope, q_rope, ckv, k_rope = _mla_qkv_latent(p, cfg, x, positions)
     wkv_b = _wkv_b(p, cfg)
-    if mode == "decode":
+    if mode == "decode" and AX.decode_split() is not None:
+        assert cache is not None and S == 1
+        out = _mla_split_decode(cfg, wkv_b, q_nope, q_rope, ckv, k_rope, cache, pos_offset)
+        new_cache = cache
+    elif mode == "decode":
         assert cache is not None and S == 1
         cache["ckv"][:, pos_offset] = ckv[:, 0]
         cache["krope"][:, pos_offset] = k_rope[:, 0]

@@ -177,7 +177,11 @@ def moe_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor
     lim = torch.full((E,), Cg, dtype=torch.long, device=dev)
     if places > 1:
         counts_by_rank = torch.zeros((places, E), dtype=torch.long, device=dev)
-        counts_by_rank[here] = torch.bincount(flat_e.reshape(-1), minlength=E)
+        # the experts' token counts, by a scatter (shapes alone: it also
+        # runs on the meta device, where bincount's length is unknown)
+        flat = flat_e.reshape(-1)
+        counts_by_rank[here] = counts_by_rank.new_zeros(E).scatter_add_(
+            0, flat, torch.ones_like(flat))
         below = AX.data_sum(counts_by_rank)[:here].sum(0)
         lim = torch.clamp(lim - below, min=0)
     token_of = torch.arange(Tg, device=dev).repeat_interleave(k)[None].expand(G, n)

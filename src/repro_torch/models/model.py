@@ -136,12 +136,12 @@ def _ssm_mixer(cfg: ModelConfig, p: Dict, h, mode: str, cache: Optional[Dict]):
     """The SSM branch of a static-cache layer: ``decode`` writes the new
     state and conv rows into ``cache["ssm"]`` in place and returns them."""
     state = cache.get("ssm") if cache else None
-    out, st = ssmm.ssm_forward(p["ssm"], cfg, h, mode=mode, state=state)
-    if mode == "decode":
+    if mode == "decode":  # under a decode split the state holds this rank's rows
+        out, st = ssmm.ssm_forward(p["ssm"], cfg, AX.rows_take(h), mode=mode, state=state)
         for name, t in st.items():
             state[name].copy_(t)
-        st = state
-    return out, st
+        return AX.rows_gather(out), state
+    return ssmm.ssm_forward(p["ssm"], cfg, h, mode=mode, state=state)
 
 
 def layer_forward(
@@ -540,9 +540,14 @@ def _run_segments(
     aux_total = 0.0
     new_caches = {}
     engine = chunk is not None or (mode == "decode" and seq_pos is not None)
+    # a forward without gradients on the trainer's placement (the dry run's
+    # prefill): each layer's stored leaves gathered as training gathers them
+    gather = mode != "train" and _training_policy()
     seg_off = 0
     for si, (kind, n) in enumerate(layer_segments(cfg)):
         stacked = params[f"seg{si}"]
+        if gather:
+            stacked = _whole_stacks(stacked, (f"seg{si}",))
         if engine and cfg.n_encoder_layers:
             # the enc-dec engine path: each decoder layer's cross-attention
             # params ride with it (this segment's share of the stack, as the
@@ -560,6 +565,8 @@ def _run_segments(
             elif mode == "train":
                 h, aux = _train_layer(cfg, kind, p_layer, h, positions, f"seg{si}")
             else:
+                if gather:
+                    p_layer = AX.materialize(p_layer, f"seg{si}")
                 h, c_new, aux = layer_forward(
                     cfg, kind, p_layer, h, positions,
                     mode=mode, cache=_tree_index(cache_seg, i) if cache_seg is not None else None,
@@ -629,6 +636,21 @@ def _resident(params):
 # --------------------------------------------------------------------------
 # Training
 # --------------------------------------------------------------------------
+
+def _training_policy() -> bool:
+    pol = AX.current()
+    return pol is not None and pol.train
+
+
+def _whole_stacks(tree, path):
+    """Each stacked leaf of ``tree`` (at ``path``) whose layer axis the
+    training policy's plan splits over the data axes, gathered whole
+    (:func:`repro_torch.distributed.axes.gather_stack`); the rest as they
+    are."""
+    if isinstance(tree, dict):
+        return {k: _whole_stacks(v, path + (k,)) for k, v in tree.items()}
+    return AX.gather_stack(path, tree)
+
 
 def _materialize_top(params):
     """The leaves outside the layer stacks (embedding, head, norms, MTP,
@@ -737,7 +759,7 @@ def prefill(cfg: ModelConfig, params, batch: Dict, last_idx: Optional[int] = Non
     the logits at the last *real* token (:func:`supports_padded_prefill`).
     An enc-dec config reads the batch's ``audio_embeds``.
     """
-    params = _resident(params)
+    params = _materialize_top(_resident(params))
     if cfg.n_encoder_layers:
         return _prefill_encdec(cfg, params, batch)
     h, positions = _embed_inputs(cfg, params, batch)
@@ -751,6 +773,7 @@ def decode_step(cfg: ModelConfig, params, caches, tokens, pos: int):
     """One decode step.  tokens: (B, 1) integer; pos: host int absolute
     position, on all three streams of an M-RoPE config (the JAX package's
     rule).  Writes the caches in place; returns (logits (B, 1, V), caches)."""
+    tokens = AX.rows_gather(tokens)  # under a decode split: every rank's rows
     B = tokens.shape[0]
     params = _resident(params)
     h = _embed(cfg, params, tokens)
@@ -886,16 +909,24 @@ def _dec_layer(cfg: ModelConfig, p_layer, p_cross, x, positions, enc_out, *, mod
 
 
 def _prefill_encdec(cfg: ModelConfig, params, batch: Dict):
+    if _training_policy():
+        params = dict(params, encoder=_whole_stacks(params["encoder"], ("encoder",)))
     enc_out = _encoder_forward(cfg, params, batch["audio_embeds"])
     tokens = batch["tokens"]
     B, S = tokens.shape
     h = _embed(cfg, params, tokens) + params["dec_pos"][None, :S]
     positions = default_positions(B, S, device=h.device)
     layer_caches = []
+    seg, cross = params["seg0"], params["cross"]
+    if _training_policy():  # the dry run's prefill on the trainer's placement
+        seg, cross = _whole_stacks(seg, ("seg0",)), _whole_stacks(cross, ("cross",))
     for i in range(cfg.n_layers):
+        p_layer, p_cross = _tree_index(seg, i), _tree_index(cross, i)
+        if _training_policy():
+            p_layer, p_cross = AX.materialize(p_layer, "seg0"), AX.materialize(p_cross, "cross")
         h, c_new, (ck, cv) = _dec_layer(
-            cfg, _tree_index(params["seg0"], i), _tree_index(params["cross"], i), h,
-            positions, enc_out, mode="prefill", cache=None, pos_offset=0)
+            cfg, p_layer, p_cross, h, positions, enc_out, mode="prefill", cache=None,
+            pos_offset=0)
         c_new["cross"] = {"k": ck, "v": cv}
         layer_caches.append(c_new)
     h = apply_norm(cfg, params["final_norm"], h[:, -1:])

@@ -19,8 +19,9 @@ Parameters are drawn from ``TrainerConfig.seed`` with an explicit
 package's ``PRNGKey``).  The trainer runs on the CUDA device unless
 ``device`` says otherwise, and raises without CUDA.
 
-**On a mesh** (``mesh=``, a ``DeviceMesh`` named ``("data", "model")``
-from :mod:`repro_torch.launch.mesh`, every rank running the same calls):
+**On a mesh** (``mesh=``, a ``DeviceMesh`` named ``("data", "model")``,
+or ``("pod", "data", "model")`` with the data axes taken as one, from
+:mod:`repro_torch.launch.mesh`, every rank running the same calls):
 each rank stores its slices of the parameters and of both moments under
 the train-mode specs (:class:`repro_torch.distributed.sharding.
 TrainLayout`: TP over ``model``, ZeRO over ``data``, all replicated below
@@ -68,9 +69,9 @@ def check_train_mesh(mesh) -> None:
         raise TypeError(f"mesh must be a torch.distributed DeviceMesh named "
                         f"('data', 'model') (repro_torch.launch.mesh) or None, "
                         f"not {type(mesh).__name__}")
-    if tuple(mesh.mesh_dim_names or ()) != ("data", "model"):
-        raise ValueError(f"the training mesh's axes must be ('data', 'model'), "
-                         f"not {mesh.mesh_dim_names}")
+    if tuple(mesh.mesh_dim_names or ()) not in (("data", "model"), ("pod", "data", "model")):
+        raise ValueError(f"the training mesh's axes must be ('data', 'model') or "
+                         f"('pod', 'data', 'model'), not {mesh.mesh_dim_names}")
 
 
 @dataclasses.dataclass
@@ -145,7 +146,7 @@ class Trainer:
         """The ranks' shares of the loss and metrics summed over ``data``."""
         names = list(metrics)
         v = torch.stack([loss] + [metrics[k].float() for k in names]).contiguous()
-        if self.layout.sizes["data"] > 1:
+        if self.layout.dp_size > 1:
             dist.all_reduce(v, group=self.layout.groups["data"])
         return v[0], dict(zip(names, v[1:]))
 
@@ -153,11 +154,13 @@ class Trainer:
         """On a mesh: the shardings of ``data``'s batches (its rows over
         ``data`` by ``batch_pspecs``, small batches replicated) and the
         training policy that goes with them; None on one device."""
-        if self.layout is None:
-            return None
-        specs = SH.batch_pspecs(self.cfg, self.mesh, data.shapes())
+        return None if self.layout is None else self.bind_shapes(data.shapes())
+
+    def bind_shapes(self, shapes):
+        """:meth:`bind` for batches of ``shapes`` (``{name: global shape}``)."""
+        specs = SH.batch_pspecs(self.cfg, self.mesh, shapes)
         shardings = {k: SH.Sharding(self.mesh, v) for k, v in specs.items()}
-        rows = specs["tokens"][0] is not None and self.layout.sizes["data"] > 1
+        rows = specs["tokens"][0] is not None and self.layout.dp_size > 1
         self._policy = self.layout.policy(rows_split=rows)
         return shardings
 

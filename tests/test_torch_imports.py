@@ -16,7 +16,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "mla_probe.py"]
+    return (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "mla_probe.py"]
+            + sorted((REPO / "examples").glob("torch_*.py")))
 
 
 def _imported_roots(path):

@@ -534,7 +534,7 @@ def test_mesh_entry_points_refuse_what_is_not_a_mesh():
         LM.parse_mesh("2by2")
     with pytest.raises(RuntimeError, match="no process group"):
         LM.make_serve_mesh("1x2")
-    with pytest.raises(NotImplementedError, match="item 27"):
+    with pytest.raises(RuntimeError, match="no process group"):
         LM.make_production_mesh()
 
 
