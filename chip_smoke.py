@@ -1,4 +1,5 @@
 #!/usr/bin/env python3
+# repro: noqa-file RPR004 -- the smoke script picks each model's decode kernel and checks by family
 """Drive the PyTorch/CUDA port's main path on one CUDA card and check it.
 
 Run from the repository root on a machine with an H100 (sm_90a) and nvcc:
@@ -246,6 +247,25 @@ Phases, each printing one JSON line:
    bytes equal the real inputs' bytes, its FLOPs equal FlopCounterMode's
    on the real run, no collective, finite logits.  Printed: the predicted
    peak (arguments + temporaries) beside ``max_memory_allocated``.
+20. analysis -- ``repro_torch.analysis.torchcheck`` on the card: (a) the
+   engine's step inventory at the checked-in geometry (minicpm-2b smoke,
+   fp32, 2 slots, max_len 64, page 8), the kernel route included, with no
+   finding against ``torchcheck.budgets``; ``decode_step`` and ``cow_copy``
+   must launch their kernels and the reference twins none, and every
+   step's argument, output, gather and in-place bytes equal the budgets'.
+   (b) The same builder at minicpm-2b's full width (d_model 2304, 40
+   layers, vocab 122,753, fp32, 2 slots): RPJ101, RPJ103 and RPJ104 clean
+   (no conversion wider than fp32 but the budgets' allowed widenings to
+   torch's int64 index dtype), the
+   decode step's largest gather the two slots' embedding rows (2 x 2304 x
+   4 B); printed: each step's traced bytes beside ``max_memory_allocated``
+   above its arguments.  (c) A full-width minicpm-2b engine serving three
+   requests (chunked prefill, 16 new tokens each) with its decode and chunk
+   steps under ``torch.cuda.set_sync_debug_mode("error")``: tokens
+   bit-identical to an unguarded engine's, every guarded call counted.
+   (d) Each rank of a ``1 x 2`` serve mesh places smoke weights drawn on
+   ``cuda:0`` onto ``cuda``: every placed leaf owns its storage (no view
+   keeping the full leaf alive).
 
 Each phase's seconds follow it on a line of their own.  Then the per-kernel
 summary line (the decode kernels' and the page copy's launches per serving
@@ -3703,6 +3723,201 @@ def dryrun_phase(torch, device: str = "cuda", cfg=None, budget=None) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# 20. the analysis tools on the card: torchcheck's inventory and the sync guard
+# --------------------------------------------------------------------------
+
+AN_ARCH = "minicpm-2b"
+AN_SERVE_PROMPTS = (40, 23, 57)  # prompt lengths of the guarded engine's requests
+AN_SERVE_NEW = 16
+
+
+def _wide_conversions(steps, widest: int = 4) -> dict:
+    """{step: [from -> to, ...]} of every conversion wider than ``widest``
+    bytes (what RPJ103 reads)."""
+    out = {}
+    for ts in steps:
+        pairs = sorted({(c["from"], c["to"]) for c in ts.conversions
+                        if c["to_itemsize"] > widest})
+        if pairs:
+            out[ts.name] = pairs
+    return out
+
+
+def _inventory_rows(steps) -> dict:
+    from repro_torch.analysis.torchcheck.harness import measure
+
+    return {ts.name: {**measure(ts), "launches": ts.launches,
+                      "device_peak_above_args": ts.memory.get("device_peak_above_args")}
+            for ts in steps}
+
+
+def _placement_storages(torch, device: str) -> dict:
+    """Each rank of a ``1 x 2`` serve mesh places minicpm-2b smoke weights
+    drawn on the device (``"cuda:0"`` on the card) onto ``device`` (plain
+    ``"cuda"``): {rank: the placed bytes, their storages' bytes, the leaves
+    that are views of a larger storage}."""
+    import repro_torch.configs as C
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed.axes import abstract_mesh
+    from repro_torch.models import model as M
+
+    cfg = C.get_config(AN_ARCH, smoke=True, dtype=torch.float32)
+    here = torch.device(device)
+    if here.type == "cuda":
+        here = torch.device("cuda", torch.cuda.current_device())
+    full = M.init_params(cfg, torch.Generator(device=here).manual_seed(0), device=here)
+    mesh = abstract_mesh((1, 2), ("data", "model"))
+    out = {}
+    for rank in range(2):
+        layout = SH.ServeLayout(cfg, mesh, coords={"data": 0, "model": rank})
+        leaves = list(SH.flat_items(layout.place(full, torch.device(device))))
+        storages = {t.untyped_storage()._cdata: t.untyped_storage().nbytes() for _, t in leaves}
+        out[rank] = {
+            "bytes": sum(t.numel() * t.element_size() for _, t in leaves),
+            "storage_bytes": sum(storages.values()),
+            "views": ["/".join(path) for path, t in leaves
+                      if t.untyped_storage().nbytes() != t.numel() * t.element_size()]}
+    return out
+
+
+def analysis_phase(torch, device: str = "cuda", full: bool = True) -> dict:
+    """torchcheck's inventory on the card at the checked-in geometry (a),
+    then at minicpm-2b's full width (b), then a full-width engine served
+    under the sync guard against an unguarded one (c), then a ``1 x 2``
+    rank's placed weights (d).  ``device`` and ``full=False`` (the smoke
+    config in (b) and (c)) let the CPU rehearse the phase."""
+    import numpy as np
+
+    import repro_torch.configs as C
+    from repro_torch.analysis.torchcheck import load_budgets
+    from repro_torch.analysis.torchcheck.harness import guarded, trace
+    from repro_torch.analysis.torchcheck.inventory import InventoryConfig, serving_inventory
+    from repro_torch.analysis.torchcheck.rules import run_rules
+    from repro_torch.serve.engine import Engine, EngineConfig
+    from repro_torch.models import model as M
+
+    budgets = load_budgets(ROOT / "torchcheck.budgets")
+    on_card = torch.device(device).type == "cuda"
+    out = {}
+
+    # (a) the checked-in geometry against torchcheck.budgets
+    t0 = time.perf_counter()
+    with serving_inventory(InventoryConfig(device=device)) as inv:
+        steps = [trace(spec) for spec in inv.specs]
+        findings = run_rules(steps, inv, budgets)
+        left_out = dict(inv.left_out)
+    rows = _inventory_rows(steps)
+    twins = {name: all(rows[name][k] == budgets.budget(name, k) for k in (
+        "argument_size_in_bytes", "output_size_in_bytes", "max_gather_bytes",
+        "alias_size_in_bytes")) for name in rows if budgets.budget(name, "argument_size_in_bytes")}
+    out["smoke"] = {"steps": rows, "findings": [f.format() for f in findings],
+                    "left_out": left_out, "equal_to_budgets": twins,
+                    "wide_conversions": _wide_conversions(steps),
+                    "seconds": time.perf_counter() - t0}
+    emit({"phase": "analysis", "part": "a: torchcheck at the checked-in geometry",
+          "device": device, **out["smoke"]})
+    if findings:
+        raise AssertionError("analysis (a): torchcheck findings:\n" + "\n".join(
+            f.format() for f in findings))
+    if not all(twins.values()):
+        raise AssertionError(f"analysis (a): argument, output, gather or in-place bytes "
+                             f"differ from torchcheck.budgets: {twins}")
+    if on_card:
+        if left_out:
+            raise AssertionError(f"analysis (a): steps left out on the card: {left_out}")
+        for name, kernel in (("decode_step", "paged_attention_decode"),
+                             ("cow_copy", "paged_copy")):
+            if not rows[name]["launches"].get(kernel):
+                raise AssertionError(f"analysis (a): {name} launched no {kernel}: "
+                                     f"{rows[name]['launches']}")
+    for name, row in rows.items():
+        if name.endswith("_reference") and row["launches"]:
+            raise AssertionError(f"analysis (a): {name} launched {row['launches']}")
+    del steps
+
+    # (b) the same builder at minicpm-2b's full width, fp32, 2 slots
+    t0 = time.perf_counter()
+    geometry = InventoryConfig(arch=AN_ARCH, smoke=not full, device=device)
+    with serving_inventory(geometry) as inv:
+        cfg = inv.cfg
+        steps = [trace(spec) for spec in inv.specs]
+        findings = run_rules(steps, inv, budgets, select=["RPJ101", "RPJ103", "RPJ104"])
+    rows = _inventory_rows(steps)
+    wide = _wide_conversions(steps)
+    primary = "decode_step" if "decode_step" in rows else "decode_step_reference"
+    embed_rows = 2 * cfg.d_model * 4  # two slots' fp32 embedding rows
+    out["full"] = {"arch": cfg.name, "d_model": cfg.d_model, "layers": cfg.n_layers,
+                   "vocab": cfg.vocab_size, "steps": rows,
+                   "findings": [f.format() for f in findings], "wide_conversions": wide,
+                   "decode_max_gather_bytes": rows[primary]["max_gather_bytes"],
+                   "embedding_rows_bytes": embed_rows,
+                   "seconds": time.perf_counter() - t0}
+    emit({"phase": "analysis", "part": "b: torchcheck at full width", "device": device,
+          **out["full"]})
+    if findings:
+        raise AssertionError("analysis (b): RPJ101/103/104 findings at full width:\n" +
+                             "\n".join(f.format() for f in findings))
+    if on_card and rows["decode_step"]["max_gather_bytes"] != embed_rows:
+        raise AssertionError(f"analysis (b): decode_step's largest gather "
+                             f"{rows['decode_step']['max_gather_bytes']} B is not the "
+                             f"embedding rows' {embed_rows} B")
+    del steps, inv
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (c) a full-width engine under the sync guard against an unguarded one
+    t0 = time.perf_counter()
+    cfg = C.get_config(AN_ARCH, smoke=not full, dtype=torch.float32)
+    params = M.init_params(cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    rng = np.random.default_rng(20)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(n,)).astype("int32")
+               for n in AN_SERVE_PROMPTS]
+    ec = EngineConfig(max_seqs=2, max_len=128, page_size=16)
+
+    def serve(guard):
+        eng = Engine(cfg, params, ec, device=device)
+        calls = [0]
+        if guard:
+            eng._decode = guarded(eng._decode, device, calls)
+            eng._chunk_fn = guarded(eng._chunk_fn, device, calls)
+        for i, p in enumerate(prompts):
+            eng.submit(p, AN_SERVE_NEW, rid=i, arrival_step=i)
+        reqs = eng.run()
+        return [list(r.out_tokens) for r in reqs], calls[0], eng
+
+    plain, _, _ = serve(False)
+    got, calls, eng = serve(True)
+    out["guard"] = {"arch": cfg.name, "layers": cfg.n_layers, "requests": len(prompts),
+                    "prompt_lens": list(AN_SERVE_PROMPTS), "new_tokens": AN_SERVE_NEW,
+                    "guarded_calls": calls, "decode_steps": eng.decode_steps,
+                    "prefill_chunks": eng.prefill_chunks, "tokens_equal": got == plain,
+                    "seconds": time.perf_counter() - t0}
+    emit({"phase": "analysis", "part": "c: serving under the sync guard", "device": device,
+          **out["guard"]})
+    if got != plain or any(len(t) != AN_SERVE_NEW for t in got):
+        raise AssertionError(f"analysis (c): guarded tokens differ from unguarded: "
+                             f"{got} vs {plain}")
+    if calls != eng.decode_steps + eng.prefill_chunks:
+        raise AssertionError(f"analysis (c): {calls} guarded calls, "
+                             f"{eng.decode_steps} decodes + {eng.prefill_chunks} chunks")
+    del params, eng
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (d) a 1 x 2 rank's weights, cut from a full tree on the device, each
+    # in a storage of its own: a view would keep the full leaf alive and
+    # read as the whole leaf's bytes (torchcheck's mesh arguments)
+    out["placement"] = _placement_storages(torch, device)
+    emit({"phase": "analysis", "part": "d: a 1 x 2 rank's placed weights", "device": device,
+          "ranks": out["placement"]})
+    for rank, row in out["placement"].items():
+        if row["views"] or row["storage_bytes"] != row["bytes"]:
+            raise AssertionError(f"analysis (d): rank {rank}'s placed leaves are views of "
+                                 f"larger storages: {row}")
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         raise SystemExit(f"chip_smoke.py: no src/repro_torch beside {__file__}; "
@@ -3831,6 +4046,10 @@ def main() -> int:
     # 19. the dry run on one device against a real run
     dryrun_phase(torch)
     done("dryrun")
+
+    # 20. the analysis tools: torchcheck's inventory, the sync guard
+    analysis_phase(torch)
+    done("analysis")
 
     # the decode kernels' launches in each serving run that drives them
     by_run = {

@@ -21,6 +21,12 @@ no numbers -- and records what it would do on a device:
   storages, of the outputs' storages, and the peak of the storages alive
   during the step above the arguments (``temp_size_in_bytes``), each
   storage counted once however many views share it.
+* **Gathers and conversions** (what ``repro_torch.analysis.torchcheck``
+  reads where the JAX linter walks the jaxpr): the output and source bytes
+  of every gather-family operation (:data:`GATHERS`), every dtype
+  conversion with its from and to types (a copy to another dtype, an
+  operand a pointwise operation promotes, an output wider than every
+  tensor input), and the bytes of every storage the step allocated.
 
 A process group for a production mesh needs no ranks: the ``fake`` backend
 (:mod:`repro_torch.launch.dryrun`) accepts every collective and moves
@@ -31,7 +37,7 @@ from __future__ import annotations
 import dataclasses
 import time
 import weakref
-from typing import Any, Callable, Dict, Sequence
+from typing import Any, Callable, Dict, List, Sequence
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -51,6 +57,12 @@ MEMORY_FIELDS = (
 
 #: The collectives a dispatch mode sees, by the name the dry run records.
 COLLECTIVES = {"allreduce_": "all-reduce", "broadcast_": "broadcast"}
+
+#: The gather-family operations (by overload packet) whose output bytes the
+#: trace records: advanced indexing (``aten.index.Tensor``), ``gather``,
+#: ``index_select``, ``embedding`` and ``take``.  Scatters (``index_put_``)
+#: are not gathers, as XLA's ``scatter`` is not its ``gather``.
+GATHERS = ("index", "gather", "index_select", "embedding", "take")
 
 
 def _tensors(tree):
@@ -92,6 +104,9 @@ class _StepMode(TorchDispatchMode):
         self.peak = 0
         self.collectives: Dict[str, int] = {name: 0 for name in COLLECTIVES.values()}
         self.collectives["count"] = 0
+        self.gathers: List[Dict[str, Any]] = []
+        self.conversions: List[Dict[str, Any]] = []
+        self.allocations: List[int] = []  # bytes of each storage allocated
 
     def _free(self, key: int, n: int) -> None:
         self.live -= n
@@ -105,6 +120,7 @@ class _StepMode(TorchDispatchMode):
                 continue
             self.known.add(key)
             n = st.nbytes()
+            self.allocations.append(n)
             self.live += n
             self.peak = max(self.peak, self.live)
             weakref.finalize(st, self._free, key, n)
@@ -117,8 +133,54 @@ class _StepMode(TorchDispatchMode):
                                           for t in _tensors(args[0]))
             self.collectives["count"] += 1
         out = func(*args, **kwargs)
+        self._record(func, args, kwargs, out)
         self._track(out)
         return out
+
+    def _convert(self, func, src, out: torch.Tensor) -> None:
+        self.conversions.append({
+            "op": str(func),
+            "from": "none" if src is None else str(src).replace("torch.", ""),
+            "to": str(out.dtype).replace("torch.", ""),
+            "to_itemsize": out.element_size(),
+            "output_bytes": out.numel() * out.element_size()})
+
+    def _record(self, func, args, kwargs, out) -> None:
+        name = func.overloadpacket.__name__
+        if name in GATHERS and isinstance(out, torch.Tensor):
+            src = args[0] if args and isinstance(args[0], torch.Tensor) else None
+            self.gathers.append({
+                "op": str(func), "output_bytes": out.numel() * out.element_size(),
+                "source_bytes": 0 if src is None else src.numel() * src.element_size()})
+        self._record_conversions(func, name, args, kwargs, out)
+
+    def _record_conversions(self, func, name, args, kwargs, out) -> None:
+        """The dtype conversions of one operation, explicit or implied --
+        what the JAX jaxpr shows as ``convert_element_type``: a copy to
+        another dtype (``_to_copy``, ``copy_``); an operand of a pointwise
+        operation promoted to its output's dtype (``x * y`` with ``y``
+        wider); and an output wider than every tensor input (a factory such
+        as ``arange(..., dtype=float64)`` with none, ``sum`` of an int32
+        tensor, ``argmax``)."""
+        outs = list(_tensors(out))
+        if not outs:
+            return
+        if name in ("_to_copy", "copy_", "copy"):
+            src = args[1] if name != "_to_copy" else args[0]
+            if isinstance(src, torch.Tensor) and src.dtype != outs[0].dtype:
+                self._convert(func, src.dtype, outs[0])
+            return
+        ins = list(_tensors((args, kwargs)))
+        widest_in = max(ins, key=lambda t: t.element_size(), default=None)
+        pointwise = torch.Tag.pointwise in func.tags
+        for o in outs:
+            if widest_in is None or o.element_size() > widest_in.element_size():
+                self._convert(func, None if widest_in is None else widest_in.dtype, o)
+            elif pointwise:
+                for dt in sorted({t.dtype for t in ins if t.dtype != o.dtype and
+                                  t.dtype != torch.bool and
+                                  t.element_size() < o.element_size()}, key=str):
+                    self._convert(func, dt, o)
 
 
 @dataclasses.dataclass
@@ -131,6 +193,9 @@ class TraceArtifact:
     memory: Dict[str, int]
     trace_s: float
     outputs: Any = dataclasses.field(default=None, repr=False)
+    gathers: List[Dict[str, Any]] = dataclasses.field(default_factory=list, repr=False)
+    conversions: List[Dict[str, Any]] = dataclasses.field(default_factory=list, repr=False)
+    allocations: List[int] = dataclasses.field(default_factory=list, repr=False)
 
 
 def trace_step(fn: Callable, args: Sequence, kwargs: Dict[str, Any] = None) -> TraceArtifact:
@@ -153,7 +218,8 @@ def trace_step(fn: Callable, args: Sequence, kwargs: Dict[str, Any] = None) -> T
     }
     return TraceArtifact(flops=int(counter.get_total_flops()),
                          collectives=dict(watch.collectives), memory=memory,
-                         trace_s=trace_s, outputs=out)
+                         trace_s=trace_s, outputs=out, gathers=watch.gathers,
+                         conversions=watch.conversions, allocations=watch.allocations)
 
 
 def memory_record(artifact: TraceArtifact) -> Dict[str, int]:

@@ -735,9 +735,10 @@ class ServeLayout(_Layout):
             if placed_any or all(e is None for e in spec):
                 return leaf.to(device)
             piece = local_shard(leaf, spec, self.mesh, self.coords)
-            if piece.device == device:
-                return piece.clone(memory_format=torch.contiguous_format)
-            return piece.to(device).contiguous()
+            # always a storage of its own: a view would keep the full leaf
+            # alive ("cuda" and a piece on "cuda:0" compare unequal, and a
+            # contiguous slice moved to its own card is not copied)
+            return piece.to(device, copy=True, memory_format=torch.contiguous_format)
 
         return _map_with_path(cut, params)
 

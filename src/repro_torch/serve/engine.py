@@ -36,7 +36,8 @@ targets) go up through pinned memory without a sync.
 
 Where the JAX package jits and memoizes its step functions (and inventories
 them for its compiled-artifact linter), this engine calls the model's
-functions eagerly.  Entry points run on the CUDA device unless ``device``
+functions eagerly (:func:`step_fns`, which
+:mod:`repro_torch.analysis.torchcheck` inventories).  Entry points run on the CUDA device unless ``device``
 says otherwise.
 
 **Serving on a mesh** (``mesh=``, a ``D x M`` mesh from
@@ -77,6 +78,8 @@ from repro_torch.serve.kvcache import (
     PagedCacheConfig,
     PagedKVCache,
     check_serve_mesh,
+    cow_step,
+    install_step,
     to_device,
 )
 from repro_torch.serve.obs import Observability
@@ -173,6 +176,33 @@ def _paged_step(cfg: ModelConfig, params, caches, tokens, seq_pos, page_table, a
     # tokens feed the next step without a host round-trip
     greedy = torch.argmax(logits[:, -1].float(), -1)
     return greedy.to(torch.int32), logits, new_caches
+
+
+#: the positions of the page-pool argument, which each step writes in place
+#: and returns (the JAX package's steps donate it)
+_POOL_ARG = (1,)
+
+
+def step_fns(cfg: ModelConfig) -> Dict[str, tuple]:
+    """The continuous engine's hot-path steps: ``{name: (fn, in_place)}``,
+    ``in_place`` the positions of the arguments the step writes in place
+    and returns.
+
+    Counterpart of the JAX package's ``jitted_step_fns``: the inventory
+    :mod:`repro_torch.analysis.torchcheck` traces.  These are the callables
+    the engine calls (:class:`Engine` takes its decode and chunk steps from
+    here); the install and copy-on-write steps live with the pool they write
+    (:func:`repro_torch.serve.kvcache.install_step` /
+    :func:`~repro_torch.serve.kvcache.cow_step`).  ``cfg.decode_backend``
+    selects the decode and COW route the steps run: the gather oracle
+    (``"reference"``) or the CUDA kernels (``"cuda"``).
+    """
+    return {
+        "decode_step": (functools.partial(_paged_step, cfg), _POOL_ARG),
+        "prefill_chunk": (functools.partial(M.prefill_chunk, cfg), _POOL_ARG),
+        "cow_copy": (cow_step(cfg), (0,)),
+        "install": (install_step(cfg), (0,)),
+    }
 
 
 def _extras_on(extras: Dict, device: torch.device) -> Dict:
@@ -422,8 +452,9 @@ class Engine:
         # (enc-dec encoder K/V) -- resolved from the registry, not by family
         self._admission_ads = A.admission_adapters(cfg)
         self._prefill = functools.partial(M.prefill, cfg)
-        self._chunk_fn = functools.partial(M.prefill_chunk, cfg)
-        self._decode = functools.partial(_paged_step, cfg)
+        steps = step_fns(cfg)
+        self._chunk_fn = steps["prefill_chunk"][0]
+        self._decode = steps["decode_step"][0]
         # per-slot last sampled token, kept ON DEVICE: the greedy loop feeds
         # decode outputs straight back in, syncing to host only at
         # scheduling events (finish, preemption, EOS, temperature sampling)
@@ -489,7 +520,7 @@ class Engine:
         device->host copy for every step since the last flush."""
         if not self._pending:
             return
-        rows = torch.stack([g for g, _ in self._pending]).cpu().numpy()  # sanctioned sync: flush
+        rows = torch.stack([g for g, _ in self._pending]).cpu().numpy()  # repro: noqa RPR006 -- sanctioned sync: flush
         for row, (_, running) in zip(rows, self._pending):
             for slot, req in running:
                 req.out_tokens.append(int(row[slot]))  # repro: noqa RPR002 -- host ndarray
