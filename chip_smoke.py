@@ -266,6 +266,25 @@ Phases, each printing one JSON line:
    (d) Each rank of a ``1 x 2`` serve mesh places smoke weights drawn on
    ``cuda:0`` onto ``cuda``: every placed leaf owns its storage (no view
    keeping the full leaf alive).
+21. graph -- the continuous engine's decode step as one CUDA graph
+   (``serve/graphs.py``; every single-card engine of phases 6-12 and 20
+   already replays it, so their gates hold the graphed engine against
+   ``Server.generate``, which stays eager).  In fp32 at each served
+   family's decode shape -- starcoder2-7b (8 layers), DeepSeek-V3's dense
+   prefix, granite (8), h2o (8), mamba2-130m, hymba (8), whisper-tiny --
+   five requests just under a page boundary, one the prefix of another, 16
+   new tokens each, 4 slots on 5 usable pages of 128 (admission,
+   copy-on-write where the family shares tail pages, preemption, refill).
+   Gates: (a) every replay's greedy tokens and logits on the active slots
+   and every pool leaf but the null page bit-identical to the eager decode
+   step on a clone of the pool and a copy of the runner's inputs; (b) one
+   capture an engine, the decode kernel recorded once a layer, no buffer,
+   pool leaf or page-table mirror moved; (c) every replay under
+   ``torch.cuda.set_sync_debug_mode("error")``; starcoder2-7b also runs a
+   2-slot engine in turns with the 4-slot one (the larger workspaces
+   captured second).  (d) In a child process, a decode step with an
+   injected ``.item()`` makes the capture raise right after the warm-up.
+   (e) Printed: each capture's seconds and private-pool bytes.
 
 Each phase's seconds follow it on a line of their own.  Then the per-kernel
 summary line (the decode kernels' and the page copy's launches per serving
@@ -1593,6 +1612,52 @@ def timed_serve(torch, cfg16, params, prompts, arrivals, max_new, extras=None,
             "profiled_decode_step": prof}
 
 
+def serve_timing(torch, names=None) -> dict:
+    """``timed_serve`` alone for the served models of phases 6 and 8-12, in
+    bf16 at their cuts, on their traffic (weights from seed 0): for a paired
+    call of two trees, run it once with each tree's ``src`` first on
+    ``sys.path``.  ``names``: a subset of the rows.  Returns {name: line}."""
+    import dataclasses
+
+    import repro_torch.configs as C
+    from repro_torch.launch.serve import audio_extras
+    from repro_torch.models import model as M
+
+    dense = dict(n_layers=3, family="dense", n_experts=0, n_shared_experts=0, top_k=0,
+                 moe_d_ff=0, first_k_dense=0, mtp_depth=0)
+    deepseek = C.get_config("deepseek-v3-671b")
+    rows = {
+        "starcoder2-7b": lambda: C.get_config("starcoder2-7b"),
+        "deepseek-v3 dense prefix": lambda: dataclasses.replace(deepseek, **dense),
+        "granite-moe-3b-a800m": lambda: C.get_config(
+            "granite-moe-3b-a800m", n_layers=CUT_DEPTH["granite-moe-3b-a800m"]),
+        "deepseek-v3 4 layers": lambda: dataclasses.replace(deepseek, n_layers=4),
+        "h2o-danube-3-4b": lambda: C.get_config(
+            "h2o-danube-3-4b", n_layers=CUT_DEPTH["h2o-danube-3-4b"]),
+        "mamba2-130m": lambda: C.get_config("mamba2-130m"),
+        "hymba-1.5b": lambda: C.get_config("hymba-1.5b", n_layers=CUT_DEPTH["hymba-1.5b"]),
+        "whisper-tiny": lambda: C.get_config("whisper-tiny"),
+    }
+    out = {}
+    for name in names or rows:
+        cfg16 = rows[name]()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = M.init_params(cfg16, gen, device="cuda")
+        if cfg16.n_encoder_layers:
+            prompts, arrivals = whisper_traffic(cfg16.vocab_size)
+            line = timed_serve(torch, cfg16, params, prompts, arrivals, 64,
+                               extras=audio_extras(cfg16, len(prompts), seed=0),
+                               max_len=WHISPER_CONTEXT)
+        else:
+            prompts, arrivals = serve_traffic(cfg16.vocab_size)
+            line = timed_serve(torch, cfg16, params, prompts, arrivals, 64)
+        out[name] = line
+        emit({**line, "timing": name})
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
 def serve_phase(torch, kernels):
     """starcoder2-7b at full width through the continuous engine."""
     import dataclasses
@@ -1629,13 +1694,7 @@ def serve_phase(torch, kernels):
     result["rwma_launches"] = rwma_counts["rwma_gemm"]
     del params, params4, eng
     torch.cuda.empty_cache()
-
-    # -- timed, bf16 (the config's type)
-    cfg16 = C.get_config("starcoder2-7b")
-    params = M.init_params(cfg16, gen, device="cuda")
-    emit(timed_serve(torch, cfg16, params, prompts, arrivals, max_new))
-    del params
-    torch.cuda.empty_cache()
+    serve_timing(torch, ["starcoder2-7b"])  # timed, bf16 (the config's type)
     return result
 
 
@@ -1958,11 +2017,7 @@ def mla_serve_phase(torch, kernels):
                          "mla_paged_attention_decode")
     del params
     torch.cuda.empty_cache()
-    cfg16 = dataclasses.replace(C.get_config("deepseek-v3-671b"), **dense)
-    params = M.init_params(cfg16, gen, device="cuda")
-    emit(timed_serve(torch, cfg16, params, prompts, arrivals, max_new))
-    del params
-    torch.cuda.empty_cache()
+    serve_timing(torch, ["deepseek-v3 dense prefix"])
     return counts
 
 
@@ -2042,11 +2097,7 @@ def moe_serve_phase(torch, kernels):
                           "paged_attention_decode", min_cow=0, chunked_prefill=False)
     del params
     torch.cuda.empty_cache()
-    cfg16 = C.get_config("granite-moe-3b-a800m", n_layers=layers)
-    params = M.init_params(cfg16, gen, device="cuda")
-    emit(timed_serve(torch, cfg16, params, prompts, arrivals, max_new))
-    del params
-    torch.cuda.empty_cache()
+    serve_timing(torch, ["granite-moe-3b-a800m"])
 
     # -- DeepSeek-V3, 4 layers (3 dense + 1 MoE of 256 routed experts and a
     # shared one), bf16 only: about 30 GB of weights, 60 GB in fp32
@@ -2055,9 +2106,9 @@ def moe_serve_phase(torch, kernels):
     params = M.init_params(cfg16, gen, device="cuda")
     deepseek = moe_first_token_gates(torch, kernels, cfg16, params, prompts, arrivals,
                                      max_new, "mla_paged_attention_decode")
-    emit(timed_serve(torch, cfg16, params, prompts, arrivals, max_new))
     del params
     torch.cuda.empty_cache()
+    serve_timing(torch, ["deepseek-v3 4 layers"])
     return {"granite": granite, "granite_decode_errs": decode_errs, "deepseek": deepseek}
 
 
@@ -2105,12 +2156,7 @@ def swa_serve_phase(torch, kernels):
                          min_cow=0, max_len=8192)
     del params
     torch.cuda.empty_cache()
-    cfg16 = C.get_config("h2o-danube-3-4b", n_layers=layers)
-    prompts, arrivals = serve_traffic(cfg16.vocab_size)
-    params = M.init_params(cfg16, gen, device="cuda")
-    emit(timed_serve(torch, cfg16, params, prompts, arrivals, 64))
-    del params
-    torch.cuda.empty_cache()
+    serve_timing(torch, ["h2o-danube-3-4b"])  # bf16, on the 8 shorter requests
     return counts
 
 
@@ -2135,11 +2181,7 @@ def ssm_serve_phase(torch, kernels):
                                    min_cow=0)
         del params
         torch.cuda.empty_cache()
-        cfg16 = C.get_config(arch, **depth)
-        params = M.init_params(cfg16, gen, device="cuda")
-        emit(timed_serve(torch, cfg16, params, prompts, arrivals, 64))
-        del params
-        torch.cuda.empty_cache()
+        serve_timing(torch, [arch])
     return counts
 
 
@@ -2165,12 +2207,7 @@ def encdec_serve_phase(torch, kernels):
                          max_len=WHISPER_CONTEXT)
     del params
     torch.cuda.empty_cache()
-    cfg16 = C.get_config("whisper-tiny")
-    params = M.init_params(cfg16, gen, device="cuda")
-    emit(timed_serve(torch, cfg16, params, prompts, arrivals, 64, extras=extras,
-                     max_len=WHISPER_CONTEXT))
-    del params
-    torch.cuda.empty_cache()
+    serve_timing(torch, ["whisper-tiny"])
     return counts, decode_errs
 
 
@@ -3918,6 +3955,257 @@ def analysis_phase(torch, device: str = "cuda", full: bool = True) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# 21. the decode step as one CUDA graph, at each served family's decode shape
+# --------------------------------------------------------------------------
+
+GRAPH_NEW = 16  # new tokens a request
+# prompt lengths in pages: just under a page boundary, so a decoding slot
+# grows within GRAPH_NEW tokens; the second is the first's prefix, its tail
+# page shared (copy-on-write where the family shares pages)
+GRAPH_PAGES = (2.97, 1.6, 2.95, 1.95, 2.2)
+GRAPH_POOL_PAGES = 6  # 5 usable pages for 4 slots: growth preempts
+
+
+def graph_models(torch, full: bool = True) -> dict:
+    """{label: (fp32 config, the decode kernel a layer, or None)} of the
+    served families at their decode shapes: the serving phases' cuts
+    (``full=False``: the smoke configs with pages of 8, for the CPU)."""
+    import dataclasses
+
+    import repro_torch.configs as C
+
+    dense = dict(n_layers=3, family="dense", n_experts=0, n_shared_experts=0, top_k=0,
+                 moe_d_ff=0, first_k_dense=0, mtp_depth=0)
+    rows = (("starcoder2-7b 8 layers", "starcoder2-7b", {"n_layers": 8},
+             "paged_attention_decode"),
+            ("deepseek-v3 dense prefix", "deepseek-v3-671b", dense, "mla_paged_attention_decode"),
+            ("granite-moe-3b-a800m 8 layers", "granite-moe-3b-a800m",
+             {"n_layers": CUT_DEPTH["granite-moe-3b-a800m"]}, "paged_attention_decode"),
+            ("h2o-danube-3-4b 8 layers", "h2o-danube-3-4b",
+             {"n_layers": CUT_DEPTH["h2o-danube-3-4b"]}, None),
+            ("mamba2-130m", "mamba2-130m", {}, None),
+            ("hymba-1.5b 8 layers", "hymba-1.5b", {"n_layers": CUT_DEPTH["hymba-1.5b"]}, None),
+            ("whisper-tiny", "whisper-tiny", {}, "paged_attention_decode"))
+    out = {}
+    for label, arch, over, kernel in rows:
+        if not full:
+            over = {**{k: v for k, v in over.items() if k != "n_layers"}, "block": 8}
+        cfg = dataclasses.replace(C.get_config(arch, smoke=not full, dtype=torch.float32),
+                                  **over)
+        out[label] = (cfg, kernel)
+    return out
+
+
+def graph_traffic(cfg, page: int):
+    """5 prompts of GRAPH_PAGES pages from a numpy seed, arrivals every 2
+    engine steps; each request's audio for an enc-dec config."""
+    import numpy as np
+
+    from repro_torch.launch.serve import audio_extras
+
+    rng = np.random.default_rng(21)
+    lens = [int(page * f) for f in GRAPH_PAGES]
+    prompts = [rng.integers(0, cfg.vocab_size, size=(n,)).astype(np.int32) for n in lens]
+    prompts[1] = prompts[0][:lens[1]].copy()
+    return prompts, [2 * i for i in range(len(prompts))], audio_extras(cfg, len(prompts), 21)
+
+
+def _paged_pools(cfg) -> set:
+    """(segment, adapter key) of the paged pools: page 0 is the null page,
+    where inactive slots write in an undefined order."""
+    from repro_torch.models import adapters as A
+
+    return {(f"seg{si}", ad.key) for si, (kind, _) in enumerate(A.layer_segments(cfg))
+            for ad in A.adapters_for(cfg, kind) if ad.paged}
+
+
+def graph_checked(torch, eng, device: str) -> dict:
+    """Replace ``eng._decode`` (the engine's :class:`DecodeGraph`) by a
+    checker: each call runs under the sync guard, then the eager decode step
+    runs on a clone of the pool from before the call and a copy of the
+    runner's input buffers; the active slots' logits and greedy tokens and
+    every pool leaf but the null page must be bit-identical, and every
+    buffer, pool leaf and the page-table mirror keep their storage.
+    Returns the record the checker fills."""
+    from repro_torch import tree as T
+    from repro_torch.analysis.torchcheck.harness import sync_guard
+    from repro_torch.serve.engine import step_fns
+
+    runner = eng._decode
+    step = step_fns(eng.cfg)["decode_step"][0]
+    paged = _paged_pools(eng.cfg)
+    buffers = (runner.tokens, runner.seq_pos, runner.table, runner.active, runner.greedy,
+               runner.logits)
+    table = eng.kv.page_table()
+    ptrs = ([t.data_ptr() for t in buffers], eng.kv.pool_ptrs(), table.data_ptr())
+    rec = {"runner": runner, "replays": 0, "differ": [], "moved": 0}
+
+    def checked(params, pool, tokens, seq_pos, page_table, active):
+        before = T.tree_map(lambda t: t.clone(), pool)
+        with sync_guard(device):
+            greedy, logits, pool = runner(params, pool, tokens, seq_pos, page_table, active)
+        with torch.no_grad():
+            want_g, want_l, want_pool = step(params, before, runner.tokens.clone(),
+                                             runner.seq_pos.clone(), runner.table.clone(),
+                                             runner.active.clone())
+        on = runner.active
+        differ = []
+        if not (torch.equal(greedy[on], want_g[on]) and torch.equal(logits[on], want_l[on])):
+            differ.append("logits")
+        for seg, tree in pool.items():
+            for key, leaves in tree.items():
+                for name, leaf in leaves.items():
+                    want = want_pool[seg][key][name]
+                    if (seg, key) in paged:
+                        leaf, want = leaf[:, 1:], want[:, 1:]
+                    if not torch.equal(leaf, want):
+                        differ.append(f"{seg}/{key}/{name}")
+        if differ:
+            rec["differ"].append({"replay": rec["replays"], "differ": differ})
+        now = ([t.data_ptr() for t in buffers], eng.kv.pool_ptrs(),
+               eng.kv.page_table().data_ptr())
+        rec["moved"] += now != ptrs or eng.kv.page_table() is not table
+        rec["replays"] += 1
+        return greedy, logits, pool
+
+    eng._decode = checked
+    return rec
+
+
+def graph_summary(eng, rec, label: str, kernel, checks_preemption: bool,
+                  on_card: bool) -> dict:
+    """One engine's phase-21 line; raises on a failed gate."""
+    runner = rec["runner"]
+    reqs = [eng.sched.finished[r] for r in sorted(eng.sched.finished)]
+    preempted = sum(r.stats.n_preemptions for r in reqs)
+    want_launches = {kernel: eng.cfg.n_layers} if kernel and on_card else {}
+    row = {"phase": "graph", "model": label, "slots": eng.ec.max_seqs,
+           "layers": eng.cfg.n_layers, "requests": len(reqs),
+           "decode_steps": eng.decode_steps, "replays_checked": rec["replays"],
+           "replays_differing": rec["differ"], "storages_moved": rec["moved"],
+           "cow_copies": eng.kv.cow_copies, "preemptions": preempted,
+           "captures": runner.captures, "capture_s": runner.capture_seconds,
+           "private_pool_bytes": runner.pool_bytes,
+           "warmup_launches": runner.warmup_launches,
+           "replay_launches": runner.replay_launches}
+    emit(row)
+    fails = []
+    if rec["differ"] or rec["moved"]:
+        fails.append("replays differ from the eager step or storages moved")
+    if rec["replays"] != eng.decode_steps or runner.calls != eng.decode_steps:
+        fails.append("not every decode step went through the checked runner")
+    if runner.captures != int(on_card):
+        fails.append(f"{runner.captures} captures")
+    if runner.replay_launches != want_launches:
+        fails.append(f"replay launches {runner.replay_launches}, want {want_launches}")
+    if len(reqs) != len(eng.sched.finished) or len(reqs) <= eng.ec.max_seqs:
+        fails.append("no slot refill")
+    if eng.kv.skip_prefill and eng.kv.cow_copies < 1:  # a shared tail page
+        fails.append("no copy-on-write")
+    if checks_preemption and preempted < 1:
+        fails.append("no preemption")
+    if fails:
+        raise AssertionError(f"graph {label}: " + "; ".join(fails))
+    return row
+
+
+def graph_sync_child() -> None:
+    """Phase 21 (d), in a process of its own (a failed capture may leave the
+    capture stream current): the decode step of starcoder2-7b at full width,
+    2 layers, with a ``.item()`` injected after it.  The runner must raise
+    at the capture, after its warm-up calls and before any other call.
+    Prints one JSON line."""
+    import dataclasses
+
+    sys.path.insert(0, str(SRC))
+    import torch
+
+    import repro_torch.configs as C
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import step_fns
+    from repro_torch.serve.graphs import WARMUP_STEPS, DecodeGraph
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(C.get_config("starcoder2-7b", dtype=torch.float32), n_layers=2)
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    pool = M.init_paged_cache(cfg, 4, GRAPH_POOL_PAGES, 128, 512, device="cuda")
+    step = step_fns(cfg)["decode_step"][0]
+    calls = [0]
+
+    def with_sync(*args):
+        calls[0] += 1
+        out = step(*args)
+        if args[3].sum().item() < 0:  # a host sync inside the step
+            raise AssertionError("unreachable")
+        return out
+
+    error = None
+    try:
+        DecodeGraph(with_sync, params, pool, 4, 4, "cuda")
+    except RuntimeError as e:  # the capture refuses the sync
+        error = f"{type(e).__name__}: {e}"[:300]
+    print(json.dumps({"raised": error is not None, "error": error,
+                      "step_calls": calls[0], "warmup_steps": WARMUP_STEPS}), flush=True)
+
+
+def graph_phase(torch, kernels, device: str = "cuda", full: bool = True) -> dict:
+    """The engine's decode step as one CUDA graph (``serve/graphs.py``), in
+    fp32 at each served family's decode shape: each engine serves
+    ``graph_traffic`` on a small pool (admission, copy-on-write where the
+    family shares pages, preemption, slot refill) through
+    :func:`graph_checked`; (a) every replay bit-identical to the eager step,
+    (b) one capture an engine, no storage moved, (c) no sync inside a
+    replay, (e) each capture's seconds and private-pool bytes printed.
+    starcoder2-7b runs two engines, 2 then 4 slots, stepped in turns: the
+    first one's captured workspaces outlive the second's larger ones.  (d)
+    A step with an injected ``.item()`` makes the capture raise (in a
+    process of its own).  ``device="cpu", full=False`` rehearses the phase
+    on the CPU (the runner calls the step eagerly there: no capture)."""
+    from repro_torch.models import model as M
+
+    on_card = torch.device(device).type == "cuda"
+    page = 128 if full else 8
+    gen = torch.Generator(device=device).manual_seed(0)
+    out = {}
+    for i, (label, (cfg, kernel)) in enumerate(graph_models(torch, full).items()):
+        t0 = time.perf_counter()
+        params = M.init_params(cfg, gen, device=device)
+        prompts, arrivals, extras = graph_traffic(cfg, page)
+        context = cfg.max_decoder_positions if cfg.n_encoder_layers else 64 * page
+        ec = dict(max_len=min(5 * page, context), page_size=page, prefill_chunk=0,
+                  num_pages=GRAPH_POOL_PAGES)
+        engines = [run_engine(cfg, params, prompts, arrivals, GRAPH_NEW, device=device,
+                              extras=extras, max_seqs=slots, **ec)
+                   for slots in ((2, 4) if i == 0 else (4,))]
+        recs = [graph_checked(torch, eng, device) for eng in engines]
+        while any(eng.sched.has_work() for eng in engines):
+            for eng in engines:
+                if eng.sched.has_work():
+                    eng.step()
+        for eng in engines:
+            eng._flush_pending()
+        rows = [graph_summary(eng, rec, label, kernel, eng.ec.max_seqs == 4, on_card)
+                for eng, rec in zip(engines, recs)]
+        out[label] = {"rows": rows, "seconds": time.perf_counter() - t0}
+        del params, engines, recs
+        if on_card:
+            torch.cuda.empty_cache()
+    if on_card:
+        child = subprocess.run(
+            [sys.executable, "-c", "import chip_smoke; chip_smoke.graph_sync_child()"],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        lines = child.stdout.strip().splitlines()
+        got = json.loads(lines[-1]) if child.returncode == 0 and lines else None
+        emit({"phase": "graph", "part": "d: a sync injected into the step",
+              "exit": child.returncode, **(got or {"stderr": child.stderr[-2000:]})})
+        if not got or not got["raised"] or got["step_calls"] != got["warmup_steps"] + 1:
+            raise AssertionError(f"graph (d): the injected sync did not make the capture "
+                                 f"raise right after the warm-up: {got}")
+        out["sync_child"] = got
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         raise SystemExit(f"chip_smoke.py: no src/repro_torch beside {__file__}; "
@@ -4050,6 +4338,10 @@ def main() -> int:
     # 20. the analysis tools: torchcheck's inventory, the sync guard
     analysis_phase(torch)
     done("analysis")
+
+    # 21. the decode step as one CUDA graph, each served family
+    graph_phase(torch, kernels)
+    done("graph")
 
     # the decode kernels' launches in each serving run that drives them
     by_run = {

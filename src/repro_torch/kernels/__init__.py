@@ -2,7 +2,8 @@
 
 Each wrapper carries a ``launches`` counter that it increments where it
 launches its kernel and nowhere else; :func:`launch_counts` reads them and
-:func:`reset_launch_counts` sets them to 0.
+:func:`reset_launch_counts` sets them to 0 and :func:`add_launches` adds to
+them.
 """
 from repro_torch.kernels.bwma_attention import bwma_attention
 from repro_torch.kernels.bwma_fused_ffn import bwma_fused_ffn
@@ -29,3 +30,10 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+
+
+def add_launches(counts: dict) -> None:
+    """Add ``counts`` ({name: n}, n may be negative) to the counters: a CUDA
+    graph's replay launches what its capture counted without launching."""
+    for k in KERNELS:
+        k.launches += counts.get(k.__name__, 0)

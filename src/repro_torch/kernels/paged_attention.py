@@ -19,6 +19,8 @@ which writes in place, takes a contiguous pool only.
 """
 from __future__ import annotations
 
+import contextlib
+import struct
 from typing import Optional, Tuple
 
 import torch
@@ -84,6 +86,21 @@ def mla_workspace_floats(B: int, H: int, splits: int, r: int, dtype: torch.dtype
 # needed: launches on one stream run in order, so each call may reuse it,
 # and the serving step, host-bound, saves an allocation per layer
 _workspaces = {}
+
+
+@contextlib.contextmanager
+def own_workspaces(store: dict):
+    """Take the split kernels' partials from ``store`` inside the scope, not
+    from the shared cache.  A CUDA graph replays the pointer it captured:
+    the graph's owner keeps its own buffers in ``store``, so no later call
+    on the same stream can grow the shared buffer and free the captured
+    one."""
+    global _workspaces
+    shared, _workspaces = _workspaces, store
+    try:
+        yield store
+    finally:
+        _workspaces = shared
 
 
 def _workspace(device: torch.device, stream: int, numel: int) -> torch.Tensor:
@@ -241,7 +258,8 @@ def mla_decode_plain(q_lat, q_rope, ckv_pages, krope_pages, page_table, seq_pos,
     B, H, r, dr, page, maxp = _check_mla(q_lat, q_rope, ckv_pages, krope_pages,
                                          page_table, seq_pos)
     acc_t = torch.float64 if ckv_pages.dtype == torch.float32 else torch.float32
-    scale = torch.tensor(scale, dtype=torch.float32).item()  # the kernel's fp32 scale
+    # the kernel's fp32 scale, rounded on the host (no tensor, no sync)
+    scale = struct.unpack("f", struct.pack("f", scale))[0]
     ql = q_lat[:, 0].to(acc_t)  # (B, H, r)
     qr = q_rope[:, 0].to(acc_t)
     acc = torch.zeros(B, H, r, dtype=acc_t, device=ql.device)

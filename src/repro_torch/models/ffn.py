@@ -159,7 +159,10 @@ def moe_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor
     # on a data axis: the global means (every rank holds as many tokens),
     # and this rank's share of the loss
     me = probs.mean(dim=(0, 1))  # (E,)
-    ce = F.one_hot(idx, E).float().sum(2).mean(dim=(0, 1))
+    # each expert's share of the routed tokens: F.one_hot's counts, by a
+    # scatter (F.one_hot checks the ids against E with a host sync off CUDA)
+    ce = torch.zeros(G, Tg, E, device=dev).scatter_add_(
+        -1, idx, torch.ones(idx.shape, device=dev)).mean(dim=(0, 1))
     n_data = AX.data_size()
     if n_data > 1:
         me, ce = AX.data_sum(me) / n_data, AX.data_sum(ce) / n_data

@@ -34,11 +34,16 @@ hot-loop`` call neither ``.item()`` nor ``.cpu()`` except at the two
 sanctioned sync points.  Host inputs (positions, page tables, write
 targets) go up through pinned memory without a sync.
 
-Where the JAX package jits and memoizes its step functions (and inventories
-them for its compiled-artifact linter), this engine calls the model's
-functions eagerly (:func:`step_fns`, which
-:mod:`repro_torch.analysis.torchcheck` inventories).  Entry points run on the CUDA device unless ``device``
-says otherwise.
+**The decode step as one CUDA graph**: where the JAX package jits its
+decode step with the pool donated, :class:`Engine` captures it once per
+engine (:class:`repro_torch.serve.graphs.DecodeGraph`) and replays it each
+step on static input buffers, the pool written in place; on the CPU the
+same runner calls the step eagerly.  The chunk step, the static
+:class:`Server` and an engine on a mesh of several ranks (whose gloo
+collectives go through the host) call the model's functions eagerly.
+:func:`step_fns` holds the steps, which
+:mod:`repro_torch.analysis.torchcheck` inventories.  Entry points run on
+the CUDA device unless ``device`` says otherwise.
 
 **Serving on a mesh** (``mesh=``, a ``D x M`` mesh from
 :func:`repro_torch.launch.mesh.make_serve_mesh`): every rank builds the
@@ -74,6 +79,7 @@ from repro_torch.distributed import axes as AX
 from repro_torch.distributed import sharding as SH
 from repro_torch.models import adapters as A
 from repro_torch.models import model as M
+from repro_torch.serve.graphs import DecodeGraph
 from repro_torch.serve.kvcache import (
     PagedCacheConfig,
     PagedKVCache,
@@ -216,6 +222,16 @@ def _check_params_device(params, device: torch.device) -> None:
     if where.type != device.type or (device.index is not None and where != device):
         raise ValueError(f"params live on {where}, the engine on {device}; "
                          "create or move them to the engine's device")
+
+
+def _eager_decode(step, device: torch.device):
+    """The decode step called eagerly, its host inputs (positions, active
+    mask) uploaded first: the mesh engines' step."""
+    def decode(params, pool, tokens, seq_pos, page_table, active):
+        return step(params, pool, tokens, to_device(seq_pos, device), page_table,
+                    to_device(active, device))
+
+    return decode
 
 
 def _rank_params(cfg: ModelConfig, params, mesh, device: torch.device):
@@ -454,7 +470,14 @@ class Engine:
         self._prefill = functools.partial(M.prefill, cfg)
         steps = step_fns(cfg)
         self._chunk_fn = steps["prefill_chunk"][0]
-        self._decode = steps["decode_step"][0]
+        # one rank: the step captured once (CUDA graph; eager on the CPU);
+        # several: eager, since gloo's collectives go through the host
+        ranks = 1 if mesh is None else math.prod(AX.mesh_shape(mesh).values())
+        if ranks > 1:
+            self._decode = _eager_decode(steps["decode_step"][0], self.device)
+        else:
+            self._decode = DecodeGraph(steps["decode_step"][0], self.params, self.kv.data,
+                                       ec.max_seqs, self.kv.max_pages_per_seq, self.device)
         # per-slot last sampled token, kept ON DEVICE: the greedy loop feeds
         # decode outputs straight back in, syncing to host only at
         # scheduling events (finish, preemption, EOS, temperature sampling)
@@ -639,16 +662,19 @@ class Engine:
             active[slot] = True
         with self.obs.device_span("decode_step"):
             greedy, logits, self.kv.data = self._decode(
-                self.params, self.kv.data, self._last_tok[:, None],
-                to_device(seq_pos, self.device), self.kv.page_table(),
-                to_device(active, self.device),
+                self.params, self.kv.data, self._last_tok[:, None], seq_pos,
+                self.kv.page_table(), active,
             )
         self.decode_steps += 1
         if self.ec.temperature > 0:
-            # host sampling needs the logits now -- no deferral on this path
+            # host sampling needs the logits now (before the next replay
+            # overwrites them) -- no deferral on this path
             for slot, req in decoding:
                 self._append_token(slot, req, self._sample(logits[slot, -1], req))
             return
+        # a copy of the step's tokens: the graph's output buffer is
+        # overwritten by the next replay, the log keeps every step's row
+        greedy = greedy.clone()
         self._last_tok = greedy  # feed back on-device; no host round-trip
         self._pending.append((greedy, decoding))
         for slot, req in decoding:

@@ -90,6 +90,18 @@ def to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
+def upload_into(dst: torch.Tensor, x) -> torch.Tensor:
+    """Copy a small host array (or a tensor) into ``dst`` in place: from
+    pinned host memory, asynchronously, on CUDA, as :func:`to_device`
+    uploads, so ``dst`` keeps its storage and nothing syncs."""
+    if isinstance(x, torch.Tensor):
+        return dst.copy_(x)
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if dst.is_cuda:
+        return dst.copy_(t.pin_memory(), non_blocking=True)
+    return dst.copy_(t)
+
+
 # The slot-write updater of the unchunked admission path: every slot write
 # (the paged scatter of a one-shot prefill cache) walks the adapter
 # registry and lands in the pool tensors in place -- where the JAX package
@@ -406,7 +418,11 @@ class PagedKVCache:
         self._cow = cow_step(cfg)
         # host-side page tables; unmapped entries point at the null page
         self._table = np.zeros((pc.max_seqs, self.max_pages_per_seq), np.int32)
-        self._table_dev: Optional[torch.Tensor] = None
+        # its device mirror: one buffer for the pool's life (a captured
+        # decode step reads it), refreshed in place when a row changed
+        self._table_dev = torch.zeros(self._table.shape, dtype=torch.int32,
+                                      device=self.device)
+        self._table_dirty = False
         self._pages: Dict[int, List[int]] = {}  # slot -> physical pages
         self._cached_tokens: Dict[int, int] = {}  # slot -> aliased prefix len
         self.pages_aliased = 0  # cumulative prefix-page aliases (stats)
@@ -515,7 +531,7 @@ class PagedKVCache:
         row = np.zeros((self.max_pages_per_seq,), np.int32)
         row[: len(pages)] = pages
         self._table[slot] = row
-        self._table_dev = None
+        self._table_dirty = True
         return matched
 
     def ensure_capacity(self, slot: int, next_pos: int) -> bool:
@@ -534,7 +550,7 @@ class PagedKVCache:
                 return False
             self._table[slot, len(pages)] = got[0]
             pages.extend(got)
-            self._table_dev = None
+            self._table_dirty = True
         return True
 
     def prepare_decode_write(self, slot: int, next_pos: int) -> bool:  # repro: hot-loop
@@ -558,7 +574,7 @@ class PagedKVCache:
         self._cow(self.data, page, new)
         self._pages[slot][lp] = new
         self._table[slot, lp] = new
-        self._table_dev = None
+        self._table_dirty = True
         self.allocator.unref([page])
         self.cow_copies += 1
         return True
@@ -582,16 +598,18 @@ class PagedKVCache:
             self.allocator.unref(pages)
         self._cached_tokens.pop(slot, None)
         self._table[slot] = NULL_PAGE
-        self._table_dev = None
+        self._table_dirty = True
 
     def page_table(self) -> torch.Tensor:  # repro: hot-loop
-        """Device mirror of the page tables (re-uploaded only when dirty).
+        """Device mirror of the page tables (refreshed only when dirty).
 
-        The upload is an asynchronous host->device copy (not a sync) and
-        runs only on steps where a table entry actually changed; steady-state
-        decode reuses ``_table_dev`` without touching the host array."""
-        if self._table_dev is None:
-            self._table_dev = to_device(self._table, self.device)
+        The mirror is one buffer for the pool's life, written in place by
+        an asynchronous host->device copy (not a sync) only on steps where
+        a table entry actually changed; steady-state decode reuses it
+        without touching the host array."""
+        if self._table_dirty:
+            upload_into(self._table_dev, self._table)
+            self._table_dirty = False
         return self._table_dev
 
     # -- prefill install ----------------------------------------------------

@@ -303,5 +303,7 @@ def test_decode_reads_paged_attention_once_per_layer_and_step(setup, monkeypatch
         eng.submit(p, 5, rid=i, arrival_step=i, extras={"audio_embeds": _audio(rng, tc)})
     eng.run()
     assert eng.decode_steps > 0
-    assert calls == {"paged_attention_decode": tc.n_layers * eng.decode_steps,
+    # + 1: the decode runner's warm-up step at construction (every slot
+    # inactive), which the card's capture follows
+    assert calls == {"paged_attention_decode": tc.n_layers * (eng.decode_steps + 1),
                      "paged_copy_page": 0}
