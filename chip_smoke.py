@@ -66,8 +66,11 @@ Phases, each printing one JSON line:
    launches no paged kernel; a 4-layer ``gemm_backend="rwma"`` run launches
    rwma_gemm and agrees with the xla route under the same margin rule.
    Timed in bf16 (the config's type): decode step ms (median, p90), decode
-   tokens/s, TTFT, the device time by kernel of one profiled decode step and
-   the device's idle share.
+   tokens/s, TTFT (cold: a fresh engine's run, each chunk shape's first use
+   and capture included; and on that engine, its shapes met, the same
+   traffic with other tokens), the device time by kernel of one profiled
+   engine step of four full chunks and of one profiled decode step, and the
+   device's idle share.
 7. mla kernels -- mla_paged_attention_decode at DeepSeek-V3 decode shapes
    (B=4, 128 heads, latent 512, rope 64, pages of 128, seq_pos
    0/127/1000/1900, a scattered page table with unmapped entries on the null
@@ -147,8 +150,10 @@ Phases, each printing one JSON line:
    greedy tokens equal each request's own ``Server.generate`` under the
    margin rule; two requests with the same tokens and other images differ
    in their first logits, and the grid streams differ from equal streams,
-   each by at least 1e-3; no kernel launched.  Timed in bf16: the wave's
-   prefill, decode step median and p90, decode tok/s, one profiled step.
+   each by at least 1e-3; no kernel launched.  Timed in bf16 through the
+   ``Server`` (its prefill and decode graphs): the wave generated three
+   times, each prefill and decode step timed, decode step median and p90,
+   decode tok/s, one profiled step.
 14. train -- minicpm-2b at full width cut to 2 layers, fp32, batch 2 x
    128: ``loss_fn`` and its gradients on the card against the same call on
    the CPU (loss within 1e-5 relative, each gradient leaf within 1e-4 of
@@ -266,10 +271,11 @@ Phases, each printing one JSON line:
    (d) Each rank of a ``1 x 2`` serve mesh places smoke weights drawn on
    ``cuda:0`` onto ``cuda``: every placed leaf owns its storage (no view
    keeping the full leaf alive).
-21. graph -- the continuous engine's decode step as one CUDA graph
-   (``serve/graphs.py``; every single-card engine of phases 6-12 and 20
-   already replays it, so their gates hold the graphed engine against
-   ``Server.generate``, which stays eager).  In fp32 at each served
+21. graph -- the serving steps as CUDA graphs (``serve/graphs.py``; every
+   single-card engine of phases 6-12 and 20 already replays its decode step
+   and chunk steps, and every single-rank ``Server`` its prefill and
+   decode, so their gates hold the graphed engine against the graphed
+   ``Server.generate``).  In fp32 at each served
    family's decode shape -- starcoder2-7b (8 layers), DeepSeek-V3's dense
    prefix, granite (8), h2o (8), mamba2-130m, hymba (8), whisper-tiny --
    five requests just under a page boundary, one the prefix of another, 16
@@ -284,7 +290,22 @@ Phases, each printing one JSON line:
    2-slot engine in turns with the 4-slot one (the larger workspaces
    captured second).  (d) In a child process, a decode step with an
    injected ``.item()`` makes the capture raise right after the warm-up.
-   (e) Printed: each capture's seconds and private-pool bytes.
+   (e) Printed: each capture's seconds and private-pool bytes.  (f) The
+   chunk graphs (one a chunk shape, captured at its first use, sharing an
+   engine's pool) of the same engines: every chunk's replay under the sync
+   guard, its logits and every pool leaf but the null page bit-identical to
+   the eager chunk step on a clone of the pool and copies of the runner's
+   inputs; one capture a shape, the shapes those of the chunks run and
+   within ``chunk_shape_set``; no buffer, pool leaf or mirror moved; after
+   the run each runner replayed again in the reverse of its capture order,
+   bit-identical to the eager step (null page included); a chunk step with
+   an injected ``.item()`` makes the capture raise (a child process).  (g)
+   The static ``Server``'s graphs in fp32, starcoder2-7b (8 layers) and
+   qwen2-vl-72b (4 layers): waves of 2, 1 and 2 requests, 8 new tokens;
+   every prefill and decode replay under the sync guard and bit-identical
+   to the eager step (logits and caches), one prefill capture a prompt
+   shape and one decode capture a batch size, each batch size's cache tree
+   kept, the third wave's tokens equal to the first's.
 
 Each phase's seconds follow it on a line of their own.  Then the per-kernel
 summary line (the decode kernels' and the page copy's launches per serving
@@ -1088,14 +1109,16 @@ def port_kernel_names() -> set:
             for name in kernel.findall(path.read_text())}
 
 
-def profile_forward(torch, forward) -> dict:
-    """One call under torch.profiler: the device time by kernel (the port's
-    kernels by name, the rest under "other", with its five largest names),
-    the device window (first kernel start to last kernel end) and the share
-    of it in which no kernel ran."""
+def profile_forward(torch, forward, warm: bool = True) -> dict:
+    """One call under torch.profiler (after one unprofiled call, with
+    ``warm``): the device time by kernel (the port's kernels by name, the
+    rest under "other", with its five largest names), the device window
+    (first kernel start to last kernel end) and the share of it in which no
+    kernel ran."""
     from torch.profiler import ProfilerActivity, profile
 
-    forward()
+    if warm:
+        forward()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         forward()
@@ -1558,13 +1581,60 @@ def gated_serve(torch, kernels, cfg, params, prompts, arrivals, max_new, decode_
     return counts
 
 
+def _submit_all(eng, prompts, arrivals, max_new, extras=None, rid0=0):
+    """Submit the traffic to an engine, arrivals counted from its current
+    step; returns the request ids."""
+    rids = []
+    for i, (p, t) in enumerate(zip(prompts, arrivals)):
+        eng.submit(p, max_new, rid=rid0 + i, arrival_step=eng.step_count + t,
+                   extras=extras[i] if extras else None)
+        rids.append(rid0 + i)
+    return rids
+
+
+def _captures(eng) -> dict:
+    """The chunk graphs an engine captured: shapes, captures and seconds
+    (none for a tree without them)."""
+    graphs = getattr(eng, "_chunk_graphs", None) or {}
+    return {"chunk_shapes": sorted(graphs),
+            "chunk_captures": sum(r.captures for r in graphs.values()),
+            "chunk_capture_s": sum(r.capture_seconds for r in graphs.values()),
+            "chunk_pool_bytes": sum(r.pool_bytes for r in graphs.values())}
+
+
+def _stepped(torch, eng) -> tuple:
+    """Run an engine to the end one step at a time, a sync before and after
+    each step; (sorted ms of the steps that only decoded, tokens those
+    steps decoded)."""
+    decode_ms, decode_tokens = [], 0
+    while eng.sched.has_work():
+        chunks, steps = eng.prefill_chunks, eng.decode_steps
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t) * 1e3
+        if eng.prefill_chunks == chunks and eng.decode_steps == steps + 1:
+            decode_ms.append(dt)
+            decode_tokens += eng.obs.registry.gauge("decode_batch_occupancy").value
+    eng._flush_pending()
+    return sorted(decode_ms), decode_tokens
+
+
 def timed_serve(torch, cfg16, params, prompts, arrivals, max_new, extras=None,
                 **ec_kw) -> dict:
     """The bf16 serving numbers: the run's wall time with the deferred sync
-    (as served), decode step times with one sync per step, TTFT, and one
+    (as served); on a fresh engine, one sync per step, decode step times
+    and TTFT (each chunk shape's first use included: ``ttft_ms``); on that
+    engine, its chunk shapes met, the same traffic with other tokens (every
+    id plus one: the same lengths and shared prefixes, no hit in the first
+    run's prefix cache), TTFT again (``ttft_ms_warm``); one profiled engine
+    step of up to four full chunks of one request on that engine, and one
     profiled decode step with 4 slots decoding.  ``extras`` and ``ec_kw``:
     each request's modality inputs and the engine settings, as in
     :func:`gated_serve`."""
+    import numpy as np
+
     eng = run_engine(cfg16, params, prompts, arrivals, max_new, extras=extras,
                      **ec_kw)  # deferred sync, as served
     torch.cuda.synchronize()
@@ -1578,23 +1648,28 @@ def timed_serve(torch, cfg16, params, prompts, arrivals, max_new, extras=None,
               "cow_copies": eng.kv.cow_copies}
     eng = run_engine(cfg16, params, prompts, arrivals, max_new, extras=extras,
                      **ec_kw)  # one sync per step
-    decode_ms, decode_tokens = [], 0
-    while eng.sched.has_work():
-        chunks, steps = eng.prefill_chunks, eng.decode_steps
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        eng.step()
-        torch.cuda.synchronize()
-        dt = (time.perf_counter() - t) * 1e3
-        if eng.prefill_chunks == chunks and eng.decode_steps == steps + 1:
-            decode_ms.append(dt)
-            decode_tokens += eng.obs.registry.gauge("decode_batch_occupancy").value
-    eng._flush_pending()
+    decode_ms, decode_tokens = _stepped(torch, eng)
     reqs = [eng.sched.finished[r] for r in sorted(eng.sched.finished)]
     drained_audit(eng)
-    decode_ms.sort()
     ttft_steps = [r.stats.ttft_steps for r in reqs]
     ttft_ms = [r.stats.ttft_s * 1e3 for r in reqs]
+    other = [(p + 1) % cfg16.vocab_size for p in prompts]
+    rids = _submit_all(eng, other, arrivals, max_new, extras, rid0=len(prompts))
+    _stepped(torch, eng)
+    ttft_warm = [eng.sched.finished[r].stats.ttft_s * 1e3 for r in rids]
+    drained_audit(eng)
+    # one engine step of full chunks only: a fresh request of up to four
+    # pages (the admission budget) and one new token, nothing else running
+    page = eng.kv.page_size
+    n = min(4 * page, (eng.kv.max_len - 1) // page * page)
+    rng_tokens = (prompts[0][:1].repeat(n) + np.arange(n) + 2) % cfg16.vocab_size
+    _submit_all(eng, [rng_tokens.astype(np.int32)], [0], 1, extras and extras[:1],
+                rid0=2 * len(prompts))
+    chunks = eng.prefill_chunks
+    chunk_prof = profile_forward(torch, eng.step, warm=False)
+    chunk_prof["chunks"] = eng.prefill_chunks - chunks
+    eng.run()
+    captured = _captures(eng)
     # one profiled decode step: 4 slots decoding, no admission pending
     eng = run_engine(cfg16, params, prompts[3:7], [0, 0, 0, 0], max_new,
                      extras=extras and extras[3:7], **ec_kw)
@@ -1608,8 +1683,9 @@ def timed_serve(torch, cfg16, params, prompts, arrivals, max_new, extras=None,
             "decode_steps_timed": len(decode_ms),
             "decode_tok_s": decode_tokens / (sum(decode_ms) / 1e3),
             "ttft_steps": ttft_steps, "ttft_ms": ttft_ms,
-            "ttft_ms_median": statistics.median(ttft_ms), **shared,
-            "profiled_decode_step": prof}
+            "ttft_ms_median": statistics.median(ttft_ms), "ttft_ms_warm": ttft_warm,
+            "ttft_ms_median_warm": statistics.median(ttft_warm), **shared, **captured,
+            "profiled_chunk_step": chunk_prof, "profiled_decode_step": prof}
 
 
 def serve_timing(torch, names=None) -> dict:
@@ -2214,6 +2290,7 @@ def encdec_serve_phase(torch, kernels):
 # the vision frontend (phase 13): Qwen2-VL's image grid, 32 x 32 patches
 VISION_TEXT = 256
 VISION_GRID = 32
+VISION_VARIED_TEXT = (224, 192, 160, 128, 96, 64)  # vision_timing's varied waves
 # a logit difference that an image or a position stream must exceed
 CHANGED = 1e-3
 # phase 14: the 2-layer fp32 gate's tolerances (loss relative; each gradient
@@ -2267,8 +2344,6 @@ def vision_serve_phase(torch, kernels):
     static ``Server``: an image prefix per request and M-RoPE over three
     different position streams.  No kernel runs on this path (the JAX
     package serves it with plain XLA, no Pallas call)."""
-    import dataclasses
-
     import repro_torch.configs as C
     from repro_torch.models import model as M
     from repro_torch.serve import ServeConfig, Server
@@ -2316,40 +2391,113 @@ def vision_serve_phase(torch, kernels):
     del params, srv, first, equal_streams
     torch.cuda.empty_cache()
 
-    # -- timed, bf16 (the config's type)
-    cfg16 = dataclasses.replace(C.get_config("qwen2-vl-72b"), n_layers=layers)
-    params = M.init_params(cfg16, gen, device="cuda")
-    srv = Server(cfg16, params, ServeConfig(max_len=max_len), device="cuda")
-    wave = _wave(torch, prompts, extras)
-    prefill_ms = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        logits, caches = M.prefill(cfg16, params, wave)
-        torch.cuda.synchronize()
-        prefill_ms.append((time.perf_counter() - t) * 1e3)
-    caches = srv._grow_cache(caches, len(prompts), S)
-    tok = torch.argmax(logits[:, -1].float(), -1).to(torch.int32)[:, None]
-    decode_ms = []
-    for i in range(max_new):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        logits, caches = M.decode_step(cfg16, params, caches, tok, S + i)
-        tok = torch.argmax(logits[:, -1].float(), -1).to(torch.int32)[:, None]
-        torch.cuda.synchronize()
-        decode_ms.append((time.perf_counter() - t) * 1e3)
-    prof = profile_forward(torch, lambda: M.decode_step(cfg16, params, caches, tok, S))
-    decode_ms.sort()
-    emit({"phase": "vision", "model": cfg16.name, "run": "bf16 timed, static Server",
-          "layers": layers, "batch": len(prompts), "prompt_len": S,
-          "prefill_ms": prefill_ms, "prefill_ms_median": statistics.median(prefill_ms),
-          "decode_step_ms_median": statistics.median(decode_ms),
-          "decode_step_ms_p90": decode_ms[int(0.9 * (len(decode_ms) - 1))],
-          "decode_tok_s": len(prompts) * len(decode_ms) / (sum(decode_ms) / 1e3),
-          "profiled_decode_step": prof})
-    del params, srv, caches, logits
-    torch.cuda.empty_cache()
+    vision_timing(torch)  # timed, bf16 (the config's type)
     return counts
+
+
+def vision_timing(torch, layers: int = 4, max_new: int = 64, waves: int = 3) -> dict:
+    """The bf16 vision numbers through the static ``Server``: qwen2-vl-72b
+    at full width, ``layers`` deep, weights from seed 0, the wave of
+    :func:`vision_traffic` generated ``waves`` times; each prefill and
+    decode step timed with a sync before and after (the Server's ``_prefill``
+    and ``_decode``, which both trees have: a paired call runs it with each
+    tree's ``src`` first on ``sys.path``), then one decode step profiled;
+    then one wave at each of the prompt lengths ``VISION_VARIED_TEXT``
+    text tokens after the image, 8 new tokens, each prefill timed.  A
+    prompt shape's first prefill holds its capture on a tree that captures
+    one."""
+    import dataclasses
+
+    import repro_torch.configs as C
+    from repro_torch.models import model as M
+    from repro_torch.serve import ServeConfig, Server
+
+    cfg16 = dataclasses.replace(C.get_config("qwen2-vl-72b"), n_layers=layers)
+    prompts, extras = vision_traffic(cfg16)
+    S = len(prompts[0])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = M.init_params(cfg16, gen, device="cuda")
+    srv = Server(cfg16, params, ServeConfig(max_len=S + max_new), device="cuda")
+    wave = _wave(torch, prompts, extras)
+    times = {"_prefill": [], "_decode": []}
+    last = {}
+
+    def timed(name):
+        real = getattr(srv, name)
+
+        def run(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real(*args)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t) * 1e3)
+            last[name] = (real, args)
+            return out
+
+        setattr(srv, name, run)
+
+    timed("_prefill")
+    timed("_decode")
+    for _ in range(waves):
+        srv.generate(wave, max_new)
+    real, args = last["_decode"]
+    prof = profile_forward(torch, lambda: real(*args))
+    decode_ms = sorted(times["_decode"])
+    mem = {"allocated_bytes_fixed": torch.cuda.memory_allocated(),
+           "reserved_bytes_fixed": torch.cuda.memory_reserved()}
+    # varied traffic: one wave at each of six shorter prompts, every shape new
+    n_img = S - VISION_TEXT
+    for t in VISION_VARIED_TEXT:
+        n = n_img + t
+        srv.generate({"tokens": wave["tokens"][:, :n], "vis_embeds": wave["vis_embeds"],
+                      "positions3": wave["positions3"][:, :, :n]}, 8)
+    varied_ms = times["_prefill"][waves:]
+    mem.update(allocated_bytes_varied=torch.cuda.memory_allocated(),
+               reserved_bytes_varied=torch.cuda.memory_reserved())
+    graphs = [*getattr(srv, "_prefill_graphs", {}).values(),
+              *getattr(srv, "_decode_graphs", {}).values()]
+    line = {"phase": "vision", "model": cfg16.name, "run": "bf16 timed, static Server",
+            "layers": layers, "batch": len(prompts), "prompt_len": S, "waves": waves,
+            "prefill_ms": times["_prefill"][:waves],
+            "prefill_ms_median": statistics.median(times["_prefill"][:waves]),
+            "varied_prompt_lens": [n_img + t for t in VISION_VARIED_TEXT],
+            "varied_prefill_ms": varied_ms, "varied_prefill_ms_sum": sum(varied_ms),
+            "decode_step_ms_median": statistics.median(decode_ms),
+            "decode_step_ms_p90": decode_ms[int(0.9 * (len(decode_ms) - 1))],
+            "decode_steps_timed": len(decode_ms),
+            "decode_tok_s": len(prompts) * len(decode_ms) / (sum(decode_ms) / 1e3),
+            "captures": sum(g.captures for g in graphs),
+            "capture_s": [g.capture_seconds for g in graphs],
+            "pool_bytes": [g.pool_bytes for g in graphs], **mem,
+            "profiled_decode_step": prof}
+    emit(line)
+    del params, srv, wave, last, real, args
+    torch.cuda.empty_cache()
+    return line
+
+
+def paired_timing(src: str, names=None) -> None:
+    """One side of a paired timing call: :func:`serve_timing` (``names``,
+    default every row) and :func:`vision_timing` with the tree ``src``
+    (a directory holding ``repro_torch``) first on ``sys.path``, in a
+    process of its own; prints the card's line first.  Run it as
+    ``python3 -c "import chip_smoke; chip_smoke.paired_timing('SRC')"`` once
+    per tree, alternating."""
+    sys.path.insert(0, str(Path(src).resolve()))
+    import torch
+
+    import repro_torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    emit({"phase": "paired_timing", "src": src, "repro_torch": repro_torch.__file__,
+          "nvidia_smi": smi})
+    serve_timing(torch, names)
+    vision_timing(torch)
 
 
 def _leaf_rel_errors(torch, got, want):
@@ -3917,7 +4065,7 @@ def analysis_phase(torch, device: str = "cuda", full: bool = True) -> dict:
         calls = [0]
         if guard:
             eng._decode = guarded(eng._decode, device, calls)
-            eng._chunk_fn = guarded(eng._chunk_fn, device, calls)
+            eng._chunk = guarded(eng._chunk, device, calls)  # the chunk graphs' replays
         for i, p in enumerate(prompts):
             eng.submit(p, AN_SERVE_NEW, rid=i, arrival_step=i)
         reqs = eng.run()
@@ -4110,12 +4258,291 @@ def graph_summary(eng, rec, label: str, kernel, checks_preemption: bool,
     return row
 
 
-def graph_sync_child() -> None:
+def _pool_differ(torch, cfg, got, want, skip_null: bool = True) -> list:
+    """The pool leaves (the null page cut from paged ones with ``skip_null``)
+    that are not bit-identical."""
+    paged = _paged_pools(cfg)
+    differ = []
+    for seg, tree in got.items():
+        for key, leaves in tree.items():
+            for name, leaf in leaves.items():
+                other = want[seg][key][name]
+                if skip_null and (seg, key) in paged:
+                    leaf, other = leaf[:, 1:], other[:, 1:]
+                if not torch.equal(leaf, other):
+                    differ.append(f"{seg}/{key}/{name}")
+    return differ
+
+
+def _eager_chunk(torch, eng, runner, pool):
+    """The chunk step called eagerly on ``pool`` and copies of the runner's
+    input buffers: (logits, pool)."""
+    from repro_torch.serve.engine import step_fns
+
+    step = step_fns(eng.cfg)["prefill_chunk"][0]
+    with torch.no_grad():
+        row = runner.mirror.index_select(0, runner.slot.reshape(1))[0].clone()
+        return step(eng.params, pool, runner.tokens.clone(), runner.slot.clone(),
+                    runner.q_off.clone(), runner.phys_tok.clone(), runner.off_tok.clone(),
+                    row, runner.last_idx.clone())
+
+
+def chunk_checked(torch, eng, device: str) -> dict:
+    """Phase 21 (f): wrap ``eng._chunk`` (which replays the chunk graph of
+    the chunk's shape) in a checker: each call runs under the sync guard,
+    then the eager chunk step runs on a clone of the pool from before the
+    call and copies of the runner's input buffers; the logits and every
+    pool leaf but the null page must be bit-identical, and each runner's
+    buffers, the pool leaves and the page-table mirror keep their storage.
+    Returns the record the checker fills."""
+    from repro_torch import tree as T
+    from repro_torch.analysis.torchcheck.harness import sync_guard
+
+    real = eng._chunk
+    table = eng.kv.page_table()
+    pool_ptrs = eng.kv.pool_ptrs()
+    rec = {"replays": 0, "differ": [], "moved": 0, "order": [], "ptrs": {}}
+
+    def checked(params, pool, toks, slot, off, phys, offs, last):
+        before = T.tree_map(lambda t: t.clone(), pool)
+        with sync_guard(device):
+            logits, pool = real(params, pool, toks, slot, off, phys, offs, last)
+        n = toks.shape[1]
+        runner = eng._chunk_graphs[n]
+        want_l, want_pool = _eager_chunk(torch, eng, runner, before)
+        differ = ([] if torch.equal(logits, want_l) else ["logits"]) + _pool_differ(
+            torch, eng.cfg, pool, want_pool)
+        if differ:
+            rec["differ"].append({"replay": rec["replays"], "shape": n, "differ": differ})
+        ptrs = [t.data_ptr() for t in (runner.tokens, runner.phys_tok, runner.off_tok,
+                                       runner.scalars)]
+        rec["moved"] += (rec["ptrs"].setdefault(n, ptrs) != ptrs
+                         or eng.kv.pool_ptrs() != pool_ptrs or eng.kv.page_table() is not table)
+        rec["order"].append(n)
+        rec["replays"] += 1
+        return logits, pool
+
+    eng._chunk = checked
+    return rec
+
+
+def chunk_swapped(torch, eng, device: str) -> dict:
+    """Phase 21 (f), after the engine drained: each chunk runner replayed
+    once more in the reverse of its capture order, slot 0 on a first chunk
+    of fresh tokens, its K/V on the null page at distinct offsets; each
+    replay (under the sync guard) against the eager step on a clone of the
+    pool from before it, every pool leaf bit-identical (the null page
+    included)."""
+    import numpy as np
+
+    from repro_torch import tree as T
+    from repro_torch.analysis.torchcheck.harness import sync_guard
+
+    order = list(eng._chunk_graphs)  # insertion order: the capture order
+    rng = np.random.default_rng(31)
+    differ = []
+    for n in reversed(order):
+        runner = eng._chunk_graphs[n]
+        toks = rng.integers(0, eng.cfg.vocab_size, size=(1, n)).astype(np.int32)
+        zeros, offs = np.zeros(n, np.int32), (np.arange(n) % eng.kv.page_size).astype(np.int32)
+        before = T.tree_map(lambda t: t.clone(), eng.kv.data)
+        eng.kv.page_table()
+        with sync_guard(device):
+            logits, _ = runner(eng.params, eng.kv.data, toks, 0, 0, zeros, offs, n - 1)
+        want_l, want_pool = _eager_chunk(torch, eng, runner, before)
+        bad = ([] if torch.equal(logits, want_l) else ["logits"]) + _pool_differ(
+            torch, eng.cfg, eng.kv.data, want_pool, skip_null=False)
+        if bad:
+            differ.append({"shape": n, "differ": bad})
+    return {"order": list(reversed(order)), "differ": differ}
+
+
+def chunk_summary(eng, rec, swapped, label: str, on_card: bool) -> dict:
+    """One engine's phase-21 (f) line; raises on a failed gate."""
+    from repro_torch.serve.engine import chunk_shape_set
+
+    runners = eng._chunk_graphs
+    allowed = set(chunk_shape_set(eng.cfg, eng.chunk_size))
+    row = {"phase": "graph", "part": "f: chunk graphs", "model": label,
+           "slots": eng.ec.max_seqs, "chunks": eng.prefill_chunks,
+           "replays_checked": rec["replays"], "replays_differing": rec["differ"],
+           "storages_moved": rec["moved"], "shapes": list(runners),
+           "shape_order": rec["order"], "captures": {n: r.captures for n, r in runners.items()},
+           "capture_s": {n: r.capture_seconds for n, r in runners.items()},
+           "pool_bytes": {n: r.pool_bytes for n, r in runners.items()},
+           "replay_launches": {n: r.replay_launches for n, r in runners.items()},
+           "swapped_order": swapped["order"], "swapped_differing": swapped["differ"]}
+    emit(row)
+    fails = []
+    if rec["differ"] or rec["moved"] or swapped["differ"]:
+        fails.append("replays differ from the eager chunk or storages moved")
+    if rec["replays"] != eng.prefill_chunks or sum(r.calls for r in runners.values()) != (
+            eng.prefill_chunks + len(runners)):
+        fails.append("not every chunk went through the checked runners")
+    if set(runners) != set(rec["order"]) or not set(runners) <= allowed:
+        fails.append(f"shapes {sorted(runners)} not the chunks' or outside chunk_shape_set")
+    if any(r.captures != int(on_card) for r in runners.values()):
+        fails.append("not one capture a shape")
+    if fails:
+        raise AssertionError(f"graph (f) {label}: " + "; ".join(fails))
+    return row
+
+
+def server_graph_models(torch, full: bool = True) -> dict:
+    """{label: fp32 config} of phase 21 (g): starcoder2-7b cut to 8 layers
+    and qwen2-vl-72b cut to 4, at full width (``full=False``: the smoke
+    configs with blocks of 8, for the CPU)."""
+    import dataclasses
+
+    import repro_torch.configs as C
+
+    rows = (("starcoder2-7b 8 layers", "starcoder2-7b", 8),
+            ("qwen2-vl-72b 4 layers", "qwen2-vl-72b", 4))
+    out = {}
+    for label, arch, layers in rows:
+        cfg = C.get_config(arch, smoke=not full, dtype=torch.float32)
+        out[label] = dataclasses.replace(cfg, **({"n_layers": layers} if full else
+                                                 {"block": 8}))
+    return out
+
+
+def server_waves(cfg, full: bool):
+    """Phase 21 (g)'s three waves, each a list of (prompt, extras): 2
+    requests, then 1, then the first wave's 2 again.  A vision config takes
+    :func:`vision_traffic`'s requests; starcoder2-7b two 300-token prompts and
+    one of 200 (smoke: 12 and 9)."""
+    import numpy as np
+
+    if cfg.frontend == "vision":
+        prompts, extras = vision_traffic(cfg)
+        reqs = list(zip(prompts, extras))
+    else:
+        rng = np.random.default_rng(41)
+        lens = (300, 300, 200) if full else (12, 12, 9)
+        reqs = [(rng.integers(0, cfg.vocab_size, size=(n,)).astype(np.int32), None)
+                for n in lens]
+    return [reqs[:2], reqs[2:3], reqs[:2]]
+
+
+def server_graph_part(torch, device: str = "cuda", full: bool = True) -> dict:
+    """Phase 21 (g): the static ``Server``'s graphs, fp32, for starcoder2-7b
+    (8 layers) and qwen2-vl-72b (4 layers): three waves of 2, 1 and 2
+    requests (the 2-request graphs replayed after the 1-request ones were
+    captured), 8 new tokens.  Each prefill and decode call runs under the
+    sync guard, then the eager step on the same inputs (the decode on a
+    clone of the caches before the call, the position a device scalar as
+    the graph's); logits and every cache leaf bit-identical (the
+    prefill's caches against the first slots of the wave's tree, which the
+    graph writes); one prefill capture a prompt shape and one decode capture a batch size; each
+    batch size's tree keeps its storages; the third wave's tokens equal
+    the first's."""
+    import numpy as np
+
+    from repro_torch import tree as T
+    from repro_torch.analysis.torchcheck.harness import sync_guard
+    from repro_torch.models import model as M
+    from repro_torch.serve import ServeConfig, Server
+
+    on_card = torch.device(device).type == "cuda"
+    max_new = 8
+    out = {}
+    for label, cfg in server_graph_models(torch, full).items():
+        t0 = time.perf_counter()
+        params = M.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                               device=device)
+        waves = server_waves(cfg, full)
+        S_max = max(len(p) for wave in waves for p, _ in wave)
+        srv = Server(cfg, params, ServeConfig(max_len=S_max + max_new), device=device)
+        rec = {"prefills": 0, "decodes": 0, "differ": [], "shapes": []}
+        real_prefill, real_decode = srv._prefill, srv._decode
+
+        def prefill(params, batch, caches, last_idx=None):
+            with sync_guard(device):
+                logits = real_prefill(params, batch, caches, last_idx)
+            li = None if last_idx is None else torch.tensor(last_idx, dtype=torch.int32,
+                                                             device=device)
+            with torch.no_grad():
+                want_l, want_c = M.prefill(cfg, params, batch, li)
+            slots = [(caches[seg][key][name], leaf) for seg, tree in want_c.items()
+                     for key, leaves in tree.items() for name, leaf in leaves.items()]
+            bad = ([] if torch.equal(logits, want_l) else ["logits"]) + [
+                "caches" for a, b in slots
+                if not torch.equal(a[tuple(slice(0, n) for n in b.shape)], b.to(a.dtype))][:1]
+            if bad:
+                rec["differ"].append({"prefill": rec["prefills"], "differ": bad})
+            rec["prefills"] += 1
+            rec["shapes"].append(tuple(batch["tokens"].shape))
+            return logits
+
+        def decode(params, caches, tokens, pos):
+            before = T.tree_map(lambda t: t.clone(), caches)
+            with sync_guard(device):
+                logits, caches = real_decode(params, caches, tokens, pos)
+            with torch.no_grad():
+                want_l, want_c = M.decode_step(
+                    cfg, params, before, tokens.clone(),
+                    torch.tensor(pos, dtype=torch.int32, device=device))
+            bad = ([] if torch.equal(logits, want_l) else ["logits"]) + [
+                "caches" for a, b in zip(T.leaves(caches), T.leaves(want_c))
+                if not torch.equal(a, b)][:1]
+            if bad:
+                rec["differ"].append({"decode": rec["decodes"], "pos": pos, "differ": bad})
+            rec["decodes"] += 1
+            return logits, caches
+
+        srv._prefill, srv._decode = prefill, decode
+        tokens, ptrs = [], {}
+        for wave in waves:
+            batch = {"tokens": np.stack([p for p, _ in wave])}
+            if wave[0][1]:
+                batch.update({k: np.concatenate([x[k] for _, x in wave], axis=1 if
+                                                k == "positions3" else 0)
+                              for k in wave[0][1]})
+            tokens.append(srv.generate(batch, max_new))
+            B = len(wave)
+            now = [t.data_ptr() for t in T.leaves(srv._caches[B])]
+            rec.setdefault("moved", 0)
+            rec["moved"] += ptrs.setdefault(B, now) != now
+        pre = srv._prefill_graphs
+        dec = srv._decode_graphs
+        row = {"phase": "graph", "part": "g: Server graphs", "model": label,
+               "layers": cfg.n_layers, "waves": [len(w) for w in waves],
+               "prompt_shapes": rec["shapes"], "prefills_checked": rec["prefills"],
+               "decodes_checked": rec["decodes"], "differing": rec["differ"],
+               "storages_moved": rec["moved"],
+               "prefill_captures": [g.captures for g in pre.values()],
+               "decode_captures": {b: g.captures for b, g in dec.items()},
+               "capture_s": [g.capture_seconds for g in (*pre.values(), *dec.values())],
+               "pool_bytes": [g.pool_bytes for g in (*pre.values(), *dec.values())],
+               "tokens_wave3_equal_wave1": bool(np.array_equal(tokens[2], tokens[0])),
+               "seconds": time.perf_counter() - t0}
+        emit(row)
+        fails = []
+        if rec["differ"] or rec["moved"]:
+            fails.append("replays differ from the eager steps or storages moved")
+        if len(pre) != len(set(rec["shapes"])) or any(
+                g.captures != int(on_card) for g in (*pre.values(), *dec.values())):
+            fails.append("not one capture a shape")
+        if set(dec) != {1, 2} or rec["decodes"] != 3 * max_new:
+            fails.append("not every decode step went through the runners")
+        if not row["tokens_wave3_equal_wave1"]:
+            fails.append("the third wave's tokens differ from the first's")
+        if fails:
+            raise AssertionError(f"graph (g) {label}: " + "; ".join(fails))
+        out[label] = row
+        del params, srv, real_prefill, real_decode
+        if on_card:
+            torch.cuda.empty_cache()
+    return out
+
+
+def graph_sync_child(kind: str = "decode") -> None:
     """Phase 21 (d), in a process of its own (a failed capture may leave the
-    capture stream current): the decode step of starcoder2-7b at full width,
-    2 layers, with a ``.item()`` injected after it.  The runner must raise
-    at the capture, after its warm-up calls and before any other call.
-    Prints one JSON line."""
+    capture stream current): the decode step (``kind="chunk"``: the chunk
+    step, phase 21 (f)) of starcoder2-7b at full width, 2 layers, with a
+    ``.item()`` injected after it.  The runner must raise at the capture,
+    after its warm-up calls and before any other call.  Prints one JSON
+    line."""
     import dataclasses
 
     sys.path.insert(0, str(SRC))
@@ -4124,13 +4551,13 @@ def graph_sync_child() -> None:
     import repro_torch.configs as C
     from repro_torch.models import model as M
     from repro_torch.serve.engine import step_fns
-    from repro_torch.serve.graphs import WARMUP_STEPS, DecodeGraph
+    from repro_torch.serve.graphs import WARMUP_STEPS, ChunkGraph, DecodeGraph
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dataclasses.replace(C.get_config("starcoder2-7b", dtype=torch.float32), n_layers=2)
     params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
     pool = M.init_paged_cache(cfg, 4, GRAPH_POOL_PAGES, 128, 512, device="cuda")
-    step = step_fns(cfg)["decode_step"][0]
+    step = step_fns(cfg)["decode_step" if kind == "decode" else "prefill_chunk"][0]
     calls = [0]
 
     def with_sync(*args):
@@ -4140,9 +4567,17 @@ def graph_sync_child() -> None:
             raise AssertionError("unreachable")
         return out
 
+    mirror = torch.zeros((4, 4), dtype=torch.int32, device="cuda")  # the page table
     error = None
     try:
-        DecodeGraph(with_sync, params, pool, 4, 4, "cuda")
+        if kind == "decode":
+            DecodeGraph(with_sync, params, pool, 4, 4, "cuda", table=mirror)
+        else:
+            import numpy as np
+
+            runner = ChunkGraph(with_sync, params, pool, mirror, 128, "cuda")
+            runner(params, pool, np.zeros((1, 128), np.int32), 0, 0,
+                   np.zeros(128, np.int32), np.arange(128, dtype=np.int32), 127)
     except RuntimeError as e:  # the capture refuses the sync
         error = f"{type(e).__name__}: {e}"[:300]
     print(json.dumps({"raised": error is not None, "error": error,
@@ -4179,6 +4614,7 @@ def graph_phase(torch, kernels, device: str = "cuda", full: bool = True) -> dict
                               extras=extras, max_seqs=slots, **ec)
                    for slots in ((2, 4) if i == 0 else (4,))]
         recs = [graph_checked(torch, eng, device) for eng in engines]
+        chunk_recs = [chunk_checked(torch, eng, device) for eng in engines]
         while any(eng.sched.has_work() for eng in engines):
             for eng in engines:
                 if eng.sched.has_work():
@@ -4187,22 +4623,28 @@ def graph_phase(torch, kernels, device: str = "cuda", full: bool = True) -> dict
             eng._flush_pending()
         rows = [graph_summary(eng, rec, label, kernel, eng.ec.max_seqs == 4, on_card)
                 for eng, rec in zip(engines, recs)]
-        out[label] = {"rows": rows, "seconds": time.perf_counter() - t0}
+        chunk_rows = [chunk_summary(eng, rec, chunk_swapped(torch, eng, device), label,
+                                    on_card) for eng, rec in zip(engines, chunk_recs)]
+        out[label] = {"rows": rows, "chunk_rows": chunk_rows,
+                      "seconds": time.perf_counter() - t0}
         del params, engines, recs
         if on_card:
             torch.cuda.empty_cache()
+    out["server"] = server_graph_part(torch, device, full)
     if on_card:
-        child = subprocess.run(
-            [sys.executable, "-c", "import chip_smoke; chip_smoke.graph_sync_child()"],
-            cwd=ROOT, capture_output=True, text=True, timeout=600)
-        lines = child.stdout.strip().splitlines()
-        got = json.loads(lines[-1]) if child.returncode == 0 and lines else None
-        emit({"phase": "graph", "part": "d: a sync injected into the step",
-              "exit": child.returncode, **(got or {"stderr": child.stderr[-2000:]})})
-        if not got or not got["raised"] or got["step_calls"] != got["warmup_steps"] + 1:
-            raise AssertionError(f"graph (d): the injected sync did not make the capture "
-                                 f"raise right after the warm-up: {got}")
-        out["sync_child"] = got
+        for kind, part in (("decode", "d"), ("chunk", "f")):
+            child = subprocess.run(
+                [sys.executable, "-c",
+                 f"import chip_smoke; chip_smoke.graph_sync_child({kind!r})"],
+                cwd=ROOT, capture_output=True, text=True, timeout=600)
+            lines = child.stdout.strip().splitlines()
+            got = json.loads(lines[-1]) if child.returncode == 0 and lines else None
+            emit({"phase": "graph", "part": f"{part}: a sync injected into the {kind} step",
+                  "exit": child.returncode, **(got or {"stderr": child.stderr[-2000:]})})
+            if not got or not got["raised"] or got["step_calls"] != got["warmup_steps"] + 1:
+                raise AssertionError(f"graph ({part}): the injected sync did not make the "
+                                     f"capture raise right after the warm-up: {got}")
+            out[f"sync_child_{kind}"] = got
     return out
 
 

@@ -198,9 +198,12 @@ def serving_inventory(inv: Optional[InventoryConfig] = None) -> Inventory:
         probe=None if kernel_route_here else decode_probe)
 
     # -- prefill chunk: one spec per shape in the closure -------------------
+    def scalar(x):  # the chunk step's traced scalars: 0-dim int32 device tensors
+        return torch.tensor(x, dtype=torch.int32, device=device)
+
     def chunk_args(n):
-        return (params, fresh_caches(), i32(1, n), 0, 0, i32(n), i32(n),
-                i32(max_pages), n - 1)
+        return (params, fresh_caches(), i32(1, n), scalar(0), scalar(0), i32(n), i32(n),
+                i32(max_pages), scalar(n - 1))
 
     for n in closure:
         add(f"prefill_chunk_{n}", steps, "prefill_chunk", chunk_args(n))

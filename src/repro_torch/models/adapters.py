@@ -75,21 +75,43 @@ class CacheGeometry:
 # Shared slot-row helpers (per-slot, non-paged layouts)
 # --------------------------------------------------------------------------
 
-def read_slot_rows(seg_cache: Dict, slot: int) -> Dict:
-    """One batch slot's rows as a (1, ...) dict of views."""
+def read_slot_rows(seg_cache: Dict, slot) -> Dict:
+    """One batch slot's rows as a (1, ...) dict: views at a host int slot,
+    copies (``index_select``) at a 0-dim device tensor, which the chunk step
+    gets (no host read of the slot)."""
+    if isinstance(slot, torch.Tensor):
+        return {k: v.index_select(0, slot.reshape(1)) for k, v in seg_cache.items()}
     return {k: v[slot:slot + 1] for k, v in seg_cache.items()}
 
 
-def write_slot_rows(seg_cache: Dict, rows: Dict, slot: int, *, axis: int = 0) -> Dict:
-    """Write one slot's rows into the per-slot cache tensors, in place.
+def write_slot_rows(seg_cache: Dict, rows: Dict, slot, *, axis: int = 0) -> Dict:
+    """Write one slot's rows into the per-slot cache tensors, in place, at a
+    host int slot or a 0-dim device tensor (``index_copy_``).
 
     ``axis`` is the slot axis: 0 inside a layer step, 1 for install into the
     full (L, max_seqs, ...) pools.
     """
+    if isinstance(slot, torch.Tensor):
+        idx = slot.reshape(1).long()
+        for k in seg_cache:
+            seg_cache[k].index_copy_(axis, idx, rows[k].to(seg_cache[k].dtype))
+        return seg_cache
     index = (slice(None),) * axis + (slice(slot, slot + 1),)
     for k in seg_cache:
         seg_cache[k][index] = rows[k].to(seg_cache[k].dtype)
     return seg_cache
+
+
+def _first_chunk_reset(row: Dict, first, fill: Dict) -> Dict:
+    """``row`` with each named entry set to its ``fill`` value where
+    ``first`` (a host bool or a 0-dim device bool) holds: a ``torch.where``
+    against the fill value, bit-exact and with no host branch."""
+    out = dict(row)
+    for name, value in fill.items():
+        t = row[name]
+        first = torch.as_tensor(first, device=t.device)
+        out[name] = torch.where(first, torch.full_like(t, value), t)
+    return out
 
 
 def _install_paged(dst: Dict, src: Dict, phys_tok, off_tok,
@@ -139,6 +161,9 @@ class CacheAdapter:
     # True when the adapter installs request-level context once at
     # admission (:meth:`admission_src`), outside the token-chunk loop.
     installs_at_admission: bool = False
+    # True when the adapter's chunk resets the slot's rows on a request's
+    # first chunk (it reads ``ctx["first"]``).
+    first_chunk_resets: bool = False
 
     def copy_page(self, cfg: ModelConfig, seg_cache: Dict, src: int, dst: int) -> Dict:
         """Copy physical page ``src`` -> ``dst`` in this adapter's pools, in
@@ -193,8 +218,11 @@ class CacheAdapter:
 
     def chunk(self, p: Dict, cfg: ModelConfig, h, positions, cache: Dict,
               ctx: Dict, pos_offset: int):
-        """One prompt chunk of one slot.  ``ctx`` carries {slot, first,
-        table_row, phys_tok, off_tok}.  Returns (mixer_out, cache)."""
+        """One prompt chunk of one slot.  ``ctx`` carries {slot, table_row,
+        phys_tok, off_tok}, and ``first`` where the config's adapters reset
+        rows on a first chunk (:func:`first_chunk_resets`); the slot and
+        ``first`` host values or 0-dim device tensors.  Returns
+        (mixer_out, cache)."""
         raise NotImplementedError
 
     def decode(self, p: Dict, cfg: ModelConfig, h, positions, cache: Dict,
@@ -260,6 +288,7 @@ class RingAttnAdapter(CacheAdapter):
     key = "attn"
     param_key = "attn"
     family = "SWA (ring)"
+    first_chunk_resets = True
 
     def init_pool(self, cfg, geom, device=None):
         return attn.gqa_cache_init(self.rank_cfg(cfg, geom.tp_size), geom.max_seqs, geom.max_len,
@@ -290,13 +319,13 @@ class RingAttnAdapter(CacheAdapter):
 
     def chunk(self, p, cfg, h, positions, cache, ctx, pos_offset):
         # the first chunk resets the row's position labels to -1 (masked
-        # empty) so a re-used slot cannot leak a previous occupant's window
-        row = read_slot_rows(cache, ctx["slot"])
-        if ctx["first"]:
-            row["pos"].fill_(-1)
-        out, _ = attn.gqa_ring_prefill_chunk(p, cfg, h, positions, row, pos_offset,
-                                             window=cfg.window)
-        return out, cache
+        # empty) so a re-used slot cannot leak a previous occupant's window;
+        # the chunk writes its tokens into the row, which goes back whole
+        row = _first_chunk_reset(read_slot_rows(cache, ctx["slot"]), ctx["first"],
+                                 {"pos": -1})
+        out, row = attn.gqa_ring_prefill_chunk(p, cfg, h, positions, row, pos_offset,
+                                               window=cfg.window)
+        return out, write_slot_rows(cache, row, ctx["slot"])
 
     def decode(self, p, cfg, h, positions, cache, *, seq_pos, page_table, active):
         return attn.gqa_ring_decode(p, cfg, h, positions, cache, seq_pos,
@@ -360,6 +389,7 @@ class SSMStateAdapter(CacheAdapter):
     key = "ssm"
     param_key = "ssm"
     family = "SSM (state rows)"
+    first_chunk_resets = True
 
     def chunk_multiple(self, cfg):
         # chunk boundaries sit on the SSD chunk grid -- the grid the one-shot
@@ -377,9 +407,7 @@ class SSMStateAdapter(CacheAdapter):
         # the first chunk zeroes the row (it may hold a previous occupant's
         # state): zero state and history are exactly the one-shot prefill's
         row = read_slot_rows(cache, ctx["slot"])
-        if ctx["first"]:
-            for t in row.values():
-                t.zero_()
+        row = _first_chunk_reset(row, ctx["first"], {k: 0 for k in row})
         out, st = ssmm.ssm_forward(p, cfg, h, mode="prefill", state=row)
         return out, write_slot_rows(cache, st, ctx["slot"])
 
@@ -526,6 +554,12 @@ def prefix_compute_skippable(cfg: ModelConfig) -> bool:
     if any(kind == "moe" for kind, _n in layer_segments(cfg)):
         return False
     return all(ad.shareable for ad in all_adapters(cfg))
+
+
+def first_chunk_resets(cfg: ModelConfig) -> bool:
+    """Whether some adapter of the config resets its slot rows on a
+    request's first chunk (the chunk context then carries ``first``)."""
+    return any(ad.first_chunk_resets for ad in all_adapters(cfg))
 
 
 def prefill_chunk_multiple(cfg: ModelConfig) -> int:

@@ -104,6 +104,22 @@ def _write_split_slot(cache: Dict, pos: int, rows: Dict[str, torch.Tensor],
     cache["pos"][:, j] = pos
 
 
+def _write_decode_slot(cache: Dict, pos, rows: Dict[str, torch.Tensor], slot) -> None:
+    """Write the new token's ``rows`` ((B, 1, ...) each) and its position
+    label ``pos`` into cache slot ``slot``, in place: by slicing at a host
+    int, by ``index_copy_`` at a 0-dim device tensor (no host read)."""
+    if not isinstance(slot, torch.Tensor):
+        for name, t in rows.items():
+            cache[name][:, slot] = t[:, 0]
+        cache["pos"][:, slot] = pos
+        return
+    idx = slot.reshape(1).long()
+    for name, t in rows.items():
+        cache[name].index_copy_(1, idx, t.to(cache[name].dtype))
+    labels = cache["pos"]
+    labels.index_copy_(1, idx, pos.to(labels.dtype).reshape(1, 1).expand(labels.shape[0], 1))
+
+
 def split_decode_attention(q, k_cache, v_cache, k_positions, q_pos: int, *,
                            window: Optional[int] = None) -> torch.Tensor:
     """:func:`~repro_torch.models.common.decode_attention` over this rank's
@@ -210,10 +226,8 @@ def gqa_forward(
         new_cache = cache
     elif mode == "decode":
         assert cache is not None and S == 1
-        slot = pos_offset % cache["k"].shape[1]
-        cache["k"][:, slot] = k[:, 0]
-        cache["v"][:, slot] = v[:, 0]
-        cache["pos"][:, slot] = pos_offset
+        _write_decode_slot(cache, pos_offset, {"k": k, "v": v},
+                           pos_offset % cache["k"].shape[1])
         out = decode_attention(q, cache["k"], cache["v"], cache["pos"], pos_offset,
                                window=window)
         new_cache = cache
@@ -713,9 +727,7 @@ def mla_forward(
         new_cache = cache
     elif mode == "decode":
         assert cache is not None and S == 1
-        cache["ckv"][:, pos_offset] = ckv[:, 0]
-        cache["krope"][:, pos_offset] = k_rope[:, 0]
-        cache["pos"][:, pos_offset] = pos_offset
+        _write_decode_slot(cache, pos_offset, {"ckv": ckv, "krope": k_rope}, pos_offset)
         valid = (cache["pos"] >= 0) & (cache["pos"] <= pos_offset)
         out = _mla_absorbed_attend(cfg, wkv_b, q_nope, q_rope, cache["ckv"],
                                    cache["krope"], valid)

@@ -134,6 +134,24 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return _rotate(x, positions.float()[..., None] * inv)  # angles (B, S, d/2)
 
 
+def device_scalar(x, device) -> torch.Tensor:
+    """``x`` as a 0-dim int32 tensor on ``device``: a tensor as it is (the
+    traced scalar of the JAX package's compiled steps, which a captured
+    step reads from a static buffer), a host int uploaded (a blocking copy
+    on the card: the eager callers' convenience)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.tensor(x, dtype=torch.int32, device=device)
+
+
+def take_position(h: torch.Tensor, idx) -> torch.Tensor:
+    """``h[:, idx:idx + 1]`` for a host int or a 0-dim device tensor (an
+    ``index_select``: no host read of the index)."""
+    if isinstance(idx, torch.Tensor):
+        return h.index_select(1, idx.reshape(1))
+    return h[:, idx:idx + 1]
+
+
 def mrope_streams(sections, half: int) -> list:
     """The position stream (0 temporal, 1 height, 2 width) that drives each
     of the ``half`` frequency pairs: ``jnp.repeat(arange(len(sections)),
@@ -155,9 +173,23 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
     times 1 to the others times 0, which is exact."""
     d = x.shape[-1]
     inv = rope_freqs(d, theta, device=x.device)  # (d/2,)
-    sec_id = torch.tensor(mrope_streams(sections, d // 2), device=x.device)
+    sec_id = _stream_ids(sections, d // 2, x.device)
     pos = positions3.float()[sec_id]  # (d/2, B, S): each frequency's stream
     return _rotate(x, pos.permute(1, 2, 0) * inv)  # angles (B, S, d/2)
+
+
+def _stream_ids(sections, half: int, device) -> torch.Tensor:
+    """:func:`mrope_streams` as an index tensor on ``device``, made by device
+    operations alone (no host-to-device copy, which would sync and cannot
+    be captured): the first id, plus each later change of id from its
+    index on."""
+    ids = mrope_streams(sections, half)
+    at = torch.arange(half, device=device)
+    out = torch.full((half,), ids[0], dtype=torch.long, device=device)
+    for j in range(1, half):
+        if ids[j] != ids[j - 1]:
+            out = out + (ids[j] - ids[j - 1]) * (at >= j)
+    return out
 
 
 def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:

@@ -67,7 +67,14 @@ from repro_torch.models import adapters as A
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffnm
 from repro_torch.models import ssm as ssmm
-from repro_torch.models.common import apply_norm, default_positions, dense_init, norm_init
+from repro_torch.models.common import (
+    apply_norm,
+    default_positions,
+    dense_init,
+    device_scalar,
+    norm_init,
+    take_position,
+)
 
 # Segment structure lives with the cache-adapter registry, re-exported here
 # because the whole system addresses it as M.layer_segments.
@@ -271,6 +278,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None, tp_size:
             "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
         }
     return segs
+
+
+def reset_cache(caches) -> None:
+    """Set a static cache tree back to :func:`init_cache`'s values, in
+    place: every position label to -1 (empty), every other leaf to 0."""
+    for tree in caches.values():
+        for leaves in tree.values():
+            for name, leaf in leaves.items():
+                leaf.fill_(-1 if name == "pos" else 0)
 
 
 def supports_padded_prefill(cfg: ModelConfig) -> bool:
@@ -751,34 +767,40 @@ def _forward_encdec_train(cfg: ModelConfig, params, batch: Dict, *, remat: bool 
                                                    device=h.device), h
 
 
-def prefill(cfg: ModelConfig, params, batch: Dict, last_idx: Optional[int] = None):
+def prefill(cfg: ModelConfig, params, batch: Dict, last_idx=None):
     """Full-sequence forward that returns (last-position logits, caches).
 
-    ``last_idx`` selects which position's logits to return -- the
-    bucketed-prefill path right-pads the prompt to a shared shape and reads
-    the logits at the last *real* token (:func:`supports_padded_prefill`).
-    An enc-dec config reads the batch's ``audio_embeds``.
+    ``last_idx`` (a host int or a 0-dim int32 device tensor, the JAX
+    package's traced scalar) selects which position's logits to return --
+    the bucketed-prefill path right-pads the prompt to a shared shape and
+    reads the logits at the last *real* token
+    (:func:`supports_padded_prefill`).  An enc-dec config reads the batch's
+    ``audio_embeds``.
     """
     params = _materialize_top(_resident(params))
     if cfg.n_encoder_layers:
         return _prefill_encdec(cfg, params, batch)
     h, positions = _embed_inputs(cfg, params, batch)
     h, caches, _ = _run_segments(cfg, params, h, positions, mode="prefill")
-    h = h[:, -1:] if last_idx is None else h[:, last_idx:last_idx + 1]
+    h = h[:, -1:] if last_idx is None else take_position(h, last_idx)
     h = apply_norm(cfg, params["final_norm"], h)
     return _lm_logits(cfg, params, h), caches
 
 
-def decode_step(cfg: ModelConfig, params, caches, tokens, pos: int):
-    """One decode step.  tokens: (B, 1) integer; pos: host int absolute
-    position, on all three streams of an M-RoPE config (the JAX package's
-    rule).  Writes the caches in place; returns (logits (B, 1, V), caches)."""
+def decode_step(cfg: ModelConfig, params, caches, tokens, pos):
+    """One decode step.  tokens: (B, 1) integer; pos: the absolute position,
+    on all three streams of an M-RoPE config (the JAX package's rule) -- a
+    0-dim int32 device tensor (the JAX package's traced scalar: no host
+    read, so the step can be captured) or a host int (the split paths on a
+    mesh need one).  Writes the caches in place; returns (logits (B, 1, V),
+    caches)."""
     tokens = AX.rows_gather(tokens)  # under a decode split: every rank's rows
     B = tokens.shape[0]
     params = _resident(params)
     h = _embed(cfg, params, tokens)
     shape = (3, B, 1) if cfg.mrope_sections else (B, 1)
-    positions = torch.full(shape, pos, dtype=torch.int32, device=h.device)
+    positions = (pos.to(torch.int32).expand(shape) if isinstance(pos, torch.Tensor)
+                 else torch.full(shape, pos, dtype=torch.int32, device=h.device))
     if cfg.n_encoder_layers:
         return _decode_encdec(cfg, params, caches, h, positions, pos)
     h, new_caches, _ = _run_segments(
@@ -815,12 +837,15 @@ def decode_step_paged(cfg: ModelConfig, params, caches, tokens, seq_pos,
     return _lm_logits(cfg, params, h), new_caches
 
 
-def prefill_chunk(cfg: ModelConfig, params, caches, tokens, slot: int, q_off: int,
-                  phys_tok, off_tok, table_row, last_idx: int):
+def prefill_chunk(cfg: ModelConfig, params, caches, tokens, slot, q_off,
+                  phys_tok, off_tok, table_row, last_idx):
     """One prompt chunk of one request against the engine's paged caches.
 
     ``tokens`` (1, C) are positions ``q_off .. q_off + C`` of one request's
-    prompt.  Paged segments scatter the chunk's K/V straight into its
+    prompt.  ``slot``, ``q_off`` and ``last_idx`` are 0-dim int32 device
+    tensors, as the JAX package traces them (host ints are uploaded first):
+    nothing in the step reads them on the host, so one capture serves every
+    chunk of a shape.  Paged segments scatter the chunk's K/V straight into its
     physical pages (``phys_tok``/``off_tok``, null-page-routed when past the
     slot's allocation) and attend over the slot's ``table_row`` gather.
     ``caches`` is the engine's full cache tree, written in place, so no
@@ -834,19 +859,19 @@ def prefill_chunk(cfg: ModelConfig, params, caches, tokens, slot: int, q_off: in
     assert B == 1
     params = _resident(params)
     h = _embed(cfg, params, tokens)
+    slot, q_off, last_idx = (device_scalar(x, h.device) for x in (slot, q_off, last_idx))
     positions = (q_off + torch.arange(C, dtype=torch.int32, device=h.device))[None]
     if cfg.n_encoder_layers:
         # learned decoder positions for this chunk's absolute range
         h = h + params["dec_pos"][positions[0].long()][None]
-    chunk = {
-        "slot": slot, "first": q_off == 0, "table_row": table_row,
-        "phys_tok": phys_tok, "off_tok": off_tok,
-    }
+    chunk = {"slot": slot, "table_row": table_row, "phys_tok": phys_tok, "off_tok": off_tok}
+    if A.first_chunk_resets(cfg):  # a device bool, made only where an adapter reads it
+        chunk["first"] = q_off == 0
     h, new_caches, _ = _run_segments(
         cfg, params, h, positions, mode="chunk", caches=caches, pos_offset=q_off,
         chunk=chunk,
     )
-    h_last = apply_norm(cfg, params["final_norm"], h[:, last_idx:last_idx + 1])
+    h_last = apply_norm(cfg, params["final_norm"], take_position(h, last_idx))
     return _lm_logits(cfg, params, h_last), new_caches
 
 
@@ -933,8 +958,8 @@ def _prefill_encdec(cfg: ModelConfig, params, batch: Dict):
     return _lm_logits(cfg, params, h), {"seg0": _tree_stack(layer_caches)}
 
 
-def _decode_encdec(cfg: ModelConfig, params, caches, h, positions, pos: int):
-    h = h + params["dec_pos"][pos:pos + 1][None]
+def _decode_encdec(cfg: ModelConfig, params, caches, h, positions, pos):
+    h = h + params["dec_pos"].index_select(0, positions.reshape(-1)[:1])[None]
     for i in range(cfg.n_layers):
         h, _, _ = _dec_layer(
             cfg, _tree_index(params["seg0"], i), _tree_index(params["cross"], i), h,

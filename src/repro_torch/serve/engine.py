@@ -34,16 +34,25 @@ hot-loop`` call neither ``.item()`` nor ``.cpu()`` except at the two
 sanctioned sync points.  Host inputs (positions, page tables, write
 targets) go up through pinned memory without a sync.
 
-**The decode step as one CUDA graph**: where the JAX package jits its
-decode step with the pool donated, :class:`Engine` captures it once per
-engine (:class:`repro_torch.serve.graphs.DecodeGraph`) and replays it each
-step on static input buffers, the pool written in place; on the CPU the
-same runner calls the step eagerly.  The chunk step, the static
-:class:`Server` and an engine on a mesh of several ranks (whose gloo
-collectives go through the host) call the model's functions eagerly.
-:func:`step_fns` holds the steps, which
-:mod:`repro_torch.analysis.torchcheck` inventories.  Entry points run on
-the CUDA device unless ``device`` says otherwise.
+**The compiled steps as CUDA graphs**: where the JAX package jits its
+serving steps (the pool donated, the chunk's slot, offset and last index
+and the static decode's position traced scalars), a single-rank
+:class:`Engine` captures its decode step once
+(:class:`repro_torch.serve.graphs.DecodeGraph`) and its chunk step once
+per chunk shape at the shape's first use
+(:class:`~repro_torch.serve.graphs.ChunkGraph`, a subset of
+:func:`chunk_shape_set`), and a single-rank :class:`Server` its prefill
+once per prompt shape and its decode step once per wave batch size (the
+runners of at most :data:`MAX_PREFILL_SHAPES` shapes and
+:data:`MAX_WAVE_SIZES` sizes kept); each replays on static input buffers,
+the scalars in 0-dim device buffers, the pool or cache tree written in
+place.  On the CPU the same runners call the
+steps eagerly.  An engine or Server on a mesh of several ranks (whose gloo
+collectives go through the host) calls the model's functions eagerly, and
+so do the unchunked admission's prefill and install, the copy-on-write
+step and the enc-dec admission's encoder pass.  :func:`step_fns` holds the
+engine's steps, which :mod:`repro_torch.analysis.torchcheck` inventories.
+Entry points run on the CUDA device unless ``device`` says otherwise.
 
 **Serving on a mesh** (``mesh=``, a ``D x M`` mesh from
 :func:`repro_torch.launch.mesh.make_serve_mesh`): every rank builds the
@@ -63,6 +72,7 @@ without a collective of their own.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import math
@@ -79,7 +89,12 @@ from repro_torch.distributed import axes as AX
 from repro_torch.distributed import sharding as SH
 from repro_torch.models import adapters as A
 from repro_torch.models import model as M
-from repro_torch.serve.graphs import DecodeGraph
+from repro_torch.serve.graphs import (
+    ChunkGraph,
+    DecodeGraph,
+    PrefillGraph,
+    StaticDecodeGraph,
+)
 from repro_torch.serve.kvcache import (
     PagedCacheConfig,
     PagedKVCache,
@@ -234,6 +249,11 @@ def _eager_decode(step, device: torch.device):
     return decode
 
 
+def _ranks(mesh) -> int:
+    """The ranks of a serve mesh (1 without one)."""
+    return 1 if mesh is None else math.prod(AX.mesh_shape(mesh).values())
+
+
 def _rank_params(cfg: ModelConfig, params, mesh, device: torch.device):
     """(the parameters the engine runs, its shard policy): the caller's,
     which must live on ``device``, and none; under a mesh, this rank's
@@ -248,6 +268,30 @@ def _rank_params(cfg: ModelConfig, params, mesh, device: torch.device):
     return placed, (layout.policy() if layout.ranks > 1 else None)
 
 
+#: prompt shapes whose prefill runners a single-rank Server keeps
+MAX_PREFILL_SHAPES = 8
+#: wave batch sizes whose cache trees (and runners) a Server keeps
+MAX_WAVE_SIZES = 4
+
+
+def _fill_slots(full, small) -> None:
+    """Copy a prefill's cache tree ``small`` into the first slots of the
+    static tree ``full``, in place."""
+    for seg, tree in small.items():
+        for key, small_leaves in tree.items():
+            for name, leaf in small_leaves.items():
+                big = full[seg][key][name]
+                big[tuple(slice(0, n) for n in leaf.shape)] = leaf.to(big.dtype)
+
+
+def _prefill_into(cfg: ModelConfig, params, batch: Dict, caches, last_idx=None):
+    """``M.prefill`` with its caches written into the first slots of the
+    static tree ``caches``; the logits."""
+    logits, small = M.prefill(cfg, params, batch, last_idx)
+    _fill_slots(caches, small)
+    return logits
+
+
 class Server:
     """Static-wave batched generation (the single-request parity baseline).
 
@@ -257,6 +301,27 @@ class Server:
     than the JAX package's ``jax.random`` for the same seed.  ``mesh``: a
     ``D x M`` mesh; the rank keeps its shards of the full ``params``, or
     takes a tree its serve layout placed.
+
+    Where the JAX ``Server`` jits its prefill and decode (one compile per
+    batch shape, the position and the padded prefill's last index traced
+    scalars), a single-rank ``Server`` captures each as a CUDA graph: the
+    decode step once per wave batch size
+    (:class:`~repro_torch.serve.graphs.StaticDecodeGraph`), bound to that
+    size's cache tree at ``max_len``, which the Server resets each wave to
+    :func:`~repro_torch.models.model.init_cache`'s values; the prefill once
+    per prompt shape (:class:`~repro_torch.serve.graphs.PrefillGraph`),
+    bound to the same tree, into whose first slots it writes its caches,
+    so that a shape keeps only its input buffers and its logits.  The
+    Server keeps the runners of at most :data:`MAX_PREFILL_SHAPES` prompt
+    shapes and the trees of at most :data:`MAX_WAVE_SIZES` batch sizes,
+    the least recently used dropped first (a batch size's prefill runners
+    with its tree): a dropped shape met again is captured again.  The
+    graphs share one memory pool: the Server uses each replay's outputs
+    (it samples the logits) before it replays any graph again.  On the CPU
+    the same runners call the steps eagerly; on a mesh of several ranks the
+    steps run eagerly with a host-int position.
+    Sampling stays outside the graphs, as the JAX ``_sample`` stays outside
+    its jits.
     """
 
     def __init__(self, cfg: ModelConfig, params, sc: ServeConfig, mesh=None, device=None):
@@ -264,8 +329,13 @@ class Server:
         self.cfg, self.sc, self.mesh = cfg, sc, mesh
         self.device = resolve_device(device)
         self.params, self._policy = _rank_params(cfg, params, mesh, self.device)
-        self._prefill = functools.partial(M.prefill, cfg)
-        self._decode = functools.partial(M.decode_step, cfg)
+        self._graphs = _ranks(mesh) == 1
+        # least recently used first
+        self._prefill_graphs: Dict[tuple, PrefillGraph] = collections.OrderedDict()
+        self._decode_graphs: Dict[int, StaticDecodeGraph] = {}
+        self._caches: Dict[int, Any] = collections.OrderedDict()  # batch size -> tree
+        self._mempool = (torch.cuda.graph_pool_handle()
+                         if self._graphs and self.device.type == "cuda" else None)
 
     def _sample(self, logits, generator):
         logits = logits[:, -1].float()
@@ -274,15 +344,70 @@ class Server:
         probs = torch.softmax(logits / self.sc.temperature, -1)
         return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
 
+    def _prefill(self, params, batch: Dict, caches, last_idx: Optional[int] = None):
+        """``M.prefill`` with its caches written into the first slots of the
+        wave's tree ``caches``; the logits.  On one rank through the runner
+        of the batch's shapes, bound to the tree (``last_idx`` its 0-dim
+        buffer); on a mesh eagerly."""
+        if not self._graphs:
+            return _prefill_into(self.cfg, params, batch, caches, last_idx)
+        B = batch["tokens"].shape[0]
+        key = (B, tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(batch.items())),
+               last_idx is not None)
+        runner = self._prefill_graphs.pop(key, None)
+        if runner is None:
+            while len(self._prefill_graphs) >= MAX_PREFILL_SHAPES:
+                self._prefill_graphs.popitem(last=False)
+            runner = PrefillGraph(functools.partial(_prefill_into, self.cfg), self.params,
+                                  batch, caches, last_idx is not None, self.device,
+                                  mempool=self._mempool)
+        self._prefill_graphs[key] = runner
+        return runner(params, batch, caches, last_idx)
+
+    def _decode(self, params, caches, tokens, pos: int):
+        """``M.decode_step``: on one rank through the runner of the wave's
+        batch size (bound to its cache tree), on a mesh eagerly."""
+        if not self._graphs:
+            return M.decode_step(self.cfg, params, caches, tokens, pos)
+        return self._decode_graphs[tokens.shape[0]](params, caches, tokens, pos)
+
+    def _drop_wave(self, batch: int) -> None:
+        """Drop a batch size's tree and the runners bound to it."""
+        del self._caches[batch]
+        self._decode_graphs.pop(batch, None)
+        for key in [k for k in self._prefill_graphs if k[0] == batch]:
+            del self._prefill_graphs[key]
+
+    def _wave_cache(self, batch: int):
+        """The cache tree of a wave of ``batch`` requests, at max_len slots
+        (static decode shapes), reset to ``init_cache``'s values; on one
+        rank with its decode runner, built (and on the card captured) on the
+        reset tree before any prompt is written in, then reset again (the
+        warm-up writes a slot and the SSM state rows)."""
+        caches = self._caches.pop(batch, None)
+        if caches is None:
+            while len(self._caches) >= MAX_WAVE_SIZES:
+                self._drop_wave(next(iter(self._caches)))
+            caches = M.init_cache(
+                self.cfg, batch, self.sc.max_len, device=self.device, tp_size=self.tp_size)
+        else:
+            M.reset_cache(caches)
+        self._caches[batch] = caches
+        if self._graphs and batch not in self._decode_graphs:
+            runner = StaticDecodeGraph(functools.partial(M.decode_step, self.cfg),
+                                       self.params, caches, batch, self.device,
+                                       mempool=self._mempool)
+            self._decode_graphs[batch] = runner
+            if runner.graphed:
+                M.reset_cache(caches)
+        return caches
+
     def _grow_cache(self, caches, batch: int, prompt_len: int):
-        """Pad prefill caches out to max_len slots (static decode shapes)."""
-        full = M.init_cache(self.cfg, batch, self.sc.max_len, device=self.device,
-                            tp_size=self.tp_size)
-        for seg, tree in caches.items():
-            for key, small_leaves in tree.items():
-                for name, small in small_leaves.items():
-                    big = full[seg][key][name]
-                    big[tuple(slice(0, n) for n in small.shape)] = small.to(big.dtype)
+        """The wave's cache tree (:meth:`_wave_cache`) with the prefill
+        caches ``caches`` copied into its first slots (static decode
+        shapes)."""
+        full = self._wave_cache(batch)
+        _fill_slots(full, caches)
         return full
 
     def generate(self, batch: Dict, max_new_tokens: int = 32) -> np.ndarray:
@@ -313,16 +438,16 @@ class Server:
             Sp = min(bucket_tokens(S, quantum), sc.max_len)
             padded = np.zeros((B, Sp), np.int32)
             padded[:, :S] = tokens
-            logits, caches = self._prefill(
-                self.params, {"tokens": to_device(padded, self.device), **extras}, S - 1)
+            prompt, last_idx = padded, S - 1
         else:
-            logits, caches = self._prefill(
-                self.params, {"tokens": to_device(tokens, self.device), **extras})
-        caches = self._grow_cache(caches, B, S)
+            prompt, last_idx = tokens, None
+        caches = self._wave_cache(B)
+        logits = self._prefill(self.params, {"tokens": to_device(prompt, self.device),
+                                             **extras}, caches, last_idx)
         generator = torch.Generator(device=self.device).manual_seed(sc.seed)
+        tok = self._sample(logits, generator)  # the prefill's logits used at once
         out = []
         done = torch.zeros((B,), dtype=torch.bool, device=self.device)
-        tok = self._sample(logits, generator)
         for i in range(max_new_tokens):
             out.append(tok)
             if sc.eos_id is not None:
@@ -470,14 +595,18 @@ class Engine:
         self._prefill = functools.partial(M.prefill, cfg)
         steps = step_fns(cfg)
         self._chunk_fn = steps["prefill_chunk"][0]
-        # one rank: the step captured once (CUDA graph; eager on the CPU);
+        # one rank: the decode step captured once, the chunk step once per
+        # chunk shape at its first use (CUDA graphs; eager on the CPU);
         # several: eager, since gloo's collectives go through the host
-        ranks = 1 if mesh is None else math.prod(AX.mesh_shape(mesh).values())
-        if ranks > 1:
+        if _ranks(mesh) > 1:
             self._decode = _eager_decode(steps["decode_step"][0], self.device)
+            self._chunk_graphs: Optional[Dict[int, ChunkGraph]] = None
         else:
             self._decode = DecodeGraph(steps["decode_step"][0], self.params, self.kv.data,
-                                       ec.max_seqs, self.kv.max_pages_per_seq, self.device)
+                                       ec.max_seqs, self.kv.max_pages_per_seq, self.device,
+                                       table=self.kv.page_table())
+            self._chunk_graphs = {}
+        self._chunk_pool = None  # the chunk graphs' shared memory pool
         # per-slot last sampled token, kept ON DEVICE: the greedy loop feeds
         # decode outputs straight back in, syncing to host only at
         # scheduling events (finish, preemption, EOS, temperature sampling)
@@ -572,13 +701,11 @@ class Engine:
         n_pad = final_chunk_len(self.cfg, self.chunk_size, n) if off + n >= len(prompt) else n
         toks = np.zeros((1, n_pad), np.int32)
         toks[0, :n] = prompt[off : off + n]
-        phys_tok, off_tok = self.kv.token_targets(slot, off, n_pad)
+        phys_tok, off_tok = self.kv.token_targets_host(slot, off, n_pad)
         self.obs.chunk_begin(req, self.step_count, off, n)
         with self.obs.device_span("prefill_chunk"):
-            logits, self.kv.data = self._chunk_fn(
-                self.params, self.kv.data, to_device(toks, self.device), slot,
-                off, phys_tok, off_tok, self.kv.table_row(slot), n - 1,
-            )
+            logits, self.kv.data = self._chunk(
+                self.params, self.kv.data, toks, slot, off, phys_tok, off_tok, n - 1)
         req.prefill_pos += n
         self.prefill_tokens += n
         self.prefill_chunks += 1
@@ -592,6 +719,29 @@ class Engine:
             self.obs.prefill_complete(req, self.step_count)
             self._append_token(slot, req, self._sample(logits[0, -1], req))
         return n
+
+    def _chunk(self, params, pool, toks, slot: int, off: int, phys_tok, off_tok,
+               last_idx: int):  # repro: hot-loop
+        """The chunk step on host inputs: the runner of the chunk's shape
+        (built and, on the card, captured at the shape's first use), after
+        a dirty page table is uploaded to the mirror it reads; on a mesh of
+        several ranks, the step called eagerly on uploaded inputs."""
+        if self._chunk_graphs is None:
+            scalars = to_device(np.array([slot, off, last_idx], np.int32), self.device)
+            return self._chunk_fn(params, pool, to_device(toks, self.device), scalars[0],
+                                  scalars[1], to_device(phys_tok, self.device),
+                                  to_device(off_tok, self.device), self.kv.table_row(slot),
+                                  scalars[2])
+        mirror = self.kv.page_table()
+        n = toks.shape[1]
+        runner = self._chunk_graphs.get(n)
+        if runner is None:
+            if self.device.type == "cuda" and self._chunk_pool is None:
+                self._chunk_pool = torch.cuda.graph_pool_handle()
+            runner = self._chunk_graphs[n] = ChunkGraph(
+                self._chunk_fn, self.params, self.kv.data, mirror, n, self.device,
+                slot_rows=self.kv.slot_row_leaves(), mempool=self._chunk_pool)
+        return runner(params, pool, toks, slot, off, phys_tok, off_tok, last_idx)
 
     def _prefill_full(self, slot: int, req: Request) -> None:
         """One-shot prefill + in-place install (unchunked path)."""

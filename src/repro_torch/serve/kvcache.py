@@ -96,7 +96,7 @@ def upload_into(dst: torch.Tensor, x) -> torch.Tensor:
     uploads, so ``dst`` keeps its storage and nothing syncs."""
     if isinstance(x, torch.Tensor):
         return dst.copy_(x)
-    t = torch.from_numpy(np.ascontiguousarray(x))
+    t = torch.from_numpy(np.ascontiguousarray(x)).reshape(dst.shape)
     if dst.is_cuda:
         return dst.copy_(t.pin_memory(), non_blocking=True)
     return dst.copy_(t)
@@ -662,8 +662,15 @@ class PagedKVCache:
     def token_targets(  # repro: hot-loop
         self, slot: int, start: int, n: int
     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`token_targets_host` as int32 device tensors."""
+        phys, off = self.token_targets_host(slot, start, n)
+        return to_device(phys, self.device), to_device(off, self.device)
+
+    def token_targets_host(  # repro: hot-loop
+        self, slot: int, start: int, n: int
+    ) -> Tuple[np.ndarray, np.ndarray]:
         """Per-token (physical page, in-page offset) for positions
-        ``[start, start + n)`` of a slot, as int32 device tensors.  Positions
+        ``[start, start + n)`` of a slot, as int32 host arrays.  Positions
         past the slot's page allocation (the pad tail of a bucketed prompt)
         are routed to the null page, whose content is garbage by design --
         as are positions the slot serves from *aliased* prefix pages: their
@@ -678,10 +685,7 @@ class PagedKVCache:
             (lp < len(pages)) & (pos >= self._cached_tokens.get(slot, 0)),
             pages[np.minimum(lp, len(pages) - 1)], NULL_PAGE,
         )
-        return (
-            to_device(phys.astype(np.int32), self.device),
-            to_device((pos % self.page_size).astype(np.int32), self.device),
-        )
+        return phys.astype(np.int32), (pos % self.page_size).astype(np.int32)
 
     def table_row(self, slot: int) -> torch.Tensor:
         """One slot's page-table row for the chunk-prefill gather -- a slice
@@ -702,6 +706,17 @@ class PagedKVCache:
         replicated pools (MLA latent pages, SSM rows, ring position labels)
         count whole.  Equals :meth:`cache_bytes` single-device."""
         return sum(t.numel() * t.element_size() for t in T.leaves(self.data))
+
+    def slot_row_leaves(self) -> List[torch.Tensor]:
+        """The pool leaves that hold one row per batch slot ((L, max_seqs,
+        ...): SWA rings, SSM state and conv rows, enc-dec cross rows), every
+        leaf of the non-paged adapters."""
+        out = []
+        for si, (kind, _n) in enumerate(M.layer_segments(self.cfg)):
+            for ad in A.adapters_for(self.cfg, kind):
+                if not ad.paged:
+                    out.extend(self.data[f"seg{si}"][ad.key].values())
+        return out
 
     def pool_ptrs(self) -> List[int]:
         """Device addresses of the pool tensors (they never move)."""
